@@ -1,0 +1,15 @@
+"""mamba_asr_torch: the PyTorch / CUDA (H100) port of mamba_asr_tpu.
+
+The JAX package `mamba_asr_tpu` is the reference; this package mirrors
+its module layout and names. It imports neither JAX nor that package.
+Entry points run on the CUDA card unless given `device="cpu"`. Every TPU
+kernel on a ported path is a hand-written Hopper kernel under `csrc/`,
+bound in `kernels/`, with its plain PyTorch version beside it in `ops/`.
+
+Ported so far: offline ConMamba CTC recognition
+(`serving.recognizer.Recognizer`).
+"""
+
+from mamba_asr_torch.utils.device import resolve_device
+
+__all__ = ["resolve_device"]

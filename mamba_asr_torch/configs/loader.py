@@ -1,0 +1,113 @@
+"""Load the `model:` and `frontend:` stanzas of an hparams YAML (port of
+mamba_asr_tpu/configs/loader.py, with a copy of the JAX package's
+FrontendConfig from training/trainer.py).
+
+`--section.key value` overrides are applied to the YAML before it is
+read and are type-coerced from the dataclass fields. The other stanzas
+(train, data, decode, ...) belong to slices not yet ported and are not
+read.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import typing
+from typing import Any, Dict, Optional, Sequence, Tuple, get_args, get_origin
+
+import yaml
+
+from mamba_asr_torch.models.asr import ASRConfig
+from mamba_asr_torch.models.mamba import MambaConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    """Fbank parameters (hparams/CTC/conmamba_large.yaml:102-106)."""
+
+    sample_rate: int = 16000
+    n_fft: int = 512
+    n_mels: int = 80
+    win_length_ms: float = 25.0
+    hop_length_ms: float = 10.0
+
+    @property
+    def hop(self) -> int:
+        return int(round(self.sample_rate * self.hop_length_ms / 1000.0))
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    name: str = "experiment"
+    model: ASRConfig = ASRConfig()
+    frontend: FrontendConfig = FrontendConfig()
+
+
+_NESTED = {"model": ASRConfig, "frontend": FrontendConfig, "mamba": MambaConfig}
+
+
+def _coerce(field_type, value):
+    origin = get_origin(field_type)
+    if origin in (tuple, Tuple):
+        args = get_args(field_type)
+        elem = args[0] if args else str
+        return tuple(_coerce(elem, v) for v in value)
+    if field_type is float and value is not None:
+        return float(value)
+    if field_type is int and value is not None and not isinstance(value, bool):
+        return int(value)
+    if field_type is bool and isinstance(value, str):
+        return value.lower() in ("1", "true", "yes")
+    if field_type is Optional[int] and value is not None:
+        return int(value)
+    return value
+
+
+def _build(cls, d: Dict[str, Any]):
+    field_names = {f.name for f in dataclasses.fields(cls)}
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    for k, v in d.items():
+        if k not in field_names:
+            raise KeyError(f"unknown config key '{k}' for {cls.__name__}")
+        if k in _NESTED and isinstance(v, dict):
+            kwargs[k] = _build(_NESTED[k], v)
+        else:
+            kwargs[k] = _coerce(hints[k], v)
+    return cls(**kwargs)
+
+
+def load_config(path: str, overrides: Optional[Dict[str, Any]] = None
+                ) -> ExperimentConfig:
+    with open(path, encoding="utf-8") as f:
+        raw = yaml.safe_load(f) or {}
+    for dotted, value in (overrides or {}).items():
+        node = raw
+        parts = dotted.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return _build(ExperimentConfig, {
+        k: raw[k] for k in ("name", "model", "frontend") if k in raw
+    })
+
+
+def parse_overrides(argv: Sequence[str]) -> Dict[str, Any]:
+    """`--a.b value` (or `--a.b=value`) pairs -> {"a.b": yaml-parsed value}."""
+    out: Dict[str, Any] = {}
+    i = 0
+    args = list(argv)
+    while i < len(args):
+        a = args[i]
+        if not a.startswith("--"):
+            raise ValueError(f"expected --key, got {a}")
+        key = a[2:]
+        if "=" in key:
+            key, val = key.split("=", 1)
+            i += 1
+        else:
+            if i + 1 >= len(args):
+                raise ValueError(f"missing value for --{key}")
+            val = args[i + 1]
+            i += 2
+        out[key] = yaml.safe_load(val)
+    return out

@@ -1,0 +1,1 @@
+"""decoding of the PyTorch port (see mamba_asr_torch/__init__.py)."""

@@ -1,0 +1,191 @@
+"""Shared model layers (port of mamba_asr_tpu/models/layers.py): the
+positionwise FFN, the Conformer convolution module (full-sequence path)
+and the Conv2d front end.
+
+Parameters keep the reference PyTorch names that
+`mamba_asr_tpu.models.torch_export.export_asr_params` writes (SpeechBrain's
+wrappers `.w` / `.norm`, Sequential indices), so a state dict loads with
+`strict=True`. Parameters are float32; each layer computes in its
+`dtype`, as a flax module with `dtype=` does: linear and conv layers cast
+inputs and weights to it, LayerNorms take statistics in float32 and
+return `dtype`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+Activation = Callable[[torch.Tensor], torch.Tensor]
+
+LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
+
+
+def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """`lin` applied in `dtype` (flax nn.Dense(dtype=...))."""
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
+    """flax nn.LayerNorm(dtype=...): float32 statistics, output in dtype."""
+    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+    return y.to(dtype)
+
+
+def make_layer_norm(d: int) -> nn.LayerNorm:
+    return nn.LayerNorm(d, eps=LN_EPS)
+
+
+class SBLinear(nn.Module):
+    """SpeechBrain's Linear wrapper: the layer sits under `.w`."""
+
+    def __init__(self, n_in: int, n_out: int, bias: bool = True):
+        super().__init__()
+        self.w = nn.Linear(n_in, n_out, bias=bias)
+
+
+class SBLayerNorm(nn.Module):
+    """SpeechBrain's LayerNorm wrapper: the norm sits under `.norm`."""
+
+    def __init__(self, d: int):
+        super().__init__()
+        self.norm = make_layer_norm(d)
+
+
+class PositionalwiseFeedForward(nn.Module):
+    """Dense(d_ffn) -> activation -> Dense(d_model). The reference keys
+    are `ffn.0` and `ffn.3` (a Sequential with activation and dropout
+    between); inference has no dropout."""
+
+    def __init__(self, d_model: int, d_ffn: int, activation: Activation = swish,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.ffn = nn.ModuleDict({
+            "0": nn.Linear(d_model, d_ffn), "3": nn.Linear(d_ffn, d_model),
+        })
+        self.activation = activation
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.activation(dense(x, self.ffn["0"], self.dtype))
+        return dense(h, self.ffn["3"], self.dtype)
+
+
+class ConvolutionModule(nn.Module):
+    """Conformer convolution module, full sequence, no mask:
+    LN -> pointwise 2x expansion + GLU -> depthwise conv -> LN ->
+    activation -> pointwise Dense. Non-causal pads (K-1)//2 on both sides,
+    causal pads K-1 on the left."""
+
+    def __init__(self, d_model: int, kernel_size: int = 31, bias: bool = True,
+                 activation: Activation = swish, causal: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.layer_norm = make_layer_norm(d_model)
+        # Reference: Conv1d(d, 2d, 1) + GLU; applied here as a Dense.
+        self.bottleneck = nn.ModuleDict(
+            {"0": nn.Conv1d(d_model, 2 * d_model, 1, bias=bias)}
+        )
+        self.conv = nn.Conv1d(d_model, d_model, kernel_size, groups=d_model,
+                              bias=bias)
+        self.after_conv = nn.ModuleDict({
+            "0": make_layer_norm(d_model),
+            "2": nn.Linear(d_model, d_model, bias=bias),
+        })
+        self.kernel_size = kernel_size
+        self.activation = activation
+        self.causal = causal
+        self.dtype = dtype
+
+    @property
+    def padding_amount(self) -> int:
+        k = self.kernel_size
+        return k - 1 if self.causal else (k - 1) // 2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        out = layer_norm(x, self.layer_norm, dt)
+        pw = self.bottleneck["0"]
+        out = F.linear(out, pw.weight[:, :, 0].to(dt),
+                       None if pw.bias is None else pw.bias.to(dt))
+        a, g = out.chunk(2, dim=-1)
+        out = a * torch.sigmoid(g)
+        p = self.padding_amount
+        pads = (p, 0) if self.causal else (p, p)
+        out = F.pad(out.transpose(1, 2), pads)
+        out = F.conv1d(out, self.conv.weight.to(dt),
+                       None if self.conv.bias is None else self.conv.bias.to(dt),
+                       groups=out.shape[1])
+        out = layer_norm(out.transpose(1, 2), self.after_conv["0"], dt)
+        return dense(self.activation(out), self.after_conv["2"], dt)
+
+
+def same_padding(n: int, k: int, s: int) -> tuple:
+    """flax padding="SAME" for one axis: (0, 1) for an even n and (1, 1)
+    for an odd one at k=3, s=2 -- input-dependent and asymmetric."""
+    out = -(-n // s)
+    tot = max((out - 1) * s + k - n, 0)
+    return tot // 2, tot - tot // 2
+
+
+class SBConv2d(nn.Module):
+    """SpeechBrain's Conv2d wrapper: the layer sits under `.conv`."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, k, stride=stride)
+
+
+class _ConvBlock(nn.Module):
+    def __init__(self, cin: int, cout: int, k: int, stride: int):
+        super().__init__()
+        self.convs = nn.ModuleDict({
+            "conv_0": SBConv2d(cin, cout, k, stride),
+            "norm_0": SBLayerNorm(cout),
+        })
+
+
+class ConvolutionFrontEnd(nn.Module):
+    """Conv2d subsampling stack: (B, T, n_mels) -> (B, T', F', C_last).
+
+    Each block: flax-SAME padding, Conv2d (stride s), LayerNorm over the
+    channels only, leaky_relu(0.01). Time is the conv's H axis and mel
+    frequency its W axis; the output is channels-last, as in the JAX
+    package, so the caller's (B, T', F'*C) flatten matches.
+    """
+
+    def __init__(self, out_channels: Sequence[int] = (64, 32),
+                 kernel_sizes: Sequence[int] = (3, 3),
+                 strides: Sequence[int] = (2, 2),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        cin = 1
+        for i, (c, k, s) in enumerate(zip(out_channels, kernel_sizes, strides)):
+            setattr(self, f"convblock_{i}", _ConvBlock(cin, c, k, s))
+            cin = c
+        self.kernel_sizes = tuple(kernel_sizes)
+        self.strides = tuple(strides)
+        self.dtype = dtype
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x = feats[:, None].to(dt)  # (B, 1, T, F)
+        for i, (k, s) in enumerate(zip(self.kernel_sizes, self.strides)):
+            convs = getattr(self, f"convblock_{i}").convs
+            conv = convs["conv_0"].conv
+            pt = same_padding(x.shape[2], k, s)
+            pf = same_padding(x.shape[3], k, s)
+            x = F.pad(x, (pf[0], pf[1], pt[0], pt[1]))
+            x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), stride=s)
+            y = layer_norm(x.permute(0, 2, 3, 1), convs["norm_0"].norm, dt)
+            y = F.leaky_relu(y, 0.01)  # (B, T', F', C)
+            x = y.permute(0, 3, 1, 2)
+        return y

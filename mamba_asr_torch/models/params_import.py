@@ -1,0 +1,170 @@
+"""Carry the JAX package's trained ASRModel params into the port.
+
+The port's own copy of the ConMamba, front-end and CTC-head subset of
+mamba_asr_tpu/models/torch_export.py (with params_convert.py's scanned ->
+unrolled step): a nested dict of arrays, as `ASRModel.init` gives it,
+becomes a state dict of float32 tensors under the reference names, which
+`mamba_asr_torch.models.asr.ASRModel.load_state_dict(strict=True)` takes.
+
+Orientations: Dense kernels (in, out) -> Linear (out, in); depthwise taps
+(K, D) -> Conv1d (D, 1, K); the conv module's bottleneck Dense (D, 2D) ->
+pointwise Conv1d (2D, D, 1); flax Conv2d (kh, kw, I, O) -> (O, I, kh, kw).
+Every leaf must be consumed: a leaf this layout cannot hold raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _leaves(node, prefix=()):
+    if isinstance(node, Mapping):
+        for k, v in node.items():
+            yield from _leaves(v, prefix + (str(k),))
+    else:
+        yield "/".join(prefix)
+
+
+def _unroll_encoder(params: Mapping[str, Any], num_layers: int) -> Dict[str, Any]:
+    """scan_layers params ({'stack': {'layers': {inner: stacked}}}, leading
+    depth axis) -> per-layer {'layer_i': ...} subtrees."""
+    enc = dict(params["encoder"])
+    (stacked,) = enc.pop("stack")["layers"].values()
+
+    def index(node, i):
+        if isinstance(node, Mapping):
+            return {k: index(v, i) for k, v in node.items()}
+        return np.asarray(node)[i]
+
+    for i in range(num_layers):
+        enc[f"layer_{i}"] = index(stacked, i)
+    out = dict(params)
+    out["encoder"] = enc
+    return out
+
+
+class _Tree:
+    """Consumption-tracked view of a params tree ('/'-joined paths)."""
+
+    def __init__(self, params: Mapping[str, Any]):
+        self.params = params
+        self.used = set()
+
+    def has(self, path: str) -> bool:
+        node = self.params
+        for part in path.split("/"):
+            if not isinstance(node, Mapping) or part not in node:
+                return False
+            node = node[part]
+        return True
+
+    def take(self, path: str) -> np.ndarray:
+        if not self.has(path):
+            raise KeyError(f"params tree has no '{path}'")
+        node = self.params
+        for part in path.split("/"):
+            node = node[part]
+        self.used.add(path)
+        return np.asarray(node, dtype=np.float32)
+
+    def finish(self) -> None:
+        unused = sorted(set(_leaves(self.params)) - self.used)
+        if unused:
+            raise ValueError(
+                f"{len(unused)} param leaves have no place in the port's "
+                f"model (first 10): {unused[:10]}"
+            )
+
+
+def _linear(t: _Tree, path: str, key: str, out: Dict[str, np.ndarray]):
+    out[f"{key}.weight"] = t.take(f"{path}/kernel").T
+    if t.has(f"{path}/bias"):
+        out[f"{key}.bias"] = t.take(f"{path}/bias")
+
+
+def _layer_norm(t: _Tree, path: str, key: str, out: Dict[str, np.ndarray]):
+    out[f"{key}.weight"] = t.take(f"{path}/scale")
+    out[f"{key}.bias"] = t.take(f"{path}/bias")
+
+
+def _ffn(t: _Tree, path: str, key: str, out):
+    _linear(t, f"{path}/Dense_0", f"{key}.ffn.0", out)
+    _linear(t, f"{path}/Dense_1", f"{key}.ffn.3", out)
+
+
+def _scan_head(t: _Tree, path: str, key: str, suffix: str, out):
+    out[f"{key}.conv1d{suffix}.weight"] = t.take(f"{path}/conv_w").T[:, None, :]
+    if t.has(f"{path}/conv_b"):
+        out[f"{key}.conv1d{suffix}.bias"] = t.take(f"{path}/conv_b")
+    out[f"{key}.x_proj{suffix}.weight"] = t.take(f"{path}/x_proj/kernel").T
+    out[f"{key}.dt_proj{suffix}.weight"] = t.take(f"{path}/dt_kernel").T
+    out[f"{key}.dt_proj{suffix}.bias"] = t.take(f"{path}/dt_bias")
+    out[f"{key}.A_b_log" if suffix else f"{key}.A_log"] = t.take(f"{path}/A_log")
+    out[f"{key}.D{suffix}"] = t.take(f"{path}/D")
+
+
+def _mamba(t: _Tree, path: str, key: str, out):
+    _linear(t, f"{path}/in_proj", f"{key}.in_proj", out)
+    _linear(t, f"{path}/out_proj", f"{key}.out_proj", out)
+    _scan_head(t, f"{path}/fwd", key, "", out)
+    if t.has(f"{path}/bwd"):
+        _scan_head(t, f"{path}/bwd", key, "_b", out)
+
+
+def _conv_module(t: _Tree, path: str, key: str, out):
+    _layer_norm(t, f"{path}/layer_norm", f"{key}.layer_norm", out)
+    out[f"{key}.bottleneck.0.weight"] = (
+        t.take(f"{path}/bottleneck/kernel").T[:, :, None]
+    )
+    if t.has(f"{path}/bottleneck/bias"):
+        out[f"{key}.bottleneck.0.bias"] = t.take(f"{path}/bottleneck/bias")
+    out[f"{key}.conv.weight"] = t.take(f"{path}/dw_kernel").T[:, None, :]
+    if t.has(f"{path}/dw_bias"):
+        out[f"{key}.conv.bias"] = t.take(f"{path}/dw_bias")
+    _layer_norm(t, f"{path}/after_norm", f"{key}.after_conv.0", out)
+    _linear(t, f"{path}/pointwise_out", f"{key}.after_conv.2", out)
+
+
+def _encoder_layer(t: _Tree, path: str, key: str, out):
+    _layer_norm(t, f"{path}/ffn1_norm", f"{key}.ffn_module1.0", out)
+    _ffn(t, f"{path}/ffn1", f"{key}.ffn_module1.1", out)
+    _mamba(t, f"{path}/mamba", f"{key}.mamba", out)
+    _conv_module(t, f"{path}/conv", f"{key}.convolution_module", out)
+    _layer_norm(t, f"{path}/ffn2_norm", f"{key}.ffn_module2.0", out)
+    _ffn(t, f"{path}/ffn2", f"{key}.ffn_module2.1", out)
+    _layer_norm(t, f"{path}/norm1", f"{key}.norm1.norm", out)
+    _layer_norm(t, f"{path}/norm2", f"{key}.norm2.norm", out)
+
+
+def _frontend(t: _Tree, path: str, key: str, num_blocks: int, out):
+    for i in range(num_blocks):
+        blk = f"{key}.convblock_{i}.convs"
+        out[f"{blk}.conv_0.conv.weight"] = (
+            t.take(f"{path}/conv{i}/kernel").transpose(3, 2, 0, 1)
+        )
+        out[f"{blk}.conv_0.conv.bias"] = t.take(f"{path}/conv{i}/bias")
+        _layer_norm(t, f"{path}/norm{i}", f"{blk}.norm_0.norm", out)
+
+
+def import_asr_params(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX ASRModel params (unrolled or scanned layout; numpy or JAX
+    arrays) -> the port's ASRModel state dict for `cfg`."""
+    if cfg.encoder_module != "conmamba" or cfg.num_decoder_layers > 0:
+        raise NotImplementedError(
+            "params import covers the ConMamba CTC model only"
+        )
+    if "stack" in params.get("encoder", {}):
+        params = _unroll_encoder(params, cfg.num_encoder_layers)
+    t = _Tree(params)
+    out: Dict[str, np.ndarray] = {}
+    _frontend(t, "frontend", "0", len(cfg.frontend_channels), out)
+    _linear(t, "src_proj", "1.custom_src_module.layers.0.w", out)
+    for i in range(cfg.num_encoder_layers):
+        _encoder_layer(t, f"encoder/layer_{i}", f"1.encoder.layers.{i}", out)
+    _layer_norm(t, "encoder/norm", "1.encoder.norm.norm", out)
+    _linear(t, "ctc_head", "2.w", out)
+    t.finish()
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}

@@ -1,0 +1,99 @@
+"""Rules of the PyTorch port that hold without running a model.
+
+- No file of mamba_asr_torch/, nor chip_smoke.py, imports JAX, flax,
+  optax or the JAX package (a static scan of the source).
+- Entry points default to the CUDA card and refuse to run without one;
+  chip_smoke.py fails, printing no result, without a card or without the
+  rest of the repository.
+"""
+
+from __future__ import annotations
+
+import ast
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from mamba_asr_torch.configs.loader import FrontendConfig
+from mamba_asr_torch.models.asr import ASRConfig
+from mamba_asr_torch.serving.recognizer import Recognizer
+from mamba_asr_torch.utils.device import resolve_device
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "mamba_asr_tpu"}
+PORT_FILES = sorted((REPO / "mamba_asr_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")):
+            yield node.args[0].value.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_jax(path):
+    bad = FORBIDDEN & set(_imported_roots(path))
+    assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+def test_import_scan_catches_each_form(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import jax.numpy as jnp\nfrom flax import linen\n"
+                   "import importlib\nimportlib.import_module('mamba_asr_tpu.ops')\n")
+    assert {"jax", "flax", "mamba_asr_tpu"} <= set(_imported_roots(src))
+
+
+def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Recognizer(ASRConfig(), FrontendConfig(), {})
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _run_smoke(cwd: Path) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+        text=True, timeout=120,
+    )
+
+
+def _printed_result(stdout: str) -> bool:
+    for line in stdout.splitlines():
+        try:
+            if json.loads(line).get("ok"):
+                return True
+        except (ValueError, AttributeError):
+            continue
+    return False
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    proc = _run_smoke(REPO)
+    assert proc.returncode != 0
+    assert not _printed_result(proc.stdout)
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert not _printed_result(proc.stdout)
