@@ -19,6 +19,21 @@ exits non-zero; it prints no result without a CUDA card):
              median of 5 blocks
   profile    one B32 x 30 s forward under torch.profiler: device time by
              kernel
+  kernel_bwd the selective-scan adjoint (K2) against its plain version at
+             the training shape (B32 x 25 s -> L626, D288, N16, bf16) and
+             on a ragged fp32 case with h0 and d(h_last); K1's training
+             form against its inference form and the plain chunk states;
+             times and bounds
+  train_parity  one Trainer.train_step of the full-width model (fp32,
+             TF32 and cuDNN off, dropout 0, SpecAugment off, B2 x 4 s)
+             on the card against the CPU: loss and every parameter's
+             gradient (the cuDNN-on difference is reported)
+  train      Trainer(device="cuda") with the YAML's settings (bf16,
+             dropout 0.1, SpecAugment, accumulation 4) on B32 x 25 s of
+             noise with ~300-token targets: 8 checked micro-steps, then
+             training throughput (audio-s per wall-s, median of 3 blocks
+             of 4 micro-steps) and peak memory
+  train_profile  one such micro-step under torch.profiler
 
 then the kernels line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
@@ -44,6 +59,21 @@ SFU_PER_CLOCK_PER_SM = 16   # Hopper: 16 special-function results / clock / SM
 BF16_TOL = (1e-2, 1e-2)     # (atol, rtol): one bf16 ulp of the output is <= 0.78 % of it
 FP32_TOL = (2e-4, 2e-4)     # exp2 vs exp and FMA contraction over L steps
 PARITY_TOL = 1e-3           # CTC log-probs after 12 fp32 layers, card vs CPU
+# K2 vs its plain version: (rtol, fraction of the largest |value| as atol).
+# bf16: du, ddelta, dz, dB, dC round to bf16 on both sides (one ulp is
+# 0.78 %); fp32: exp2 vs exp and partial sums in other orders.
+BWD_BF16_TOL = (2e-2, 2e-2)
+BWD_FP32_TOL = (1e-3, 1e-4)
+# One fp32 train step, card vs CPU, cuDNN off: the loss, and each
+# parameter's gradient after 12 layers forward and back (sums in other
+# orders, torch's CTC against the plain recursion). With cuDNN on, its
+# convolution backward differs from the CPU's by up to ~1e-2 of the
+# largest value on the front end's weight gradients even with TF32 off,
+# and by a different amount in each run: that is reported, not held.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = (1e-2, 1e-3)
+TRAIN_SECONDS = 25.0        # 626 encoder frames; B32 x 25 s = 800 s < max_batch_seconds 850
+GRAD_NAMES = ("u", "delta", "A", "B", "C", "D", "z", "delta_bias", "h0")
 
 
 def emit(obj) -> None:
@@ -117,6 +147,64 @@ def scan_bound_ms(inp, clock_hz: float, sms: int):
     bytes_s = nbytes / HBM_BYTES_PER_S
     ops_s = max(sfu_s, flop_s)
     return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s else "operations")
+
+
+def scan_bwd_bound_ms(inp, clock_hz: float, sms: int):
+    """Least time for the adjoint's work: its inputs (the forward's, dout
+    and the chunk states) read once and its outputs (du, ddelta, dz in
+    u's dtype; dB, dC, dA, dD, ddelta_bias in fp32) written once, against
+    an exp2 per state element and ~5 special functions per channel step
+    (softplus, its derivative, the sigmoid of z) on the SFUs and ~15 fp32
+    FLOP per state element."""
+    b, length, d = inp["u"].shape
+    n = inp["A"].shape[1]
+    nbytes = sum(t.numel() * t.element_size() for t in inp.values()
+                 if torch.is_tensor(t))
+    nbytes += 3 * inp["u"].numel() * inp["u"].element_size()  # du, ddelta, dz
+    nbytes += 4 * (2 * b * length * n + d * n + 2 * d)         # dB, dC, dA, dD, ddb
+    if inp.get("h0") is not None:
+        nbytes += inp["h0"].numel() * 4                        # dh0
+    sfu_s = b * length * d * (n + 5) / (SFU_PER_CLOCK_PER_SM * sms * clock_hz)
+    flop_s = 15.0 * b * length * d * n / FP32_FLOP_PER_S
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    ops_s = max(sfu_s, flop_s)
+    return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s else "operations")
+
+
+def check_grads(name, got, ref, rtol, atol_frac):
+    """Each gradient within atol_frac * max|ref| + rtol * |ref|; returns
+    the largest error relative to its tensor's largest value, and the
+    largest absolute error."""
+    worst = worst_abs = 0.0
+    for key, g, r in zip(GRAD_NAMES, got, ref):
+        if r is None:
+            if g is not None:
+                raise AssertionError(f"{name} {key}: expected no gradient")
+            continue
+        if g.dtype != r.dtype or g.shape != r.shape:
+            raise AssertionError(f"{name} {key}: {g.dtype} {tuple(g.shape)} vs "
+                                 f"{r.dtype} {tuple(r.shape)}")
+        scale = r.float().abs().max().item()
+        err = check_close(f"{name} {key}", g, r, atol_frac * scale, rtol)
+        worst = max(worst, err / max(scale, 1e-30))
+        worst_abs = max(worst_abs, err)
+    return worst, worst_abs
+
+
+def plain_chunk_states(inp, chunk):
+    """The plain states after steps chunk, 2*chunk, ... and L:
+    selective_scan_ref on each prefix (B, n_chunks, D, N)."""
+    from mamba_asr_torch.ops.selective_scan import selective_scan_ref
+
+    length = inp["u"].shape[1]
+    per_step = ("u", "delta", "B", "C", "z")
+    states = []
+    for end in range(chunk, length + chunk, chunk):
+        part = {k: (v[:, :min(end, length)] if k in per_step else v)
+                for k, v in inp.items()}
+        states.append(selective_scan_ref(**part, delta_softplus=True,
+                                         return_last_state=True)[1])
+    return torch.stack(states, 1)
 
 
 def phase_build():
@@ -266,15 +354,15 @@ def phase_recognize(cfg, frontend, state):
     return main_launches, rec32, batch
 
 
-def phase_profile(rec32, batch):
+def device_profile(fn, top: int):
+    """One call of fn() under torch.profiler: (wall ms, device kernel ms,
+    the `top` kernels by device time as {kernel, ms, calls})."""
     from torch.profiler import ProfilerActivity, profile
 
-    wav = torch.from_numpy(np.stack(batch))
-    lens = torch.full((32,), 480000, dtype=torch.int32)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rec32.eval_step(wav, lens)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = []
@@ -286,8 +374,196 @@ def phase_profile(rec32, batch):
             rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
     total_ms = sum(r[0] for r in rows) / 1e3
+    return wall_ms, total_ms, [{"kernel": k[:80], "ms": us / 1e3, "calls": c}
+                               for us, k, c in rows[:top]]
+
+
+def phase_profile(rec32, batch):
+    wav = torch.from_numpy(np.stack(batch))
+    lens = torch.full((32,), 480000, dtype=torch.int32)
+    wall_ms, total_ms, top = device_profile(lambda: rec32.eval_step(wav, lens), 12)
     emit({"phase": "profile", "wall_ms": wall_ms, "device_kernel_ms": total_ms,
-          "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": c} for us, k, c in rows[:12]]})
+          "top": top})
+
+
+def phase_kernel_bwd(cfg, clock_hz, sms):
+    from mamba_asr_torch.kernels import selective_scan as kernel
+    from mamba_asr_torch.ops.selective_scan import selective_scan_bwd_ref
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    d_inner = cfg.mamba.expand * cfg.d_model
+    frames = -(-(int(TRAIN_SECONDS * 100) + 1) // cfg.downsample)
+    train = scan_inputs(32, frames, d_inner, cfg.mamba.d_state, torch.bfloat16, gen)
+    ragged = scan_inputs(3, 333, 200, cfg.mamba.d_state, torch.float32, gen, h0=True)
+    cases, cots = [], {}
+    for name, inp, tol in (("train_bf16", train, BWD_BF16_TOL),
+                           ("ragged_fp32_h0_dhlast", ragged, BWD_FP32_TOL)):
+        b, length, d = inp["u"].shape
+        n = inp["A"].shape[1]
+        dout = torch.randn(b, length, d, generator=gen).cuda().to(inp["u"].dtype)
+        dhl = torch.randn(b, d, n, generator=gen).cuda() if inp["h0"] is not None else None
+        cots[name] = (dout, dhl)
+        out_inf = kernel.selective_scan_fwd(**inp, delta_softplus=True)
+        out, _, h_chunks = kernel.selective_scan_fwd_train(**inp, delta_softplus=True)
+        got = kernel.selective_scan_bwd(**inp, delta_softplus=True, h_chunks=h_chunks,
+                                        dout=dout, dh_last=dhl)
+        torch.cuda.synchronize()
+        if not torch.equal(out, out_inf):
+            raise AssertionError(f"{name}: K1's training form changed out")
+        states_err = check_close(f"{name} chunk states", h_chunks,
+                                 plain_chunk_states(inp, kernel.CHUNK), *FP32_TOL)
+        ref = selective_scan_bwd_ref(*(inp[k] for k in GRAD_NAMES[:8]), True,
+                                     inp["h0"], dout, dhl)
+        worst, worst_abs = check_grads(name, got, ref, *tol)
+        cases.append({"case": name, "shape": [b, length, d, n],
+                      "dtype": str(inp["u"].dtype), "max_rel_err": worst,
+                      "max_abs_err": worst_abs,
+                      "chunk_states_max_abs_err": states_err, "tol": tol})
+    dout, _ = cots["train_bf16"]
+    _, _, h_chunks = kernel.selective_scan_fwd_train(**train, delta_softplus=True)
+    bwd_args = dict(train, delta_softplus=True, h_chunks=h_chunks, dout=dout)
+    kernel_ms = cuda_ms(lambda: kernel.selective_scan_bwd(**bwd_args), 20)
+    plain_ms = cuda_ms(lambda: selective_scan_bwd_ref(
+        *(train[k] for k in GRAD_NAMES[:8]), True, None, dout), 3)
+    fwd_train_ms = cuda_ms(lambda: kernel.selective_scan_fwd_train(
+        **train, delta_softplus=True), 20)
+    fwd_ms = cuda_ms(lambda: kernel.selective_scan_fwd(**train, delta_softplus=True), 20)
+    bound_ms, bound_by = scan_bwd_bound_ms(dict(train, dout=dout, h_chunks=h_chunks),
+                                           clock_hz, sms)
+    fwd_bound_ms, fwd_bound_by = scan_bound_ms(train, clock_hz, sms)
+    fwd_bound_ms = max(fwd_bound_ms, 1e3 * h_chunks.numel() * 4 / HBM_BYTES_PER_S)
+    result = {"phase": "kernel_bwd", "name": "selective_scan_bwd", "cases": cases,
+              "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": None,
+              "fwd_train": {"kernel_ms": fwd_train_ms, "inference_form_ms": fwd_ms,
+                            "bound_ms": fwd_bound_ms, "bound_by": fwd_bound_by,
+                            "chunk_states_mb": h_chunks.numel() * 4 / 1e6}}
+    emit(result)
+    return result
+
+
+def char_batch(bsz, seconds, tokens, seed, vocab):
+    """B x seconds of N(0, 0.1) noise with random character targets of
+    about `tokens` ids in 1..vocab-1 (the last row 5 % shorter)."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * 16000)
+    wav_lens = np.full(bsz, n, np.int32)
+    wav_lens[-1] = int(0.95 * n)
+    wav = rng.normal(0.0, 0.1, (bsz, n)).astype(np.float32)
+    wav[-1, wav_lens[-1]:] = 0.0
+    token_lens = rng.integers(int(0.9 * tokens), tokens + 1, size=bsz).astype(np.int32)
+    return {"wav": torch.from_numpy(wav), "wav_lens": torch.from_numpy(wav_lens),
+            "tokens": torch.from_numpy(rng.integers(1, vocab, (bsz, tokens)).astype(np.int64)),
+            "token_lens": torch.from_numpy(token_lens),
+            "weight": torch.ones(bsz)}
+
+
+def phase_train_parity(exp, state):
+    from mamba_asr_torch.kernels import selective_scan as kernel
+    from mamba_asr_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(exp.model, compute_dtype="float32", dropout=0.0)
+    spec = dataclasses.replace(exp.specaug, enabled=False)
+    batch = char_batch(2, 4.0, 20, 3, exp.model.vocab_size)
+    res = {}
+    for dev, cudnn in (("cuda", False), ("cuda", True), ("cpu", True)):
+        torch.backends.cudnn.enabled = cudnn
+        tr = Trainer(cfg32, exp.frontend, exp.train, spec, state_dict=state, device=dev)
+        kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+        m = tr.train_step(batch)
+        launches = (kernel.LAUNCHES, kernel.BWD_LAUNCHES)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            want = (2 * cfg32.num_encoder_layers,) * 2
+            if launches != want:
+                raise AssertionError(f"train_parity launched K1, K2 {launches} times, want {want}")
+        names = [n for n, _ in tr.model.named_parameters()]
+        res[dev, cudnn] = (m["loss"].item(),
+                           dict(zip(names, (a.cpu() for a in tr.optimizer.acc))))
+    torch.backends.cudnn.enabled = True
+    torch.backends.cudnn.allow_tf32 = True  # back to PyTorch's defaults
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = res["cuda", False], res["cpu", True]
+    g_cudnn = res["cuda", True][1]
+    cudnn_err = max(((g_cudnn[n] - r).abs().max() / r.abs().max()).item()
+                    for n, r in g_cpu.items())
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train_parity loss {loss_gpu} vs {loss_cpu}")
+    worst, worst_name = 0.0, ""
+    for name, ref in g_cpu.items():
+        scale = ref.abs().max().item()
+        err = check_close(f"train_parity grad {name}", g_gpu[name], ref,
+                          TRAIN_GRAD_TOL[1] * scale, TRAIN_GRAD_TOL[0])
+        if err / max(scale, 1e-30) > worst:
+            worst, worst_name = err / max(scale, 1e-30), name
+    emit({"phase": "train_parity", "loss_cuda": loss_gpu, "loss_cpu": loss_cpu,
+          "loss_rel_err": loss_err, "params": len(g_cpu),
+          "grad_max_rel_err": worst, "grad_worst_param": worst_name,
+          "cudnn_on_grad_max_rel_err": cudnn_err,
+          "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad": TRAIN_GRAD_TOL},
+          "scan_launches": {"K1": 2 * cfg32.num_encoder_layers,
+                            "K2": 2 * cfg32.num_encoder_layers}})
+
+
+def phase_train(exp, state):
+    from mamba_asr_torch.kernels import selective_scan as kernel
+    from mamba_asr_torch.training.trainer import Trainer
+
+    cfg = exp.model
+    per_step = 2 * cfg.num_encoder_layers
+    tr = Trainer(cfg, exp.frontend, exp.train, exp.specaug, state_dict=state, device="cuda")
+    batch = char_batch(32, TRAIN_SECONDS, 300, 4, cfg.vocab_size)
+    k = exp.train.grad_accumulation_factor
+    steps = []
+    kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for i in range(2 * k):
+        before = [p.detach().clone() for p in tr.model.parameters()]
+        m = tr.train_step(batch)
+        changed = sum(not torch.equal(a, p) for a, p in zip(before, tr.model.parameters()))
+        loss = m["loss"].item()
+        if not np.isfinite(loss):
+            raise AssertionError(f"micro-step {i}: loss {loss}")
+        emit_step = i % k == k - 1
+        if bool(m["updated"]) != emit_step or (changed > 0) != emit_step:
+            raise AssertionError(f"micro-step {i}: {changed} parameters changed, "
+                                 f"updated={bool(m['updated'])}, emit step {emit_step}")
+        steps.append({"loss": loss, "grad_norm": m["grad_norm"].item(),
+                      "params_changed": changed})
+    seconds = time.perf_counter() - t0
+    launches = {"K1": kernel.LAUNCHES, "K2": kernel.BWD_LAUNCHES}
+    if launches != {"K1": per_step * 2 * k, "K2": per_step * 2 * k}:
+        raise AssertionError(f"{launches} scan launches in {2 * k} micro-steps")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blocks = []
+    audio = float(batch["wav_lens"].sum()) / 16000
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            tr.train_step(batch)
+        torch.cuda.synchronize()
+        blocks.append(4 * audio / (time.perf_counter() - t0))
+    rate = statistics.median(blocks)
+    emit({"phase": "train", "batch": 32, "seconds_each": TRAIN_SECONDS,
+          "audio_s_per_step": audio, "micro_steps": steps,
+          "checked_seconds": seconds, "launches": launches,
+          "accumulation": k, "compute_dtype": cfg.compute_dtype,
+          "dropout": cfg.dropout, "specaug": exp.specaug.enabled,
+          "throughput": {"audio_s_per_s": rate, "blocks": blocks,
+                         "spread_pct": 100.0 * (max(blocks) - min(blocks)) / rate,
+                         "micro_steps_per_block": 4},
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches, tr, batch
+
+
+def phase_train_profile(tr, batch):
+    wall_ms, total_ms, top = device_profile(lambda: tr.train_step(batch), 15)
+    emit({"phase": "train_profile", "wall_ms": wall_ms, "device_kernel_ms": total_ms,
+          "idle_share": 1.0 - total_ms / wall_ms, "top": top})
 
 
 def main() -> int:
@@ -305,14 +581,20 @@ def main() -> int:
     exp = load_config(CONFIG)
     cfg, frontend = exp.model, exp.frontend
 
+    clock_hz, sms = clock_mhz * 1e6, props.multi_processor_count
     phase_build()
-    k = phase_kernel(cfg, clock_mhz * 1e6, props.multi_processor_count)
+    k = phase_kernel(cfg, clock_hz, sms)
+    kb = phase_kernel_bwd(cfg, clock_hz, sms)
     state = seeded_state(cfg)
     phase_parity(cfg, frontend, state)
     launches, rec32, batch = phase_recognize(cfg, frontend, state)
     phase_profile(rec32, batch)
+    phase_train_parity(exp, state)
+    train_launches, tr, train_batch = phase_train(exp, state)
+    phase_train_profile(tr, train_batch)
 
     full = k["cases"][0]
+    fwd_train = kb["fwd_train"]
     emit({"kernels": [{
         "name": "selective_scan_fwd", "route": "cuda",
         "source": "mamba_asr_torch/csrc/selective_scan_fwd.cu",
@@ -320,6 +602,22 @@ def main() -> int:
         "launches": launches, "max_abs_err": full["max_abs_err"],
         "ms": k["kernel_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
+    }, {
+        "name": "selective_scan_fwd_train", "route": "cuda",
+        "source": "mamba_asr_torch/csrc/selective_scan_fwd.cu",
+        "replaces": "mamba_asr_tpu/ops/pallas/scan.py:320",
+        "launches": train_launches["K1"],
+        "max_abs_err": kb["cases"][0]["chunk_states_max_abs_err"],
+        "ms": fwd_train["kernel_ms"], "plain_ms": k["plain_ms"],
+        "bound_ms": fwd_train["bound_ms"], "bound_by": fwd_train["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "selective_scan_bwd", "route": "cuda",
+        "source": "mamba_asr_torch/csrc/selective_scan_bwd.cu",
+        "replaces": "mamba_asr_tpu/ops/pallas/scan.py:387",
+        "launches": train_launches["K2"], "max_abs_err": kb["cases"][0]["max_abs_err"],
+        "ms": kb["kernel_ms"], "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
+        "bound_by": kb["bound_by"], "library_ms": None,
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,8 @@ kernel on a ported path is a hand-written Hopper kernel under `csrc/`,
 bound in `kernels/`, with its plain PyTorch version beside it in `ops/`.
 
 Ported so far: offline ConMamba CTC recognition
-(`serving.recognizer.Recognizer`).
+(`serving.recognizer.Recognizer`) and the CTC training step
+(`training.trainer.Trainer`).
 """
 
 from mamba_asr_torch.utils.device import resolve_device

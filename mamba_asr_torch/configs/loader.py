@@ -1,10 +1,10 @@
-"""Load the `model:` and `frontend:` stanzas of an hparams YAML (port of
-mamba_asr_tpu/configs/loader.py, with a copy of the JAX package's
-FrontendConfig from training/trainer.py).
+"""Load the `model:`, `frontend:`, `train:` and `specaug:` stanzas of an
+hparams YAML (port of mamba_asr_tpu/configs/loader.py, with a copy of
+the JAX package's FrontendConfig from training/trainer.py).
 
 `--section.key value` overrides are applied to the YAML before it is
 read and are type-coerced from the dataclass fields. The other stanzas
-(train, data, decode, ...) belong to slices not yet ported and are not
+(data, decode, parallel) belong to slices not yet ported and are not
 read.
 """
 
@@ -18,6 +18,7 @@ import yaml
 
 from mamba_asr_torch.models.asr import ASRConfig
 from mamba_asr_torch.models.mamba import MambaConfig
+from mamba_asr_torch.training.trainer import SpecAugmentConfig, TrainConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,9 +41,12 @@ class ExperimentConfig:
     name: str = "experiment"
     model: ASRConfig = ASRConfig()
     frontend: FrontendConfig = FrontendConfig()
+    train: TrainConfig = TrainConfig()
+    specaug: SpecAugmentConfig = SpecAugmentConfig()
 
 
-_NESTED = {"model": ASRConfig, "frontend": FrontendConfig, "mamba": MambaConfig}
+_NESTED = {"model": ASRConfig, "frontend": FrontendConfig, "mamba": MambaConfig,
+           "train": TrainConfig, "specaug": SpecAugmentConfig}
 
 
 def _coerce(field_type, value):
@@ -87,7 +91,8 @@ def load_config(path: str, overrides: Optional[Dict[str, Any]] = None
             node = node.setdefault(p, {})
         node[parts[-1]] = value
     return _build(ExperimentConfig, {
-        k: raw[k] for k in ("name", "model", "frontend") if k in raw
+        k: raw[k] for k in ("name", "model", "frontend", "train", "specaug")
+        if k in raw
     })
 
 

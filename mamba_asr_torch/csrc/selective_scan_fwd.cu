@@ -1,7 +1,8 @@
 // Selective-scan (Mamba S6) forward for Hopper (sm_90a).
 //
-// Replaces: mamba_asr_tpu/ops/pallas/scan.py:_scan_kernel (the inference
-// outputs: out and h_last; the training residuals come with the adjoint).
+// Replaces: mamba_asr_tpu/ops/pallas/scan.py:_scan_kernel: the inference
+// outputs (out, h_last) and, in its training form, the per-chunk boundary
+// states that the adjoint (selective_scan_bwd.cu) starts each chunk from.
 //
 //   dt    = softplus(delta + dt_bias)                 (when softplus_on)
 //   h_t   = exp(dt * A) * h_{t-1} + dt * u_t * B_t    (fp32, h_0 = h0 or 0)
@@ -10,7 +11,16 @@
 //
 // Layout is time-major, as in the JAX package: u, delta, z, out (B, L, D);
 // B, C (B, L, N); A (D, N) fp32; dt_bias, D (D,) fp32; h0, h_last (B, D, N)
-// fp32. All tensors contiguous.
+// fp32; h_chunks (B, ceil(L / 32), D, N) fp32. All tensors contiguous.
+//
+// Training form (h_chunks not null): the state after every kTileT = 32
+// steps (after the last step for the ragged final chunk) is written out,
+// as hb_ref with want_bounds does on the TPU (scan.py:369-374). It is the
+// only residual: the post-softplus dt and the pre-gate y that the TPU
+// kernel also emits are recomputed by the adjoint, which spreads each
+// channel's per-step special functions over 16 lanes, so they cost it SFU
+// issue slots and no bytes. `out` is bit-identical between the two forms
+// (the extra store changes no arithmetic).
 //
 // Design. One thread owns one (batch row, channel) pair and keeps its N
 // states in registers; a block holds 128 consecutive channels of one row,
@@ -42,7 +52,8 @@
 namespace {
 
 constexpr int kThreads = 128;  // channels per block
-constexpr int kTileT = 32;     // timesteps of B and C staged per pass
+constexpr int kTileT = 32;     // timesteps of B and C staged per pass;
+                               // also the chunk of the training form
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -63,7 +74,8 @@ selective_scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                           const float* __restrict__ dt_bias,
                           const float* __restrict__ d_skip,
                           const float* __restrict__ h0, T* __restrict__ out,
-                          float* __restrict__ h_last, int L, int D, int N,
+                          float* __restrict__ h_last,
+                          float* __restrict__ h_chunks, int L, int D, int N,
                           int softplus_on) {
   __shared__ float sB[kTileT][NMAX];
   __shared__ float sC[kTileT][NMAX];
@@ -126,6 +138,15 @@ selective_scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
       const float zv = to_f32(z[idx]);
       store(out + idx, y * (zv / (1.f + expf(-zv))));
     }
+    if (h_chunks != nullptr) {
+      const int n_chunks = (L + kTileT - 1) / kTileT;
+      float* hc = h_chunks +
+          ((static_cast<size_t>(b) * n_chunks + t0 / kTileT) * D + d) * N;
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) {
+        if (n < N) hc[n] = h[n];
+      }
+    }
   }
 
   if (active && h_last != nullptr) {
@@ -140,7 +161,7 @@ template <int NMAX, typename T>
 void launch(const void* u, const void* delta, const void* Bm, const void* Cm,
             const void* z, const void* A, const void* dt_bias,
             const void* d_skip, const void* h0, void* out, void* h_last,
-            int batch, int L, int D, int N, int softplus_on,
+            void* h_chunks, int batch, int L, int D, int N, int softplus_on,
             cudaStream_t stream) {
   const dim3 grid((D + kThreads - 1) / kThreads, batch);
   selective_scan_fwd_kernel<NMAX, T><<<grid, kThreads, 0, stream>>>(
@@ -149,48 +170,50 @@ void launch(const void* u, const void* delta, const void* Bm, const void* Cm,
       static_cast<const T*>(z), static_cast<const float*>(A),
       static_cast<const float*>(dt_bias), static_cast<const float*>(d_skip),
       static_cast<const float*>(h0), static_cast<T*>(out),
-      static_cast<float*>(h_last), L, D, N, softplus_on);
+      static_cast<float*>(h_last), static_cast<float*>(h_chunks), L, D, N,
+      softplus_on);
 }
 
 template <typename T>
 void launch_n(const void* u, const void* delta, const void* Bm, const void* Cm,
               const void* z, const void* A, const void* dt_bias,
               const void* d_skip, const void* h0, void* out, void* h_last,
-              int batch, int L, int D, int N, int softplus_on,
+              void* h_chunks, int batch, int L, int D, int N, int softplus_on,
               cudaStream_t stream) {
   if (N <= 8) {
     launch<8, T>(u, delta, Bm, Cm, z, A, dt_bias, d_skip, h0, out, h_last,
-                 batch, L, D, N, softplus_on, stream);
+                 h_chunks, batch, L, D, N, softplus_on, stream);
   } else if (N <= 16) {
     launch<16, T>(u, delta, Bm, Cm, z, A, dt_bias, d_skip, h0, out, h_last,
-                  batch, L, D, N, softplus_on, stream);
+                  h_chunks, batch, L, D, N, softplus_on, stream);
   } else {
     launch<32, T>(u, delta, Bm, Cm, z, A, dt_bias, d_skip, h0, out, h_last,
-                  batch, L, D, N, softplus_on, stream);
+                  h_chunks, batch, L, D, N, softplus_on, stream);
   }
 }
 
 }  // namespace
 
 // Plain C entry, bound with ctypes. dt_bias, d_skip and h0 may be null
-// (zeros); h_last may be null (not written). is_bf16 selects the dtype of
-// u, delta, B, C, z and out (bfloat16 or float32). Returns the CUDA error
-// of the launch (0 on success); the launch is asynchronous on `stream`.
+// (zeros); h_last and h_chunks may be null (not written). is_bf16 selects
+// the dtype of u, delta, B, C, z and out (bfloat16 or float32). Returns
+// the CUDA error of the launch (0 on success); the launch is asynchronous
+// on `stream`.
 extern "C" int mamba_selective_scan_fwd(
     const void* u, const void* delta, const void* Bm, const void* Cm,
     const void* z, const void* A, const void* dt_bias, const void* d_skip,
-    const void* h0, void* out, void* h_last, int batch, int L, int D, int N,
-    int is_bf16, int softplus_on, void* stream) {
+    const void* h0, void* out, void* h_last, void* h_chunks, int batch,
+    int L, int D, int N, int is_bf16, int softplus_on, void* stream) {
   if (batch <= 0 || batch > 65535 || L <= 0 || D <= 0 || N <= 0 || N > 32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     launch_n<__nv_bfloat16>(u, delta, Bm, Cm, z, A, dt_bias, d_skip, h0, out,
-                            h_last, batch, L, D, N, softplus_on, s);
+                            h_last, h_chunks, batch, L, D, N, softplus_on, s);
   } else {
     launch_n<float>(u, delta, Bm, Cm, z, A, dt_bias, d_skip, h0, out, h_last,
-                    batch, L, D, N, softplus_on, s);
+                    h_chunks, batch, L, D, N, softplus_on, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

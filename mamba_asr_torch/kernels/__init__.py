@@ -2,5 +2,6 @@
 
 | kernel | source | replaces |
 | --- | --- | --- |
-| selective-scan forward | csrc/selective_scan_fwd.cu | mamba_asr_tpu/ops/pallas/scan.py:_scan_kernel |
+| selective-scan forward (K1; inference and training forms) | csrc/selective_scan_fwd.cu | mamba_asr_tpu/ops/pallas/scan.py:_scan_kernel |
+| selective-scan adjoint (K2) | csrc/selective_scan_bwd.cu | mamba_asr_tpu/ops/pallas/scan.py:_scan_bwd_kernel |
 """

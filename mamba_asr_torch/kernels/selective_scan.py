@@ -1,12 +1,20 @@
-"""Wrapper of the Hopper selective-scan forward (`csrc/selective_scan_fwd.cu`).
+"""Wrappers of the Hopper selective-scan kernels.
 
-Replaces `mamba_asr_tpu/ops/pallas/scan.py:_scan_kernel` (public entry
-`selective_scan_pallas`). The plain version is
-`mamba_asr_torch.ops.selective_scan.selective_scan_ref`; the dispatch
-`selective_scan` sends CUDA tensors here and CPU tensors there.
+- `selective_scan_fwd` (`csrc/selective_scan_fwd.cu`, K1) replaces
+  `mamba_asr_tpu/ops/pallas/scan.py:_scan_kernel` (public entry
+  `selective_scan_pallas`). `selective_scan_fwd_train` launches the same
+  kernel in its training form, which also writes the state after every
+  `CHUNK` steps.
+- `selective_scan_bwd` (`csrc/selective_scan_bwd.cu`, K2) replaces
+  `scan.py:_scan_bwd_kernel` (via `selective_scan_bwd_pallas`).
 
-`LAUNCHES` counts the kernel launches of this process: it grows by one
-for each launch and nowhere else.
+The plain versions are `mamba_asr_torch.ops.selective_scan.
+selective_scan_ref` and `selective_scan_bwd_ref`; `ops.selective_scan.
+SelectiveScanFn` sends CUDA tensors here and CPU tensors there.
+
+`LAUNCHES` counts the launches of K1 (both forms) in this process and
+`BWD_LAUNCHES` those of K2: each grows by one for each launch and
+nowhere else.
 """
 
 from __future__ import annotations
@@ -20,6 +28,8 @@ import torch
 from mamba_asr_torch.kernels import build
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
+CHUNK = 32  # steps per boundary state: kTileT / kChunk of the two kernels
 MAX_D_STATE = 32  # register-resident state; as ops/pallas/scan.py:supported
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -28,9 +38,21 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def _launcher():
     """The C launcher, built and loaded at first use."""
     fn = build.library("selective_scan_fwd").mamba_selective_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launcher():
+    lib = build.library("selective_scan_bwd")
+    fn = lib.mamba_selective_scan_bwd
+    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    per_block = lib.mamba_selective_scan_bwd_channels_per_block
+    per_block.argtypes = [ctypes.c_int]
+    per_block.restype = ctypes.c_int
+    return fn, per_block
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -48,25 +70,10 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def selective_scan_fwd(
-    u: torch.Tensor,
-    delta: torch.Tensor,
-    A: torch.Tensor,
-    B: torch.Tensor,
-    C: torch.Tensor,
-    D: Optional[torch.Tensor] = None,
-    z: Optional[torch.Tensor] = None,
-    delta_bias: Optional[torch.Tensor] = None,
-    delta_softplus: bool = False,
-    h0: Optional[torch.Tensor] = None,
-    return_last_state: bool = False,
-) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Launch the kernel. Arguments as `ops.selective_scan.selective_scan`:
-    u, delta, z (B, L, D) and B, C (B, L, N) share one dtype (float32 or
-    bfloat16); A (D, N), D and delta_bias (D,), h0 (B, D, N) are float32.
-    Returns out (B, L, D) in u's dtype, and h_last (B, D, N) float32 when
-    `return_last_state`."""
-    global LAUNCHES
+def _check_inputs(u, delta, A, B, C, D, z, delta_bias, h0) -> None:
+    """Raise on what the kernels do not take: u, delta, z (B, L, D) and B, C
+    (B, L, N) share one dtype (float32 or bfloat16); A (D, N), D and
+    delta_bias (D,), h0 (B, D, N) are float32; all contiguous, on one card."""
     if u.device.type != "cuda":
         raise ValueError(f"the CUDA selective scan needs CUDA tensors, got {u.device}")
     if z is None:
@@ -95,22 +102,113 @@ def selective_scan_fwd(
     if h0 is not None:
         _check("h0", h0, (bsz, d_in, n), torch.float32, dev)
 
+
+def _launch_fwd(u, delta, A, B, C, D, z, delta_bias, delta_softplus, h0,
+                want_last: bool, want_chunks: bool):
+    global LAUNCHES
+    _check_inputs(u, delta, A, B, C, D, z, delta_bias, h0)
+    bsz, length, d_in = u.shape
+    n = A.shape[1]
+    dev = u.device
     launch = _launcher()
     out = torch.empty_like(u)
-    h_last = (
-        torch.empty((bsz, d_in, n), dtype=torch.float32, device=dev)
-        if return_last_state else None
-    )
+    f32 = dict(dtype=torch.float32, device=dev)
+    h_last = torch.empty((bsz, d_in, n), **f32) if want_last else None
+    h_chunks = (torch.empty((bsz, -(-length // CHUNK), d_in, n), **f32)
+                if want_chunks else None)
     with torch.cuda.device(dev):  # the launch goes to the current context
         rc = launch(
             _ptr(u), _ptr(delta), _ptr(B), _ptr(C), _ptr(z), _ptr(A),
             _ptr(delta_bias), _ptr(D), _ptr(h0), _ptr(out), _ptr(h_last),
-            bsz, length, d_in, n, int(u.dtype == torch.bfloat16),
+            _ptr(h_chunks), bsz, length, d_in, n, int(u.dtype == torch.bfloat16),
             int(delta_softplus), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"selective-scan kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    return out, h_last, h_chunks
+
+
+def selective_scan_fwd(
+    u: torch.Tensor,
+    delta: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    D: Optional[torch.Tensor] = None,
+    z: Optional[torch.Tensor] = None,
+    delta_bias: Optional[torch.Tensor] = None,
+    delta_softplus: bool = False,
+    h0: Optional[torch.Tensor] = None,
+    return_last_state: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Launch K1 (inference form). Arguments as
+    `ops.selective_scan.selective_scan`; see `_check_inputs` for what the
+    kernel takes. Returns out (B, L, D) in u's dtype, and h_last (B, D, N)
+    float32 when `return_last_state`."""
+    out, h_last, _ = _launch_fwd(u, delta, A, B, C, D, z, delta_bias,
+                                 delta_softplus, h0, return_last_state, False)
     if return_last_state:
         return out, h_last
     return out
+
+
+def selective_scan_fwd_train(
+    u, delta, A, B, C, D=None, z=None, delta_bias=None,
+    delta_softplus: bool = False, h0=None, return_last_state: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """Launch K1 in its training form: (out, h_last or None, h_chunks), where
+    h_chunks (B, ceil(L / CHUNK), D, N) float32 holds the state after each
+    chunk of CHUNK steps, the residual `selective_scan_bwd` starts from.
+    `out` is bit-identical to `selective_scan_fwd`'s."""
+    return _launch_fwd(u, delta, A, B, C, D, z, delta_bias, delta_softplus,
+                       h0, return_last_state, True)
+
+
+def selective_scan_bwd(
+    u, delta, A, B, C, D, z, delta_bias, delta_softplus: bool, h0,
+    h_chunks: torch.Tensor, dout: torch.Tensor,
+    dh_last: Optional[torch.Tensor] = None,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """Launch K2: the adjoint of the scan that `selective_scan_fwd_train`
+    ran on the same inputs (its `h_chunks`), for the cotangents dout (B, L,
+    D) in u's dtype and dh_last (B, D, N) float32 (None: zero). Returns
+    (du, ddelta, dA, dB, dC, dD, dz, ddelta_bias, dh0), each in its
+    input's dtype, with None for an absent D, delta_bias or h0. The
+    per-tile and per-row partial sums are added here, in float32."""
+    global BWD_LAUNCHES
+    _check_inputs(u, delta, A, B, C, D, z, delta_bias, h0)
+    bsz, length, d_in = u.shape
+    n = A.shape[1]
+    dev = u.device
+    _check("dout", dout, (bsz, length, d_in), u.dtype, dev)
+    _check("h_chunks", h_chunks, (bsz, -(-length // CHUNK), d_in, n), torch.float32, dev)
+    if dh_last is not None:
+        _check("dh_last", dh_last, (bsz, d_in, n), torch.float32, dev)
+    launch, per_block = _bwd_launcher()
+    tiles = -(-d_in // per_block(n))
+    f32 = dict(dtype=torch.float32, device=dev)
+    du, ddelta, dz = (torch.empty_like(u) for _ in range(3))
+    dB_part = torch.empty((tiles, bsz, length, n), **f32)
+    dC_part = torch.empty((tiles, bsz, length, n), **f32)
+    dA_part = torch.empty((bsz, d_in, n), **f32)
+    dD_part = torch.empty((bsz, d_in), **f32)
+    ddb_part = torch.empty((bsz, d_in), **f32)
+    dh0 = torch.empty((bsz, d_in, n), **f32) if h0 is not None else None
+    with torch.cuda.device(dev):
+        rc = launch(
+            _ptr(u), _ptr(delta), _ptr(B), _ptr(C), _ptr(z), _ptr(dout),
+            _ptr(A), _ptr(delta_bias), _ptr(D), _ptr(h0), _ptr(dh_last),
+            _ptr(h_chunks), _ptr(du), _ptr(ddelta), _ptr(dz), _ptr(dB_part),
+            _ptr(dC_part), _ptr(dA_part), _ptr(dD_part), _ptr(ddb_part),
+            _ptr(dh0), bsz, length, d_in, n, int(u.dtype == torch.bfloat16),
+            int(delta_softplus), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"selective-scan adjoint launch failed: CUDA error {rc}")
+    BWD_LAUNCHES += 1
+    return (
+        du, ddelta, dA_part.sum(0), dB_part.sum(0).to(B.dtype),
+        dC_part.sum(0).to(C.dtype), None if D is None else dD_part.sum(0),
+        dz, None if delta_bias is None else ddb_part.sum(0), dh0,
+    )

@@ -2,7 +2,10 @@
 encoder with the CTC head:
 
     feats -> Conv2d front end -> flatten (B, T', F'*C) -> src_proj ->
-    ConMamba encoder -> ctc_head (float32) -> log_softmax
+    dropout -> ConMamba encoder -> ctc_head (float32) -> log_softmax
+
+`cfg.dropout` applies in train() mode at the JAX package's places
+(models/layers.py and conmamba.py say which); eval() has none.
 
 The module tree is the reference's saved ModuleList, so the state dict
 has the names that `export_asr_params` writes and `params_import`
@@ -25,6 +28,7 @@ from mamba_asr_torch.models.layers import (
     ConvolutionFrontEnd,
     SBLinear,
     dense,
+    dropout,
     swish,
 )
 from mamba_asr_torch.models.mamba import (
@@ -134,7 +138,7 @@ class _TransformerASR(nn.Module):
             d_ffn=cfg.d_ffn, kernel_size=cfg.kernel_size,
             activation=cfg.activation_fn(), bias=cfg.bias, causal=cfg.causal,
             mamba_cfg=cfg.mamba, bidirectional=cfg.bidirectional,
-            dtype=cfg.dtype,
+            dtype=cfg.dtype, dropout=cfg.dropout,
         )
 
 
@@ -160,7 +164,7 @@ class ASRModel(nn.Module):
         self.add_module("0", ConvolutionFrontEnd(
             out_channels=cfg.frontend_channels,
             kernel_sizes=tuple(3 for _ in cfg.frontend_channels),
-            strides=cfg.frontend_strides, dtype=cfg.dtype,
+            strides=cfg.frontend_strides, dtype=cfg.dtype, dropout=cfg.dropout,
         ))
         self.add_module("1", _TransformerASR(cfg))
         self.add_module("2", SBLinear(cfg.d_model, cfg.vocab_size))  # ctc_lin
@@ -187,6 +191,7 @@ class ASRModel(nn.Module):
         x = self.frontend(feats)  # (B, T', F', C)
         b, t, f, c = x.shape
         x = dense(x.reshape(b, t, f * c), self.src_proj, self.cfg.dtype)
+        x = dropout(x, self.cfg.dropout, self.training)  # src_drop
         if feat_lengths is not None:
             enc_lengths = -(-feat_lengths // self.cfg.downsample)  # ceil div
         else:

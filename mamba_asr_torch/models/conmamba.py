@@ -5,7 +5,9 @@ ConmambaEncoderLayer (reference Conmamba.py:623-650):
     x = x + mamba(LN(x))          # BiMamba when not causal and bidirectional
     x = x + ConvModule(x)
     x = LN(x + 0.5 * ffn2(LN(x)))
-The padding mask is dropped, as the reference zeroes the conv mask.
+In train() mode each half-FFN branch ends in dropout, as do the FFN's
+hidden layer and the conv module (models/layers.py); the Mamba block has
+none (reference Conmamba.py:670). The padding mask is dropped, as the reference zeroes the conv mask.
 ConmambaEncoder: the layer stack (a ModuleList; the JAX package's
 `scan_layers` is a compile-time layout that the port does not need) and
 a final LN. The Mamba decoder waits for the S2S slice.
@@ -21,6 +23,7 @@ from mamba_asr_torch.models.layers import (
     ConvolutionModule,
     PositionalwiseFeedForward,
     SBLayerNorm,
+    dropout,
     layer_norm,
     make_layer_norm,
     swish,
@@ -34,28 +37,31 @@ class ConmambaEncoderLayer(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, kernel_size: int = 31,
                  activation: Activation = swish, bias: bool = True,
                  causal: bool = False, mamba_cfg: MambaConfig = MambaConfig(),
-                 bidirectional: bool = True, dtype: torch.dtype = torch.float32):
+                 bidirectional: bool = True, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         # Reference keys: ffn_module{1,2}.0 (LN) and .1 (the FFN).
         self.ffn_module1 = nn.ModuleDict({
             "0": make_layer_norm(d_model),
-            "1": PositionalwiseFeedForward(d_model, d_ffn, activation, dtype),
+            "1": PositionalwiseFeedForward(d_model, d_ffn, activation, dtype, dropout),
         })
         self.ffn_module2 = nn.ModuleDict({
             "0": make_layer_norm(d_model),
-            "1": PositionalwiseFeedForward(d_model, d_ffn, activation, dtype),
+            "1": PositionalwiseFeedForward(d_model, d_ffn, activation, dtype, dropout),
         })
         self.norm1 = SBLayerNorm(d_model)
         self.norm2 = SBLayerNorm(d_model)
         block = MambaBlock if causal or not bidirectional else BiMambaBlock
         self.mamba = block(d_model, mamba_cfg, dtype)
         self.convolution_module = ConvolutionModule(
-            d_model, kernel_size, bias, activation, causal, dtype
+            d_model, kernel_size, bias, activation, causal, dtype, dropout
         )
         self.dtype = dtype
+        self.dropout = dropout
 
     def _ffn(self, ffn: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
-        return ffn["1"](layer_norm(x, ffn["0"], self.dtype))
+        out = ffn["1"](layer_norm(x, ffn["0"], self.dtype))
+        return dropout(out, self.dropout, self.training)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -71,11 +77,12 @@ class ConmambaEncoder(nn.Module):
                  kernel_size: int = 31, activation: Activation = swish,
                  bias: bool = True, causal: bool = False,
                  mamba_cfg: MambaConfig = MambaConfig(),
-                 bidirectional: bool = True, dtype: torch.dtype = torch.float32):
+                 bidirectional: bool = True, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList([
             ConmambaEncoderLayer(d_model, d_ffn, kernel_size, activation, bias,
-                                 causal, mamba_cfg, bidirectional, dtype)
+                                 causal, mamba_cfg, bidirectional, dtype, dropout)
             for _ in range(num_layers)
         ])
         self.norm = SBLayerNorm(d_model)

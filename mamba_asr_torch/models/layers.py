@@ -9,6 +9,12 @@ wrappers `.w` / `.norm`, Sequential indices), so a state dict loads with
 `dtype`, as a flax module with `dtype=` does: linear and conv layers cast
 inputs and weights to it, LayerNorms take statistics in float32 and
 return `dtype`.
+
+Dropout sits where the JAX package's does (the FFN after its activation,
+the conv module's output, the front end after each conv block) and runs
+only in train() mode, through `dropout` below: `F.dropout`, whose masks
+draw from torch's default generator for the tensor's device (the
+Trainer seeds it). It adds no parameters, so the state dict is unchanged.
 """
 
 from __future__ import annotations
@@ -32,6 +38,11 @@ def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """`lin` applied in `dtype` (flax nn.Dense(dtype=...))."""
     bias = None if lin.bias is None else lin.bias.to(dtype)
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
+    """Inverted dropout in train mode; the identity otherwise or at p 0."""
+    return F.dropout(x, p, training=True) if training and p > 0 else x
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
@@ -61,33 +72,35 @@ class SBLayerNorm(nn.Module):
 
 
 class PositionalwiseFeedForward(nn.Module):
-    """Dense(d_ffn) -> activation -> Dense(d_model). The reference keys
-    are `ffn.0` and `ffn.3` (a Sequential with activation and dropout
-    between); inference has no dropout."""
+    """Dense(d_ffn) -> activation -> dropout -> Dense(d_model). The
+    reference keys are `ffn.0` and `ffn.3` (a Sequential with activation
+    and dropout between)."""
 
     def __init__(self, d_model: int, d_ffn: int, activation: Activation = swish,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.ffn = nn.ModuleDict({
             "0": nn.Linear(d_model, d_ffn), "3": nn.Linear(d_ffn, d_model),
         })
         self.activation = activation
         self.dtype = dtype
+        self.dropout = dropout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.activation(dense(x, self.ffn["0"], self.dtype))
+        h = dropout(h, self.dropout, self.training)
         return dense(h, self.ffn["3"], self.dtype)
 
 
 class ConvolutionModule(nn.Module):
     """Conformer convolution module, full sequence, no mask:
     LN -> pointwise 2x expansion + GLU -> depthwise conv -> LN ->
-    activation -> pointwise Dense. Non-causal pads (K-1)//2 on both sides,
-    causal pads K-1 on the left."""
+    activation -> pointwise Dense -> dropout. Non-causal pads (K-1)//2 on
+    both sides, causal pads K-1 on the left."""
 
     def __init__(self, d_model: int, kernel_size: int = 31, bias: bool = True,
                  activation: Activation = swish, causal: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.layer_norm = make_layer_norm(d_model)
         # Reference: Conv1d(d, 2d, 1) + GLU; applied here as a Dense.
@@ -104,6 +117,7 @@ class ConvolutionModule(nn.Module):
         self.activation = activation
         self.causal = causal
         self.dtype = dtype
+        self.dropout = dropout
 
     @property
     def padding_amount(self) -> int:
@@ -125,7 +139,8 @@ class ConvolutionModule(nn.Module):
                        None if self.conv.bias is None else self.conv.bias.to(dt),
                        groups=out.shape[1])
         out = layer_norm(out.transpose(1, 2), self.after_conv["0"], dt)
-        return dense(self.activation(out), self.after_conv["2"], dt)
+        out = dense(self.activation(out), self.after_conv["2"], dt)
+        return dropout(out, self.dropout, self.training)
 
 
 def same_padding(n: int, k: int, s: int) -> tuple:
@@ -157,15 +172,15 @@ class ConvolutionFrontEnd(nn.Module):
     """Conv2d subsampling stack: (B, T, n_mels) -> (B, T', F', C_last).
 
     Each block: flax-SAME padding, Conv2d (stride s), LayerNorm over the
-    channels only, leaky_relu(0.01). Time is the conv's H axis and mel
-    frequency its W axis; the output is channels-last, as in the JAX
-    package, so the caller's (B, T', F'*C) flatten matches.
+    channels only, leaky_relu(0.01), dropout. Time is the conv's H axis
+    and mel frequency its W axis; the output is channels-last, as in the
+    JAX package, so the caller's (B, T', F'*C) flatten matches.
     """
 
     def __init__(self, out_channels: Sequence[int] = (64, 32),
                  kernel_sizes: Sequence[int] = (3, 3),
                  strides: Sequence[int] = (2, 2),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         cin = 1
         for i, (c, k, s) in enumerate(zip(out_channels, kernel_sizes, strides)):
@@ -174,6 +189,7 @@ class ConvolutionFrontEnd(nn.Module):
         self.kernel_sizes = tuple(kernel_sizes)
         self.strides = tuple(strides)
         self.dtype = dtype
+        self.dropout = dropout
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -186,6 +202,6 @@ class ConvolutionFrontEnd(nn.Module):
             x = F.pad(x, (pf[0], pf[1], pt[0], pt[1]))
             x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), stride=s)
             y = layer_norm(x.permute(0, 2, 3, 1), convs["norm_0"].norm, dt)
-            y = F.leaky_relu(y, 0.01)  # (B, T', F', C)
+            y = dropout(F.leaky_relu(y, 0.01), self.dropout, self.training)
             x = y.permute(0, 3, 1, 2)
         return y

@@ -1,8 +1,9 @@
-"""Global input normalisation, inference side (port of
-mamba_asr_tpu/training/normalizer.py:apply_normalizer).
+"""Global input normalisation (port of mamba_asr_tpu/training/normalizer.py).
 
-The statistics are the JAX package's Welford state (count, mean, m2);
-updating them is training work and waits for the training slice.
+The statistics are the JAX package's Welford state (count, mean, m2):
+`update_normalizer` merges a batch's masked statistics into it (the
+trainer does so while epoch <= normalizer_update_epochs), and
+`apply_normalizer` normalises with it.
 """
 
 from __future__ import annotations
@@ -24,6 +25,30 @@ class NormalizerState(NamedTuple):
             return torch.as_tensor(x, dtype=torch.float32, device=device)
 
         return cls(f32(count), f32(mean), f32(m2))
+
+
+def init_normalizer(num_features: int, device=None) -> NormalizerState:
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return NormalizerState(zeros(), zeros(num_features), zeros(num_features))
+
+
+def update_normalizer(state: NormalizerState, feats: torch.Tensor,
+                      frame_mask: torch.Tensor) -> NormalizerState:
+    """Chan/Welford parallel merge of the masked batch statistics. feats
+    (B, T, F); frame_mask (B, T) True for valid frames."""
+    f = feats.float()
+    m = frame_mask.float()[..., None]
+    n_b = m.sum()
+    mean_b = (f * m).sum((0, 1)) / torch.clamp_min(n_b, 1.0)
+    m2_b = (((f - mean_b) ** 2) * m).sum((0, 1))
+    n_a, mean_a, m2_a = state
+    n = n_a + n_b
+    delta = mean_b - mean_a
+    mean = mean_a + delta * n_b / torch.clamp_min(n, 1.0)
+    m2 = m2_a + m2_b + delta**2 * n_a * n_b / torch.clamp_min(n, 1.0)
+    return NormalizerState(n, mean, m2)
 
 
 def apply_normalizer(

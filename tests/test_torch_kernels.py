@@ -94,3 +94,109 @@ def test_scan_kernel_refuses_what_it_does_not_take():
         with pytest.raises(ValueError):
             kernel.selective_scan_fwd(**args, delta_softplus=True)
     assert kernel.LAUNCHES == before
+
+
+GRAD_NAMES = ("u", "delta", "A", "B", "C", "D", "z", "delta_bias", "h0")
+
+
+def assert_grads_close(got, ref, rtol, atol_frac):
+    """Each gradient within atol_frac * max|ref| + rtol * |ref|: the
+    partial sums over B, L or D add in another order than the plain loop."""
+    for name, g, r in zip(GRAD_NAMES, got, ref):
+        if r is None:
+            assert g is None, name
+            continue
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        g, r = g.float(), r.float()
+        atol = atol_frac * r.abs().max().item()
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, r, rtol=rtol, atol=atol, msg=name)
+
+
+def test_bwd_wrapper_refuses_cpu_tensors():
+    t = {k: torch.from_numpy(v) for k, v in scan_inputs(0).items()}
+    before = kernel.BWD_LAUNCHES
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        kernel.selective_scan_bwd(**t, delta_softplus=True, h0=None,
+                                  h_chunks=torch.zeros(2, 2, 8, 4),
+                                  dout=torch.zeros(2, 37, 8))
+    assert kernel.BWD_LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,h0", [("bfloat16", 16, False), ("float32", 16, True),
+                                        ("float32", 4, True), ("float32", 20, False)])
+def test_scan_bwd_kernel_matches_plain_on_card(dtype, n, h0):
+    """K2 (fed by K1's training form) against selective_scan_bwd_ref, with
+    ragged L 77 and D 200, each lane width (N 4, 16, 20 -> 8, 16, 32
+    lanes), h0 and a d(h_last) cotangent. fp32 within 1e-3 relative +
+    1e-4 of the largest value (exp2 vs exp, sums in other orders); bf16
+    within 2e-2 + 2e-2 (du, ddelta, dz, dB, dC round to bf16 on both
+    sides, one ulp is 0.78 %)."""
+    _card()
+    dt = getattr(torch, dtype)
+    t = _on_card(scan_inputs(17, bsz=3, length=77, d=200, n=n), dt)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h = torch.randn(3, 200, n, device="cuda", generator=gen) if h0 else None
+    dout = torch.randn(3, 77, 200, device="cuda", generator=gen).to(dt)
+    dhl = torch.randn(3, 200, n, device="cuda", generator=gen)
+    out, h_last, h_chunks = kernel.selective_scan_fwd_train(
+        **t, delta_softplus=True, h0=h, return_last_state=True)
+    before = kernel.BWD_LAUNCHES
+    got = kernel.selective_scan_bwd(**t, delta_softplus=True, h0=h, h_chunks=h_chunks,
+                                    dout=dout, dh_last=dhl)
+    torch.cuda.synchronize()
+    assert kernel.BWD_LAUNCHES == before + 1
+    ref = selective_scan.selective_scan_bwd_ref(
+        *(t[k] for k in GRAD_NAMES[:8]), True, h, dout, dhl)
+    rtol, atol = (2e-2, 2e-2) if dt == torch.bfloat16 else (1e-3, 1e-4)
+    assert_grads_close(got, ref, rtol, atol)
+
+
+@pytest.mark.cuda
+def test_scan_fwd_training_form_on_card():
+    """K1's training form: out bit-identical to the inference form; the
+    chunk states equal the plain states after steps 32, 64, ... and L."""
+    _card()
+    t = _on_card(scan_inputs(18, bsz=2, length=77, d=200, n=16), torch.float32)
+    out = kernel.selective_scan_fwd(**t, delta_softplus=True)
+    out2, h_last, h_chunks = kernel.selective_scan_fwd_train(
+        **t, delta_softplus=True, return_last_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+    assert h_chunks.shape == (2, 3, 200, 16)
+    for c, end in enumerate((32, 64, 77)):
+        part = {k: (v[:, :end] if k in ("u", "delta", "B", "C", "z") else v)
+                for k, v in t.items()}
+        _, h_ref = selective_scan.selective_scan_ref(**part, delta_softplus=True,
+                                                     return_last_state=True)
+        torch.testing.assert_close(h_chunks[:, c], h_ref, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h_chunks[:, -1], h_last, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_scan_dispatch_with_grad_goes_through_both_kernels():
+    """On CUDA with grad: one K1 (training form) launch forward, one K2
+    launch backward, and the gradients of the plain path; under no_grad
+    one K1 launch and no graph."""
+    _card()
+    t = _on_card(scan_inputs(19, bsz=2, length=50, d=40, n=16), torch.float32)
+    leaves = {k: v.clone().requires_grad_() for k, v in t.items()}
+    k1, k2 = kernel.LAUNCHES, kernel.BWD_LAUNCHES
+    out, h_last = selective_scan.selective_scan(**leaves, delta_softplus=True,
+                                                return_last_state=True)
+    assert out.grad_fn is not None and kernel.LAUNCHES == k1 + 1
+    dout = torch.randn_like(out)
+    dhl = torch.randn_like(h_last)
+    got = torch.autograd.grad((out * dout).sum() + (h_last * dhl).sum(),
+                              list(leaves.values()))
+    assert kernel.BWD_LAUNCHES == k2 + 1
+    ref = selective_scan.selective_scan_bwd_ref(
+        *(t[k] for k in GRAD_NAMES[:8]), True, None, dout, dhl)
+    by_name = dict(zip(leaves, got))
+    assert_grads_close([by_name.get(k) for k in GRAD_NAMES[:8]] + [None],
+                       list(ref[:8]) + [None], 1e-3, 1e-4)
+    with torch.no_grad():
+        out = selective_scan.selective_scan(**leaves, delta_softplus=True)
+    assert out.grad_fn is None and kernel.LAUNCHES == k1 + 2
+    assert kernel.BWD_LAUNCHES == k2 + 1

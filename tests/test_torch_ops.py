@@ -8,6 +8,7 @@ test_torch_kernels.py.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +18,7 @@ from mamba_asr_tpu.decoding import ctc_greedy as jax_greedy
 from mamba_asr_tpu.ops.causal_conv1d import causal_conv1d as jax_causal_conv1d
 from mamba_asr_tpu.ops import fbank as jax_fbank
 from mamba_asr_tpu.ops.selective_scan import selective_scan_ref as jax_scan_ref
-from mamba_asr_tpu.ops.pallas.scan import _pallas_fwd_impl
+from mamba_asr_tpu.ops.pallas.scan import _pallas_fwd_impl, selective_scan_bwd_pallas
 from mamba_asr_tpu.training import normalizer as jax_norm
 
 from mamba_asr_torch.decoding import ctc_greedy
@@ -170,3 +171,103 @@ def test_ctc_greedy_matches_jax():
         np.testing.assert_array_equal(n.numpy(), _np(lens_ref))
         assert ctc_greedy.tokens_to_lists(toks.numpy(), n.numpy()) == \
             jax_greedy.tokens_to_lists(_np(toks_ref), _np(lens_ref))
+
+
+SCAN_ARGS = ("u", "delta", "A", "B", "C", "D", "z", "delta_bias", "h0")
+PER_STEP = ("u", "delta", "B", "C", "z")
+
+
+def _adjoint_case(seed, softplus, length=77, d=12, n=4, bsz=2):
+    """Scan inputs with h0 and both cotangents. Without softplus dt stays
+    positive (negative dt with A < 0 compounds to inf over the sequence,
+    as the JAX suite notes)."""
+    inp = _scan_inputs(seed, bsz=bsz, length=length, d=d, n=n)
+    rng = np.random.default_rng(seed + 100)
+    if not softplus:
+        inp["delta"] = (np.abs(inp["delta"]) * 0.1 + 1.05).astype(np.float32)
+    inp["h0"] = rng.normal(size=(bsz, d, n)).astype(np.float32)
+    dout = rng.normal(size=(bsz, length, d)).astype(np.float32)
+    dhl = rng.normal(size=(bsz, d, n)).astype(np.float32)
+    return inp, dout, dhl
+
+
+@pytest.mark.parametrize("softplus", [True, False])
+@pytest.mark.parametrize("dtype,tol", [("float32", (3e-4, 3e-5)), ("bfloat16", (2e-2, 2e-2))])
+def test_selective_scan_bwd_ref_matches_pallas_adjoint(softplus, dtype, tol):
+    """The plain adjoint against the Pallas adjoint (interpret mode) with
+    h0 in and a d(h_last) cotangent, L 77 (not a multiple of the 64-step
+    chunk) and D 12 (not a multiple of 128). fp32 at the JAX suite's
+    rtol 3e-4 / atol 3e-5; bf16 inputs at 2e-2 (both sides compute in
+    fp32 and round du, ddelta, dB, dC, dz to bf16)."""
+    inp, dout, dhl = _adjoint_case(11, softplus)
+    jdt = getattr(jnp, dtype)
+    jin = {k: jnp.asarray(v, jdt if k in PER_STEP else jnp.float32) for k, v in inp.items()}
+    ref = selective_scan_bwd_pallas(
+        tuple(jin[k] for k in SCAN_ARGS), (jnp.asarray(dout, jdt), jnp.asarray(dhl)),
+        delta_softplus=softplus, interpret=True,
+    )
+    tin = {k: _t(np.asarray(v, np.float32)).to(getattr(torch, dtype))
+           if k in PER_STEP else _t(v) for k, v in inp.items()}
+    got = selective_scan.selective_scan_bwd_ref(
+        *(tin[k] for k in SCAN_ARGS[:8]), softplus, tin["h0"],
+        _t(dout).to(getattr(torch, dtype)), _t(dhl),
+    )
+    for name, r, g in zip(SCAN_ARGS, ref, got):
+        assert g.dtype == tin[name].dtype, name
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(r, np.float32),
+                                   rtol=tol[0], atol=tol[1], err_msg=name)
+
+
+def test_selective_scan_bwd_ref_matches_jax_grad():
+    """The plain adjoint against jax.grad of the JAX selective_scan_ref,
+    with h0 and d(h_last): 3e-4 / 3e-5 in fp32."""
+    inp, dout, dhl = _adjoint_case(12, True, length=40)
+
+    def loss(*args):
+        out, h_last = jax_scan_ref(*args[:8], True, args[8], True)
+        return jnp.sum(out * dout) + jnp.sum(h_last * dhl)
+
+    ref = jax.grad(loss, argnums=tuple(range(9)))(
+        *(jnp.asarray(inp[k]) for k in SCAN_ARGS))
+    got = selective_scan.selective_scan_bwd_ref(
+        *(_t(inp[k]) for k in SCAN_ARGS[:8]), True, _t(inp["h0"]), _t(dout), _t(dhl))
+    for name, r, g in zip(SCAN_ARGS, ref, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=3e-4, atol=3e-5,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("last_state", [False, True])
+def test_selective_scan_fn_matches_autograd_on_cpu(last_state):
+    """`selective_scan` with grad (SelectiveScanFn: plain forward, plain
+    adjoint) against autograd through `selective_scan_ref`: every input's
+    gradient within 3e-4 / 3e-5, each in its input's dtype; absent D and
+    delta_bias stay absent."""
+    inp, dout, dhl = _adjoint_case(13, True, length=35)
+    for drop in ((), ("D", "delta_bias")):
+        leaves = {k: (None if k in drop else _t(v).requires_grad_()) for k, v in inp.items()}
+        args = [leaves[k] for k in SCAN_ARGS]
+
+        def run(fn):
+            res = fn(*args[:8], True, args[8], last_state)
+            out, h_last = res if last_state else (res, None)
+            loss = (out * _t(dout)).sum()
+            if last_state:
+                loss = loss + (h_last * _t(dhl)).sum()
+            live = [a for a in args if a is not None]
+            return out, torch.autograd.grad(loss, live)
+
+        out_ref, g_ref = run(selective_scan.selective_scan_ref)
+        out, g = run(selective_scan.selective_scan)
+        assert out.grad_fn is not None
+        torch.testing.assert_close(out, out_ref, rtol=0, atol=0)
+        for a, b in zip(g, g_ref):
+            assert a.dtype == b.dtype
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=3e-4, atol=3e-5)
+
+
+def test_selective_scan_under_no_grad_is_detached():
+    inp = {k: _t(v).requires_grad_() for k, v in _scan_inputs(14).items()}
+    with torch.no_grad():
+        out = selective_scan.selective_scan(**inp, delta_softplus=True)
+    assert out.grad_fn is None
+    assert selective_scan.selective_scan(**inp, delta_softplus=True).grad_fn is not None

@@ -5,6 +5,8 @@
 - Entry points default to the CUDA card and refuse to run without one;
   chip_smoke.py fails, printing no result, without a card or without the
   rest of the repository.
+- The kernel wrappers have no `try` that could fall back to a plain
+  version on the card.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from mamba_asr_torch.configs.loader import FrontendConfig
 from mamba_asr_torch.models.asr import ASRConfig
 from mamba_asr_torch.serving.recognizer import Recognizer
+from mamba_asr_torch.training.trainer import Trainer
 from mamba_asr_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
@@ -64,7 +67,17 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Recognizer(ASRConfig(), FrontendConfig(), {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(ASRConfig(), FrontendConfig())
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("path", sorted((REPO / "mamba_asr_torch" / "kernels").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_kernel_wrappers_have_no_fallback(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    assert not tries, f"{path.name} has try blocks at lines {tries}"
 
 
 def _run_smoke(cwd: Path) -> subprocess.CompletedProcess:
