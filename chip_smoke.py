@@ -34,8 +34,28 @@ exits non-zero; it prints no result without a CUDA card):
              training throughput (audio-s per wall-s, median of 3 blocks
              of 4 micro-steps) and peak memory
   train_profile  one such micro-step under torch.profiler
+  kernel_ctc_dp  the CTC prefix DP (K3) against its plain loop at T 751
+             (30 s) with N 66 and 528 hypotheses and a ragged case; times
+             and bound
+  kernel_beam_attn  the beam attention (K4) against the plain gather at
+             the S2S-Small decoder's H 4, dh 36, S 320, N 66 and 528,
+             bf16, pos 0, 63, 64, 255; times, bound, and the gather +
+             scaled_dot_product_attention yardstick
+  s2s_parity the full-width ConMamba-Small S2S model (hparams/S2S/
+             conmamba_small.yaml, seeded, fp32, TF32 and cuDNN off, B2 x
+             4 s), card against CPU on the same encoder output: 8 cached
+             decode steps through shuffled ancestor tables, 4 scorer
+             steps, and the whole search at beam 10 (best scores held;
+             tokens reported)
+  s2s_recognize  Recognizer(search="s2s") in bf16 with the decode stanza
+             (beam 66, CTC 0.4, 96 candidates): 3 requests of 3-30 s at
+             batch=1; then B8 x 30 s of noise at batch=8, S2S RTFx as the
+             median of 5 searches (the seeded decoder rarely emits eos, so
+             each search runs all 256 steps: the worst case)
+  s2s_profile  one B8 x 30 s search under torch.profiler
 
-then the kernels line, the card's name and power limit, and last
+Each phase also prints its wall seconds. Then the kernels line, the
+card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
 
@@ -73,11 +93,28 @@ BWD_FP32_TOL = (1e-3, 1e-4)
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = (1e-2, 1e-3)
 TRAIN_SECONDS = 25.0        # 626 encoder frames; B32 x 25 s = 800 s < max_batch_seconds 850
+S2S_CONFIG = "hparams/S2S/conmamba_small.yaml"
+# K3 vs its plain loop: expf/log1pf against torch's exp/log1p over 751
+# dependent steps (values reach -1e3; 1e-5 relative is ~80 float32 ulps).
+CTC_DP_TOL = (1e-4, 1e-5)
+# The S2S model in fp32, card vs CPU: decoder log-probs after 4 layers,
+# the scorer's psi (a 5000-wide matmul over 101 frames in another order)
+# and the DP; the searches' best length-normalized scores.
+S2S_PARITY_TOL = 1e-3
 GRAD_NAMES = ("u", "delta", "A", "B", "C", "D", "z", "delta_bias", "h0")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def timed(phase, *args):
+    """Run one phase and print its wall seconds on a line of its own."""
+    t0 = time.perf_counter()
+    result = phase(*args)
+    emit({"phase_seconds": phase.__name__[len("phase_"):],
+          "seconds": time.perf_counter() - t0})
+    return result
 
 
 def nvidia_smi(fields: str) -> str:
@@ -566,6 +603,312 @@ def phase_train_profile(tr, batch):
           "idle_share": 1.0 - total_ms / wall_ms, "top": top})
 
 
+# -- S2S joint CTC/attention beam recognition (K3, K4) -------------------------
+
+
+def sentinel_close(name, got, ref, atol, rtol) -> float:
+    """|got - ref| <= atol + rtol * |ref| where ref is above -1e29; where
+    either side is at or below -1e29 (the -1e30 stand-in for -inf) the
+    other must be too. Returns the largest error over the finite part."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    dead_g, dead_r = got <= -1e29, ref <= -1e29
+    if not torch.equal(dead_g, dead_r):
+        raise AssertionError(f"{name}: {int((dead_g ^ dead_r).sum())} entries at -1e30 "
+                             "on one side only")
+    live = ~dead_r
+    return check_close(name, got[live], ref[live], atol, rtol)
+
+
+def dp_planes(frames, n, seed, ragged):
+    """K3's four (T, N) planes as the scorer builds them: token and blank
+    log-probs of noise, a prefix state of realistic scale; ragged: per-row
+    lengths, a quarter of the rows valid at frame 0 only."""
+    from mamba_asr_torch.ops.ctc_dp import NEG
+
+    rng = np.random.default_rng(seed)
+    lens = np.full(n, frames)
+    if ragged:
+        lens = rng.integers(1, frames + 1, n)
+        lens[::4] = 1
+    valid = np.arange(frames)[:, None] < lens[None, :]
+    lp_tok = np.log(rng.dirichlet(np.ones(50), (frames, n))[:, :, 0])
+    phi = -np.cumsum(rng.uniform(0.0, 1.0, (frames, n)), axis=0)
+    lpb = np.where(valid, np.log(rng.uniform(0.3, 0.99, (frames, n))), 0.0)
+    planes = (np.where(valid, lp_tok, 0.0), np.where(valid, phi + lp_tok, NEG), lpb,
+              valid)
+    return [torch.from_numpy(x.astype(np.float32)).cuda() for x in planes]
+
+
+def ctc_dp_bound_ms(frames, n, clock_hz, sms):
+    """Least time for K3's work: four (T, N) float32 planes read and two
+    written once, against two logaddexps per (t, n), each an exp and a
+    log1p on the special-function units."""
+    bytes_s = 24.0 * frames * n / HBM_BYTES_PER_S
+    sfu_s = 4.0 * frames * n / (SFU_PER_CLOCK_PER_SM * sms * clock_hz)
+    return 1e3 * max(bytes_s, sfu_s), ("bytes" if bytes_s >= sfu_s else "operations")
+
+
+def phase_kernel_ctc_dp(clock_hz, sms):
+    from mamba_asr_torch.kernels import ctc_dp as k3
+    from mamba_asr_torch.ops.ctc_dp import ctc_dp_ref
+
+    frames = 751  # 30 s
+    cases, timing = [], {}
+    for name, n, ragged in (("n66", 66, False), ("n528", 528, False),
+                            ("ragged_n66", 66, True)):
+        planes = dp_planes(frames, n, 31 + n, ragged)
+        got = k3.ctc_dp_fwd(*planes)
+        torch.cuda.synchronize()
+        ref = ctc_dp_ref(*planes)
+        err = max(sentinel_close(f"ctc_dp {name} {part}", g, r, *CTC_DP_TOL)
+                  for part, g, r in zip(("r_nb", "r_b"), got, ref))
+        cases.append({"case": name, "shape": [frames, n], "max_abs_err": err,
+                      "tol": CTC_DP_TOL})
+        if not ragged:
+            bound_ms, bound_by = ctc_dp_bound_ms(frames, n, clock_hz, sms)
+            timing[name] = {
+                "kernel_ms": cuda_ms(lambda: k3.ctc_dp_fwd(*planes), 50),
+                "plain_ms": cuda_ms(lambda: ctc_dp_ref(*planes), 3),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+    result = {"phase": "kernel_ctc_dp", "name": "ctc_dp", "cases": cases,
+              "timing": timing, "library_ms": None, **timing["n528"]}
+    emit(result)
+    return result
+
+
+def anc_table(s, n, pos, rng):
+    """A random ancestor table with row pos the identity."""
+    anc = rng.integers(0, n, (s, n)).astype(np.int32)
+    anc[pos] = np.arange(n)
+    return torch.from_numpy(anc).cuda()
+
+
+def beam_attn_bound_ms(h, dh, anc, pos, elem_bytes, clock_hz, sms):
+    """Least time for K4's work on this ancestor table: each distinct K and
+    V row (j, anc[j, n]) with j <= pos read once, the ancestor column and q
+    read once, out written once, against 4 * H * N * (pos + 1) * dh FLOP
+    and one exp per score."""
+    rows, n = pos + 1, anc.shape[1]
+    col = anc[:rows].long()
+    distinct = torch.unique(
+        torch.arange(rows, device=col.device)[:, None] * n + col).numel()
+    nbytes = (2 * h * distinct * dh * elem_bytes + rows * n * 4
+              + 2 * n * h * dh * elem_bytes)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    ops_s = max(4.0 * h * n * rows * dh / FP32_FLOP_PER_S,
+                h * n * rows / (SFU_PER_CLOCK_PER_SM * sms * clock_hz))
+    return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s else "operations")
+
+
+def sdpa_on_gathered(q, k_buf, v_buf, anc, pos):
+    """The library yardstick for K4: gather each hypothesis' rows, then
+    one scaled_dot_product_attention call."""
+    h, _, n, dh = k_buf.shape
+    idx = anc[:pos + 1].long()[None, :, :, None].expand(h, pos + 1, n, dh)
+    k_sel = torch.gather(k_buf[:, :pos + 1], 2, idx).permute(2, 0, 1, 3)
+    v_sel = torch.gather(v_buf[:, :pos + 1], 2, idx).permute(2, 0, 1, 3)
+    out = torch.nn.functional.scaled_dot_product_attention(q[:, :, None], k_sel, v_sel)
+    return out[:, :, 0]
+
+
+def phase_kernel_beam_attn(s2s_cfg, clock_hz, sms):
+    from mamba_asr_torch.kernels import beam_attention as k4
+    from mamba_asr_torch.ops.beam_attention import beam_attention_ref
+
+    h = s2s_cfg.nhead
+    dh = s2s_cfg.d_model // h
+    s = 320  # 256 steps + 1, rounded up to 64
+    rng = np.random.default_rng(SEED + 4)
+    cases, timing = [], {}
+    for n in (66, 528):
+        q = torch.from_numpy(rng.normal(size=(n, h, dh)).astype(np.float32)).cuda().bfloat16()
+        kv = [torch.from_numpy(rng.normal(size=(h, s, n, dh)).astype(np.float32)).cuda()
+              .bfloat16() for _ in range(2)]
+        for pos in (0, 63, 64, 255):
+            anc = anc_table(s, n, pos, rng)
+            got = k4.beam_attention_fwd(q, *kv, anc, pos)
+            torch.cuda.synchronize()
+            ref = beam_attention_ref(q, *kv, anc, pos)
+            err = check_close(f"beam_attn n{n} pos{pos}", got, ref, *BF16_TOL)
+            lib_err = (sdpa_on_gathered(q, *kv, anc, pos).float() - ref.float()).abs().max().item()
+            cases.append({"case": f"n{n}_pos{pos}", "shape": [h, s, n, dh],
+                          "dtype": "bfloat16", "max_abs_err": err, "tol": BF16_TOL,
+                          "library_max_abs_diff": lib_err})
+        bound_ms, bound_by = beam_attn_bound_ms(h, dh, anc, 255, 2, clock_hz, sms)
+        timing[f"n{n}_pos255"] = {
+            "kernel_ms": cuda_ms(lambda: k4.beam_attention_fwd(q, *kv, anc, 255), 50),
+            "plain_ms": cuda_ms(lambda: beam_attention_ref(q, *kv, anc, 255), 5),
+            "library_ms": cuda_ms(lambda: sdpa_on_gathered(q, *kv, anc, 255), 20),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    result = {"phase": "kernel_beam_attn", "name": "beam_attention", "cases": cases,
+              "timing": timing, **timing["n528_pos255"]}
+    emit(result)
+    return result
+
+
+def s2s_recognizer(cfg, frontend, state, device, batch, beam):
+    from mamba_asr_torch.configs.loader import DecodeConfig
+    from mamba_asr_torch.serving.recognizer import Recognizer
+
+    return Recognizer(cfg, frontend, state, device=device, batch=batch,
+                      decode=DecodeConfig(s2s_test_beam_size=beam), search="s2s")
+
+
+def first_difference(a, b) -> int:
+    """The first step at which two token rows differ (-1: equal)."""
+    diff = (a != b).nonzero()
+    return -1 if len(diff) == 0 else int(diff[0])
+
+
+def phase_s2s_parity(s2s_cfg, frontend, state):
+    from mamba_asr_torch.decoding.ctc_prefix_scorer import CTCPrefixScorer
+    from mamba_asr_torch.kernels import beam_attention as k4
+    from mamba_asr_torch.kernels import ctc_dp as k3
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.enabled = False
+    cfg32 = dataclasses.replace(s2s_cfg, compute_dtype="float32")
+    beam, n, vocab = 10, 20, s2s_cfg.vocab_size
+    recs = {dev: s2s_recognizer(cfg32, frontend, state, dev, 2, beam)
+            for dev in ("cuda", "cpu")}
+    wav = np.zeros((2, 64000), np.float32)
+    wav[0] = noise(4.0, 21)
+    wav[1, :49600] = noise(3.1, 22)
+    out = recs["cpu"].eval_step(torch.from_numpy(wav), torch.tensor([64000, 49600]))
+    enc, enc_lens, lp = out["enc_out"], out["enc_lengths"], out["ctc_log_probs"]
+    rng = np.random.default_rng(SEED + 5)
+    dec_toks = rng.integers(3, vocab, (8, n))
+    perms = rng.integers(0, n, (8, n))
+    sel_toks = rng.integers(3, vocab, (4, n))
+    sel_toks[:, ::7] = 2  # eos
+    sel_toks[1:, 1::5] = sel_toks[:-1, 1::5]  # the same token again
+    reorders = rng.integers(0, beam, (4, n)) + np.repeat(np.arange(2) * beam, beam)
+
+    def decode_chain(rec):
+        model, dev = rec.model, rec.device
+        cache = model.prime_decoder_cache(enc.to(dev), model.init_decoder_cache(n, 64),
+                                          enc_lens.to(dev))
+        anc = np.tile(np.arange(n, dtype=np.int32), (64, 1))
+        outs = []
+        for s in range(8):
+            anc[s] = np.arange(n)
+            logits, cache = model.decode_step(torch.from_numpy(dec_toks[s]).to(dev), s,
+                                              cache, torch.from_numpy(anc).to(dev))
+            outs.append(torch.log_softmax(logits, -1).cpu())
+            anc = np.ascontiguousarray(anc[:, perms[s]])
+        return torch.stack(outs)
+
+    def scorer_chain(rec):
+        dev = rec.device
+        sc = CTCPrefixScorer(lp.to(dev), enc_lens.to(dev), beam)
+        state_ = sc.init_state()
+        outs = []
+        for s in range(4):
+            scores, aux = sc.score(state_)
+            state_ = sc.select(state_, aux, torch.from_numpy(sel_toks[s]).to(dev),
+                               torch.from_numpy(reorders[s]).to(dev))
+            outs.append((scores.cpu(), state_.r_nb.cpu(), state_.r_b.cpu()))
+        return outs
+
+    k3.LAUNCHES = k4.LAUNCHES = 0
+    dec = {name: decode_chain(rec) for name, rec in recs.items()}
+    chain = {name: scorer_chain(rec) for name, rec in recs.items()}
+    launches = {"K3": k3.LAUNCHES, "K4": k4.LAUNCHES}
+    if launches != {"K3": 4, "K4": 8 * cfg32.num_decoder_layers}:
+        raise AssertionError(f"s2s_parity teacher-forced launches {launches}")
+    dec_err = check_close("s2s_parity decode_step log-probs", dec["cuda"], dec["cpu"],
+                          S2S_PARITY_TOL, 0.0)
+    sel_err = 0.0
+    for s, (got, ref) in enumerate(zip(chain["cuda"], chain["cpu"])):
+        for part, g, r in zip(("scores", "r_nb", "r_b"), got, ref):
+            sel_err = max(sel_err, sentinel_close(f"s2s_parity step {s} {part}", g, r,
+                                                  S2S_PARITY_TOL, 1e-5))
+    found = {}
+    for name, rec in recs.items():
+        dev = rec.device
+        found[name] = [x.cpu() for x in rec.searcher(enc.to(dev), enc_lens.to(dev),
+                                                     lp.to(dev))]
+    score_err = check_close("s2s_parity search scores", found["cuda"][2], found["cpu"][2],
+                            S2S_PARITY_TOL, 0.0)
+    torch.backends.cudnn.enabled = True
+    torch.backends.cudnn.allow_tf32 = True  # back to PyTorch's defaults
+    emit({"phase": "s2s_parity", "batch": 2, "seconds_each": [4.0, 3.1], "beam": beam,
+          "decode_step_max_abs_err": dec_err, "select_max_abs_err": sel_err,
+          "search_score_max_abs_err": score_err, "tol": S2S_PARITY_TOL,
+          "search": {dev: {"scores": f[2].tolist(), "lengths": f[1].tolist()}
+                     for dev, f in found.items()},
+          "tokens_equal": bool(torch.equal(found["cuda"][0], found["cpu"][0])),
+          "first_token_difference": [first_difference(a, b) for a, b in
+                                     zip(found["cuda"][0], found["cpu"][0])],
+          "teacher_forced_launches": launches})
+
+
+def phase_s2s_recognize(s2s_cfg, frontend, state):
+    from mamba_asr_torch.kernels import beam_attention as k4
+    from mamba_asr_torch.kernels import ctc_dp as k3
+    from mamba_asr_torch.kernels import selective_scan as k1
+
+    beam = 66
+    layers = s2s_cfg.num_decoder_layers
+    torch.cuda.reset_peak_memory_stats()
+    rec = s2s_recognizer(s2s_cfg, frontend, state, "cuda", 1, beam)
+    requests = [noise(s, 40 + i) for i, s in enumerate((3.0, 12.25, 30.0))]
+    steps = []
+    k3.LAUNCHES = k4.LAUNCHES = 0
+    t0 = time.perf_counter()
+    ids = []
+    for wav in requests:
+        ids += rec.transcribe([wav])
+        steps.append(rec.searcher.last_steps)
+    seconds = time.perf_counter() - t0
+    if (k3.LAUNCHES, k4.LAUNCHES) != (sum(steps), layers * sum(steps)):
+        raise AssertionError(f"K3 {k3.LAUNCHES}, K4 {k4.LAUNCHES} launches for steps {steps}")
+
+    rec8 = s2s_recognizer(s2s_cfg, frontend, state, "cuda", 8, beam)
+    batch = [noise(30.0, 200 + i) for i in range(8)]
+    wav = torch.from_numpy(np.stack(batch))
+    lens = torch.full((8,), 480000, dtype=torch.int32)
+    out = rec8.eval_step(wav, lens)
+    toks, tlens, scores = rec8.searcher(out["enc_out"], out["enc_lengths"], out["ctc_log_probs"])
+    s_max = min(256, out["ctc_log_probs"].shape[1] + 1)  # 256 at 30 s
+    if (tuple(toks.shape) != (8, s_max) or not torch.isfinite(scores).all()
+            or int(toks.min()) < 0 or int(toks.max()) >= s2s_cfg.vocab_size):
+        raise AssertionError(f"bad search result {tuple(toks.shape)} {scores.tolist()}")
+    blocks, per_search = [], None
+    for i in range(5):
+        k1.LAUNCHES = k3.LAUNCHES = k4.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rec8.transcribe(batch)
+        blocks.append(8 * 30.0 / (time.perf_counter() - t0))
+        if i == 0:
+            per_search = {"K1": k1.LAUNCHES, "K3": k3.LAUNCHES, "K4": k4.LAUNCHES,
+                          "steps": rec8.searcher.last_steps}
+    st = per_search["steps"]
+    if per_search != {"K1": 2 * s2s_cfg.num_encoder_layers, "K3": st, "K4": layers * st,
+                      "steps": st}:
+        raise AssertionError(f"launches per search {per_search}")
+    rtfx = statistics.median(blocks)
+    emit({"phase": "s2s_recognize", "beam": beam, "requests_s": [len(r) / 16000 for r in requests],
+          "tokens": [len(x) for x in ids], "steps": steps, "seconds": seconds,
+          "launches": {"K3": sum(steps), "K4": layers * sum(steps)},
+          "throughput": {"batch": 8, "seconds_each": 30.0, "rtfx": rtfx, "blocks": blocks,
+                         "spread_pct": 100.0 * (max(blocks) - min(blocks)) / rtfx,
+                         "searches_per_block": 1, "compute_dtype": s2s_cfg.compute_dtype,
+                         "best_lengths": tlens.tolist(), "launches_per_search": per_search},
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return per_search, rec8, batch
+
+
+def phase_s2s_profile(rec8, batch):
+    wav = torch.from_numpy(np.stack(batch))
+    lens = torch.full((8,), 480000, dtype=torch.int32)
+    wall_ms, total_ms, top = device_profile(lambda: rec8.decode_batch(wav, lens), 15)
+    emit({"phase": "s2s_profile", "wall_ms": wall_ms, "device_kernel_ms": total_ms,
+          "idle_share": 1.0 - total_ms / wall_ms, "steps": rec8.searcher.last_steps,
+          "top": top})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -582,16 +925,25 @@ def main() -> int:
     cfg, frontend = exp.model, exp.frontend
 
     clock_hz, sms = clock_mhz * 1e6, props.multi_processor_count
-    phase_build()
-    k = phase_kernel(cfg, clock_hz, sms)
-    kb = phase_kernel_bwd(cfg, clock_hz, sms)
+    timed(phase_build)
+    k = timed(phase_kernel, cfg, clock_hz, sms)
+    kb = timed(phase_kernel_bwd, cfg, clock_hz, sms)
     state = seeded_state(cfg)
-    phase_parity(cfg, frontend, state)
-    launches, rec32, batch = phase_recognize(cfg, frontend, state)
-    phase_profile(rec32, batch)
-    phase_train_parity(exp, state)
-    train_launches, tr, train_batch = phase_train(exp, state)
-    phase_train_profile(tr, train_batch)
+    timed(phase_parity, cfg, frontend, state)
+    launches, rec32, batch = timed(phase_recognize, cfg, frontend, state)
+    timed(phase_profile, rec32, batch)
+    timed(phase_train_parity, exp, state)
+    train_launches, tr, train_batch = timed(phase_train, exp, state)
+    timed(phase_train_profile, tr, train_batch)
+    del tr, train_batch, rec32, batch
+    s2s = load_config(S2S_CONFIG)
+    k3 = timed(phase_kernel_ctc_dp, clock_hz, sms)
+    k4 = timed(phase_kernel_beam_attn, s2s.model, clock_hz, sms)
+    s2s_state = seeded_state(s2s.model)
+    timed(phase_s2s_parity, s2s.model, s2s.frontend, s2s_state)
+    per_search, rec8, s2s_batch = timed(phase_s2s_recognize, s2s.model, s2s.frontend,
+                                        s2s_state)
+    timed(phase_s2s_profile, rec8, s2s_batch)
 
     full = k["cases"][0]
     fwd_train = kb["fwd_train"]
@@ -618,6 +970,21 @@ def main() -> int:
         "launches": train_launches["K2"], "max_abs_err": kb["cases"][0]["max_abs_err"],
         "ms": kb["kernel_ms"], "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
         "bound_by": kb["bound_by"], "library_ms": None,
+    }, {
+        "name": "ctc_dp", "route": "cuda", "source": "mamba_asr_torch/csrc/ctc_dp.cu",
+        "replaces": "mamba_asr_tpu/ops/pallas/log_scan.py:75",
+        "launches": per_search["K3"],
+        "max_abs_err": max(c["max_abs_err"] for c in k3["cases"]),
+        "ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": None,
+    }, {
+        "name": "beam_attention", "route": "cuda",
+        "source": "mamba_asr_torch/csrc/beam_attention.cu",
+        "replaces": "mamba_asr_tpu/ops/pallas/beam_attention.py:88",
+        "launches": per_search["K4"],
+        "max_abs_err": max(c["max_abs_err"] for c in k4["cases"]),
+        "ms": k4["kernel_ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,8 +7,10 @@ kernel on a ported path is a hand-written Hopper kernel under `csrc/`,
 bound in `kernels/`, with its plain PyTorch version beside it in `ops/`.
 
 Ported so far: offline ConMamba CTC recognition
-(`serving.recognizer.Recognizer`) and the CTC training step
-(`training.trainer.Trainer`).
+(`serving.recognizer.Recognizer`), the CTC training step
+(`training.trainer.Trainer`), and S2S recognition with the joint
+CTC/attention beam search over the Transformer decoder
+(`Recognizer(..., search="s2s")`, `decoding.s2s_beam`).
 """
 
 from mamba_asr_torch.utils.device import resolve_device

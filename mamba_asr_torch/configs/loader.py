@@ -1,11 +1,11 @@
-"""Load the `model:`, `frontend:`, `train:` and `specaug:` stanzas of an
-hparams YAML (port of mamba_asr_tpu/configs/loader.py, with a copy of
-the JAX package's FrontendConfig from training/trainer.py).
+"""Load the `model:`, `frontend:`, `train:`, `specaug:` and `decode:`
+stanzas of an hparams YAML (port of mamba_asr_tpu/configs/loader.py,
+with a copy of the JAX package's FrontendConfig from training/trainer.py
+and of its DecodeConfig).
 
 `--section.key value` overrides are applied to the YAML before it is
 read and are type-coerced from the dataclass fields. The other stanzas
-(data, decode, parallel) belong to slices not yet ported and are not
-read.
+(data, parallel) belong to slices not yet ported and are not read.
 """
 
 from __future__ import annotations
@@ -37,16 +37,53 @@ class FrontendConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DecodeConfig:
+    """Decoding settings, every field and default of the JAX package's
+    DecodeConfig. The port reads the S2S joint search's fields
+    (`serving.recognizer.Recognizer(search="s2s")`); the CTC beam's and
+    the LM's wait for their slices."""
+
+    # CTC beam search (hparams/CTC/conmamba_large.yaml:168-172, 232-237).
+    valid_greedy: bool = True
+    test_beam_size: int = 100
+    blank_index: int = 0
+    beam_prune_logp: float = -12.0
+    token_prune_min_logp: float = -1.2
+    # S2S joint search (hparams/S2S/conmamba_large.yaml:239-245).
+    valid_search_interval: int = 10
+    valid_beam_size: int = 10
+    s2s_test_beam_size: int = 66
+    ctc_weight_decode: float = 0.4
+    ctc_candidates: int = 96  # partial CTC scoring (0 = full vocab)
+    lm_weight: float = 0.6
+    temperature: float = 1.15
+    temperature_lm: float = 1.15
+    using_eos_threshold: bool = False
+    length_normalization: bool = True
+    max_decode_ratio: float = 1.0
+    min_decode_ratio: float = 0.0
+    # Optional LM fused at test decode (empty: no LM, as in every YAML).
+    lm_path: str = ""
+    lm_dtype: str = "bfloat16"
+    lm_d_model: int = 768
+    lm_nhead: int = 12
+    lm_layers: int = 12
+    lm_d_ffn: int = 3072
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     name: str = "experiment"
     model: ASRConfig = ASRConfig()
     frontend: FrontendConfig = FrontendConfig()
     train: TrainConfig = TrainConfig()
     specaug: SpecAugmentConfig = SpecAugmentConfig()
+    decode: DecodeConfig = DecodeConfig()
 
 
 _NESTED = {"model": ASRConfig, "frontend": FrontendConfig, "mamba": MambaConfig,
-           "train": TrainConfig, "specaug": SpecAugmentConfig}
+           "train": TrainConfig, "specaug": SpecAugmentConfig,
+           "decode": DecodeConfig}
 
 
 def _coerce(field_type, value):
@@ -91,7 +128,8 @@ def load_config(path: str, overrides: Optional[Dict[str, Any]] = None
             node = node.setdefault(p, {})
         node[parts[-1]] = value
     return _build(ExperimentConfig, {
-        k: raw[k] for k in ("name", "model", "frontend", "train", "specaug")
+        k: raw[k] for k in ("name", "model", "frontend", "train", "specaug",
+                            "decode")
         if k in raw
     })
 

@@ -1,17 +1,23 @@
 """Top-level ASR model (port of mamba_asr_tpu/models/asr.py), ConMamba
-encoder with the CTC head:
+encoder with the CTC head and, for S2S configs, the Transformer decoder:
 
     feats -> Conv2d front end -> flatten (B, T', F'*C) -> src_proj ->
     dropout -> ConMamba encoder -> ctc_head (float32) -> log_softmax
+    tokens -> NormalizedEmbedding + sinusoidal PE -> TransformerDecoder
+           -> seq_head (float32)
 
 `cfg.dropout` applies in train() mode at the JAX package's places
-(models/layers.py and conmamba.py say which); eval() has none.
+(models/layers.py and conmamba.py say which); eval() has none. The
+decoder has none yet (S2S training comes with a later slice).
 
 The module tree is the reference's saved ModuleList, so the state dict
 has the names that `export_asr_params` writes and `params_import`
 produces: `0` the CNN front end, `1` the TransformerASR (its
-`custom_src_module` holds src_proj, `encoder` the ConMamba stack), `2`
-the CTC head. The other encoders and the decoders wait for later slices.
+`custom_src_module` holds src_proj, `encoder` the ConMamba stack,
+`custom_tgt_module` the embedding, `decoder` the decoder), then the
+heads: `2` the CTC head without a decoder; `2` the seq head and `3` the
+CTC head with one (`torch_export.py:296-310`). The other encoders and
+the Mamba and Conformer decoders wait for later slices.
 """
 
 from __future__ import annotations
@@ -30,6 +36,13 @@ from mamba_asr_torch.models.layers import (
     dense,
     dropout,
     swish,
+)
+from mamba_asr_torch.models.transformer import (
+    NormalizedEmbedding,
+    TransformerDecoder,
+    get_lookahead_mask,
+    lengths_to_padding_mask,
+    sinusoidal_position_encoding,
 )
 from mamba_asr_torch.models.mamba import (
     BiMambaBlock,
@@ -127,8 +140,17 @@ class _SrcModule(nn.Module):
         self.layers = nn.ModuleList([SBLinear(n_in, d_model)])
 
 
+class _TgtModule(nn.Module):
+    """The reference's custom_tgt_module: `layers.0` is the embedding."""
+
+    def __init__(self, vocab_size: int, d_model: int, dtype: torch.dtype):
+        super().__init__()
+        self.layers = nn.ModuleList([NormalizedEmbedding(vocab_size, d_model, dtype)])
+
+
 class _TransformerASR(nn.Module):
-    """Entry `1` of the reference ModuleList: src_proj and the encoder."""
+    """Entry `1` of the reference ModuleList: src_proj and the encoder,
+    and with a decoder the target embedding and the decoder."""
 
     def __init__(self, cfg: ASRConfig):
         super().__init__()
@@ -140,10 +162,17 @@ class _TransformerASR(nn.Module):
             mamba_cfg=cfg.mamba, bidirectional=cfg.bidirectional,
             dtype=cfg.dtype, dropout=cfg.dropout,
         )
+        if cfg.num_decoder_layers > 0:
+            self.custom_tgt_module = _TgtModule(cfg.vocab_size, cfg.d_model, cfg.dtype)
+            self.decoder = TransformerDecoder(
+                cfg.num_decoder_layers, cfg.d_model, cfg.d_ffn, cfg.nhead,
+                cfg.activation_fn(), cfg.dtype,
+            )
 
 
 class ASRModel(nn.Module):
-    """feats (B, T, n_mels) -> enc_out, enc_lengths, ctc_log_probs."""
+    """feats (B, T, n_mels) -> enc_out, enc_lengths, ctc_log_probs; with a
+    decoder also `decode` (teacher-forced) and the cached `decode_step`."""
 
     def __init__(self, cfg: ASRConfig):
         super().__init__()
@@ -153,10 +182,11 @@ class ASRModel(nn.Module):
                 "encoder is ported; the others come with the slice that "
                 "ports the other encoders (ROADMAP Slice 4)"
             )
-        if cfg.num_decoder_layers > 0:
+        if cfg.num_decoder_layers > 0 and cfg.decoder_module != "transformer":
             raise NotImplementedError(
-                "decoders (S2S) come with the S2S/beam-decoding slice "
-                "(ROADMAP Slice 3)"
+                f"decoder_module={cfg.decoder_module!r}: only the Transformer "
+                "decoder is ported; the Mamba and Conformer decoders come "
+                "with ROADMAP slice 3b"
             )
         if cfg.xavier_parity_init:
             raise NotImplementedError("xavier_parity_init is not ported")
@@ -167,7 +197,13 @@ class ASRModel(nn.Module):
             strides=cfg.frontend_strides, dtype=cfg.dtype, dropout=cfg.dropout,
         ))
         self.add_module("1", _TransformerASR(cfg))
-        self.add_module("2", SBLinear(cfg.d_model, cfg.vocab_size))  # ctc_lin
+        # ctc_lin without a decoder; seq_lin with one, and ctc_lin at "3".
+        self.add_module("2", SBLinear(cfg.d_model, cfg.vocab_size))
+        if cfg.num_decoder_layers > 0:
+            self.add_module("3", SBLinear(cfg.d_model, cfg.vocab_size))
+            # Decoder positions 0 .. max_length-1 (not in the state dict).
+            self.register_buffer("dec_pe", sinusoidal_position_encoding(
+                cfg.max_length, cfg.d_model), persistent=False)
 
     @property
     def frontend(self) -> ConvolutionFrontEnd:
@@ -182,8 +218,24 @@ class ASRModel(nn.Module):
         return self._modules["1"].encoder
 
     @property
+    def has_decoder(self) -> bool:
+        return self.cfg.num_decoder_layers > 0
+
+    @property
     def ctc_head(self) -> nn.Linear:
+        return self._modules["3" if self.has_decoder else "2"].w
+
+    @property
+    def seq_head(self) -> nn.Linear:
         return self._modules["2"].w
+
+    @property
+    def tgt_embed(self) -> NormalizedEmbedding:
+        return self._modules["1"].custom_tgt_module.layers[0]
+
+    @property
+    def decoder(self) -> TransformerDecoder:
+        return self._modules["1"].decoder
 
     def encode(self, feats: torch.Tensor,
                feat_lengths: Optional[torch.Tensor] = None):
@@ -209,6 +261,45 @@ class ASRModel(nn.Module):
             "ctc_log_probs": F.log_softmax(ctc_logits, dim=-1),
         }
 
+    # -- decoder ------------------------------------------------------------
+
+    def decode(self, tokens: torch.Tensor, enc_out: torch.Tensor,
+               enc_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Teacher-forced: tokens (B, S) -> decoder states (B, S, d_model)
+        (eval form: no target padding mask)."""
+        s = tokens.shape[1]
+        tgt = self.tgt_embed(tokens) + self.dec_pe[:s].to(self.cfg.dtype)
+        mem_kpm = (None if enc_lengths is None
+                   else lengths_to_padding_mask(enc_lengths, enc_out.shape[1]))
+        return self.decoder(tgt, enc_out, get_lookahead_mask(s, tokens.device),
+                            memory_key_padding_mask=mem_kpm)
+
+    def seq_logits(self, dec: torch.Tensor) -> torch.Tensor:
+        """seq_head in float32 (its logits, before any softmax)."""
+        return dense(dec.float(), self.seq_head, torch.float32)
+
+    def init_decoder_cache(self, n: int, s_max: int):
+        """Append-only self K/V buffers of length s_max for n hypotheses."""
+        return self.decoder.init_cache(n, s_max, self.cfg.d_model,
+                                       device=self.seq_head.weight.device)
+
+    def prime_decoder_cache(self, enc_out: torch.Tensor, cache,
+                            enc_lengths: Optional[torch.Tensor] = None):
+        """Project enc_out (B, T, d_model) into every layer's cross K/V
+        once; the cache's hypotheses are the B utterances' beams, in
+        order."""
+        mem_kpm = (None if enc_lengths is None
+                   else lengths_to_padding_mask(enc_lengths, enc_out.shape[1]))
+        return self.decoder.prime_cache(enc_out, cache, mem_kpm)
+
+    def decode_step(self, token_t: torch.Tensor, pos: int, cache,
+                    anc: torch.Tensor):
+        """One decode step: token_t (N,) at position `pos` -> (raw seq-head
+        logits (N, V) float32, cache)."""
+        tgt = self.tgt_embed(token_t) + self.dec_pe[pos].to(self.cfg.dtype)
+        dec, cache = self.decoder.step(tgt, pos, cache, anc)
+        return self.seq_logits(dec), cache
+
 
 def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
     """flax's default kernel init: truncated normal, variance 1/fan_in
@@ -222,11 +313,14 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 @torch.no_grad()
 def init_params_(model: ASRModel, generator: torch.Generator) -> ASRModel:
     """Seeded weights with the JAX package's init rules: lecun-normal
-    kernels, zero biases, unit LayerNorm scales, and Mamba's S4D A_log,
-    log-uniform dt bias, uniform dt_proj and unit D."""
+    kernels, zero biases, unit LayerNorm scales, normal(stddev 1) token
+    embeddings, and Mamba's S4D A_log, log-uniform dt bias, uniform
+    dt_proj and unit D."""
     for module in model.modules():
         for name, p in module.named_parameters(recurse=False):
-            if isinstance(module, nn.LayerNorm):
+            if isinstance(module, nn.Embedding):
+                p.normal_(0.0, 1.0, generator=generator)
+            elif isinstance(module, nn.LayerNorm):
                 p.fill_(1.0 if name == "weight" else 0.0)
             elif name in ("A_log", "A_b_log"):
                 init_a_log_(p)

@@ -46,8 +46,11 @@ def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
-    """flax nn.LayerNorm(dtype=...): float32 statistics, output in dtype."""
-    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+    """flax nn.LayerNorm(dtype=...): float32 statistics, output in dtype.
+    Scale and bias stored in bf16 (the beam search's cast decode weights)
+    enter as float32, as flax promotes them."""
+    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                     ln.bias.float(), ln.eps)
     return y.to(dtype)
 
 

@@ -1,12 +1,14 @@
 """Carry the JAX package's trained ASRModel params into the port.
 
-The port's own copy of the ConMamba, front-end and CTC-head subset of
-mamba_asr_tpu/models/torch_export.py (with params_convert.py's scanned ->
-unrolled step): a nested dict of arrays, as `ASRModel.init` gives it,
-becomes a state dict of float32 tensors under the reference names, which
+The port's own copy of the ConMamba, front-end, CTC-head and Transformer-
+decoder subset of mamba_asr_tpu/models/torch_export.py (with
+params_convert.py's scanned -> unrolled step): a nested dict of arrays, as
+`ASRModel.init` gives it, becomes a state dict of float32 tensors under
+the reference names, which
 `mamba_asr_torch.models.asr.ASRModel.load_state_dict(strict=True)` takes.
 
-Orientations: Dense kernels (in, out) -> Linear (out, in); depthwise taps
+Orientations: Dense kernels (in, out) -> Linear (out, in); attention's
+q, k, v Dense kernels -> one stacked in_proj_weight (3D, D); depthwise taps
 (K, D) -> Conv1d (D, 1, K); the conv module's bottleneck Dense (D, 2D) ->
 pointwise Conv1d (2D, D, 1); flax Conv2d (kh, kw, I, O) -> (O, I, kh, kw).
 Every leaf must be consumed: a leaf this layout cannot hold raises.
@@ -139,6 +141,25 @@ def _encoder_layer(t: _Tree, path: str, key: str, out):
     _layer_norm(t, f"{path}/norm2", f"{key}.norm2.norm", out)
 
 
+def _mha(t: _Tree, path: str, key: str, out):
+    """q, k, v and out Dense layers -> SpeechBrain's `att.in_proj_*` and
+    `att.out_proj` (torch_export.py:_sb_mha)."""
+    names = ("q", "k", "v")
+    out[f"{key}.att.in_proj_weight"] = np.concatenate(
+        [t.take(f"{path}/{n}/kernel").T for n in names], axis=0)
+    out[f"{key}.att.in_proj_bias"] = np.concatenate(
+        [t.take(f"{path}/{n}/bias") for n in names], axis=0)
+    _linear(t, f"{path}/out", f"{key}.att.out_proj", out)
+
+
+def _decoder_layer(t: _Tree, path: str, key: str, out):
+    _mha(t, f"{path}/self_attn", f"{key}.self_attn", out)
+    _mha(t, f"{path}/cross_attn", f"{key}.multihead_attn", out)
+    _ffn(t, f"{path}/ffn", f"{key}.pos_ffn", out)
+    for i in (1, 2, 3):
+        _layer_norm(t, f"{path}/norm{i}", f"{key}.norm{i}.norm", out)
+
+
 def _frontend(t: _Tree, path: str, key: str, num_blocks: int, out):
     for i in range(num_blocks):
         blk = f"{key}.convblock_{i}.convs"
@@ -152,9 +173,11 @@ def _frontend(t: _Tree, path: str, key: str, num_blocks: int, out):
 def import_asr_params(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
     """JAX ASRModel params (unrolled or scanned layout; numpy or JAX
     arrays) -> the port's ASRModel state dict for `cfg`."""
-    if cfg.encoder_module != "conmamba" or cfg.num_decoder_layers > 0:
+    if cfg.encoder_module != "conmamba" or (
+            cfg.num_decoder_layers > 0 and cfg.decoder_module != "transformer"):
         raise NotImplementedError(
-            "params import covers the ConMamba CTC model only"
+            "params import covers the ConMamba encoder with the CTC head "
+            "and the Transformer decoder only"
         )
     if "stack" in params.get("encoder", {}):
         params = _unroll_encoder(params, cfg.num_encoder_layers)
@@ -165,6 +188,15 @@ def import_asr_params(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]
     for i in range(cfg.num_encoder_layers):
         _encoder_layer(t, f"encoder/layer_{i}", f"1.encoder.layers.{i}", out)
     _layer_norm(t, "encoder/norm", "1.encoder.norm.norm", out)
-    _linear(t, "ctc_head", "2.w", out)
+    if cfg.num_decoder_layers > 0:
+        out["1.custom_tgt_module.layers.0.emb.Embedding.weight"] = t.take(
+            "tgt_embed/embed/embedding")
+        for i in range(cfg.num_decoder_layers):
+            _decoder_layer(t, f"decoder/layer_{i}", f"1.decoder.layers.{i}", out)
+        _layer_norm(t, "decoder/norm", "1.decoder.norm.norm", out)
+        _linear(t, "seq_head", "2.w", out)
+        _linear(t, "ctc_head", "3.w", out)
+    else:
+        _linear(t, "ctc_head", "2.w", out)
     t.finish()
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}

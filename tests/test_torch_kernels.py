@@ -200,3 +200,94 @@ def test_scan_dispatch_with_grad_goes_through_both_kernels():
         out = selective_scan.selective_scan(**leaves, delta_softplus=True)
     assert out.grad_fn is None and kernel.LAUNCHES == k1 + 2
     assert kernel.BWD_LAUNCHES == k2 + 1
+
+
+# -- K3, the CTC prefix DP ----------------------------------------------------
+
+
+def dp_inputs(seed, t=131, n=70):
+    """The select DP's (T, N) float32 planes from a seed, with ragged
+    validity (rows valid for 1, 40, 90 and all frames)."""
+    from mamba_asr_torch.ops.ctc_dp import NEG
+
+    rng = np.random.default_rng(seed)
+    lens = np.array([t, 1, 40, 90])[np.arange(n) % 4]
+    valid = np.arange(t)[:, None] < lens[None, :]
+    lp_tok = np.log(rng.uniform(1e-4, 1.0, (t, n)))
+    grow = np.where(valid, rng.normal(size=(t, n)) * 2 - 5 + lp_tok, NEG)
+    lpb = np.where(valid, np.log(rng.uniform(0.1, 0.9, (t, n))), 0.0)
+    return [x.astype(np.float32) for x in (np.where(valid, lp_tok, 0.0), grow, lpb, valid)]
+
+
+def test_ctc_dp_wrapper_refuses_cpu_tensors():
+    from mamba_asr_torch.kernels import ctc_dp as k3
+
+    before = k3.LAUNCHES
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        k3.ctc_dp_fwd(*map(torch.from_numpy, dp_inputs(0, t=5, n=3)))
+    assert k3.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_ctc_dp_kernel_matches_plain_on_card():
+    """The dispatch sends CUDA tensors to K3 (one launch) and both
+    recurrences agree with the plain loop within 1e-4 + 1e-5 relative
+    (expf/log1pf against torch's; the -1e30 sentinels by the relative
+    part)."""
+    _card()
+    from mamba_asr_torch.kernels import ctc_dp as k3
+    from mamba_asr_torch.ops import ctc_dp
+
+    planes = [torch.from_numpy(x).cuda() for x in dp_inputs(21)]
+    before = k3.LAUNCHES
+    r_nb, r_b = ctc_dp.ctc_dp(*planes)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES == before + 1
+    ref_nb, ref_b = ctc_dp.ctc_dp_ref(*planes)
+    torch.testing.assert_close(r_nb, ref_nb, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(r_b, ref_b, rtol=1e-5, atol=1e-4)
+
+
+# -- K4, the beam attention ---------------------------------------------------
+
+
+def test_beam_attention_wrapper_refuses_cpu_tensors():
+    from mamba_asr_torch.kernels import beam_attention as k4
+
+    before = k4.LAUNCHES
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        k4.beam_attention_fwd(torch.zeros(3, 2, 8), torch.zeros(2, 64, 3, 8),
+                              torch.zeros(2, 64, 3, 8),
+                              torch.zeros(64, 3, dtype=torch.int32), 5)
+    assert k4.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dh,pos", [("bfloat16", 36, 0), ("bfloat16", 36, 200),
+                                          ("float32", 8, 63), ("float32", 100, 64)])
+def test_beam_attention_kernel_matches_plain_on_card(dtype, dh, pos):
+    """K4 against the plain gather at H 4, S 256, N 70 with a random
+    ancestor table (row pos the identity), never-written rows past pos set
+    to NaN in the kernel's input (it must not read them): float32 within
+    2e-5, bf16 within 1e-2 + 1e-2 relative (the output rounds to bf16)."""
+    _card()
+    from mamba_asr_torch.kernels import beam_attention as k4
+    from mamba_asr_torch.ops import beam_attention as ba
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(pos + dh)
+    h, s, n = 4, 256, 70
+    q = torch.from_numpy(rng.normal(size=(n, h, dh)).astype(np.float32)).cuda().to(dt)
+    k = torch.from_numpy(rng.normal(size=(h, s, n, dh)).astype(np.float32)).cuda().to(dt)
+    v = torch.from_numpy(rng.normal(size=(h, s, n, dh)).astype(np.float32)).cuda().to(dt)
+    anc = rng.integers(0, n, size=(s, n)).astype(np.int32)
+    anc[pos] = np.arange(n)
+    anc = torch.from_numpy(anc).cuda()
+    ref = ba.beam_attention_ref(q, k, v, anc, pos)
+    k[:, pos + 1:], v[:, pos + 1:] = float("nan"), float("nan")
+    before = k4.LAUNCHES
+    got = ba.beam_attention(q, k, v, anc, pos)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == before + 1 and got.dtype == dt
+    tol = 1e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)

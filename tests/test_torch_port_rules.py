@@ -68,6 +68,8 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Recognizer(ASRConfig(), FrontendConfig(), {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        Recognizer(ASRConfig(num_decoder_layers=2), FrontendConfig(), {}, search="s2s")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(ASRConfig(), FrontendConfig())
     assert resolve_device("cpu") == torch.device("cpu")
 
