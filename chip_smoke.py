@@ -7,9 +7,20 @@ Phases, each printing one JSON line (any failure raises and the script
 exits non-zero; it prints no result without a CUDA card):
 
   build      compile the CUDA kernels from mamba_asr_torch/csrc (nvcc, sm_90a)
-  kernel     the selective-scan kernel against its plain version on the
-             card: the full-width shape in bf16, and an fp32 case with h0
-             in, h_last out and ragged L and D; times and bound
+  peak_probe the probe (P2) against its plain loop at a small size in its
+             three modes, then the tools.peak_probe entry point at its
+             defaults (B32 x 751 x 288): the attained FFMA rate (dependent
+             and 4 independent chains) and exp2 rate against the
+             published peaks; the probe against its plain loop again at
+             that shape and the tool's two chain lengths (64, 1,024);
+             time, plain time and bound of one launch
+  kernel     the selective-scan kernel (K1) against its plain version on
+             the card: the full-width shape in bf16, an fp32 case with h0
+             in, h_last out and ragged L and D, and B1 L751 bf16; times,
+             the published-peak bound and the bound at peak_probe's
+             measured rates; a batch sweep (B1 to B32 at L751 bf16, each
+             against its plain version) timing the time segments chosen
+             for several blocks-per-SM targets beside the unsplit form
   parity     the full-width ConMamba-Small CTC model (hparams/CTC/
              conmamba_small.yaml, seeded weights, fp32, TF32 off) on the
              card against the same model on the CPU
@@ -24,6 +35,12 @@ exits non-zero; it prints no result without a CUDA card):
              on a ragged fp32 case with h0 and d(h_last); K1's training
              form against its inference form and the plain chunk states;
              times and bounds
+  scan_variants  each forward and adjoint variant (P1) against its plain
+             version at B2 L200 D280 N16 fp32 (ragged), then the
+             tools.scan_variants entry point at its defaults (B32 L751,
+             and L626 for the adjoint, D288 N16 bf16): ms per launch and
+             delta to base; each variant against its plain version again
+             on the tool's own inputs; base's plain time and bound
   train_parity  one Trainer.train_step of the full-width model (fp32,
              TF32 and cuDNN off, dropout 0, SpecAugment off, B2 x 4 s)
              on the card against the CPU: loss and every parameter's
@@ -125,18 +142,12 @@ def nvidia_smi(fields: str) -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median of `reps` CUDA-event timings of fn(), after one warm-up call."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Device milliseconds per call of fn(): `reps` calls back to back
+    behind a queue-filling spin kernel, median of rounds
+    (mamba_asr_torch/tools/timing.py:median_ms)."""
+    from mamba_asr_torch.tools.timing import median_ms
+
+    return median_ms(fn, reps, torch.device("cuda"))
 
 
 def check_close(name, got, ref, atol, rtol) -> float:
@@ -170,17 +181,19 @@ def scan_inputs(bsz, length, d, n, dtype, gen, h0=False):
     )
 
 
-def scan_bound_ms(inp, clock_hz: float, sms: int):
+def scan_bound_ms(inp, clock_hz: float, sms: int, rates=None):
     """Least time for the scan's work: each input read and the output
     written once, against the exp2 (one per state element) and the
     softplus/silu special functions (~4 per channel step) on the SFUs and
-    ~6 fp32 FLOP per state element."""
+    ~6 fp32 FLOP per state element. `rates` (exp2 per s, FLOP per s)
+    replaces the published peaks with the ones peak_probe measured."""
     b, length, d = inp["u"].shape
     n = inp["A"].shape[1]
+    sfu_rate, flop_rate = rates or (SFU_PER_CLOCK_PER_SM * sms * clock_hz, FP32_FLOP_PER_S)
     nbytes = sum(t.numel() * t.element_size() for t in inp.values() if t is not None)
     nbytes += inp["u"].numel() * inp["u"].element_size()  # out
-    sfu_s = b * length * d * (n + 4) / (SFU_PER_CLOCK_PER_SM * sms * clock_hz)
-    flop_s = 6.0 * b * length * d * n / FP32_FLOP_PER_S
+    sfu_s = b * length * d * (n + 4) / sfu_rate
+    flop_s = 6.0 * b * length * d * n / flop_rate
     bytes_s = nbytes / HBM_BYTES_PER_S
     ops_s = max(sfu_s, flop_s)
     return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s else "operations")
@@ -256,7 +269,26 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def phase_kernel(cfg, clock_hz, sms):
+# Blocks-per-SM targets of K1's time segments timed in the batch sweep
+# (kernels/selective_scan.py:time_segments), whatever the batch; 0 is the
+# unsplit form.
+K1_SPLIT_TARGETS = (0, 1, 2, 4, 8)
+
+
+def k1_at(kernel, inp, sms, blocks_per_sm):
+    """(segments, device ms per launch) of K1 on `inp` with the time split
+    for `blocks_per_sm` blocks per SM."""
+    saved = kernel.FWD_SPLIT_BELOW, kernel.FWD_BLOCKS_PER_SM
+    kernel.FWD_SPLIT_BELOW, kernel.FWD_BLOCKS_PER_SM = float("inf"), blocks_per_sm
+    try:
+        segments = kernel.time_segments(*inp["u"].shape, sms)[0]
+        return segments, cuda_ms(lambda: kernel.selective_scan_fwd(**inp, delta_softplus=True),
+                                 20)
+    finally:
+        kernel.FWD_SPLIT_BELOW, kernel.FWD_BLOCKS_PER_SM = saved
+
+
+def phase_kernel(cfg, clock_hz, sms, rates):
     from mamba_asr_torch.kernels import selective_scan as kernel
     from mamba_asr_torch.ops.selective_scan import selective_scan_ref
 
@@ -266,8 +298,10 @@ def phase_kernel(cfg, clock_hz, sms):
     d_inner = cfg.mamba.expand * cfg.d_model
     full = scan_inputs(32, 751, d_inner, cfg.mamba.d_state, torch.bfloat16, gen)
     ragged = scan_inputs(3, 333, 200, cfg.mamba.d_state, torch.float32, gen, h0=True)
+    single = scan_inputs(1, 751, d_inner, cfg.mamba.d_state, torch.bfloat16, gen)
     for name, inp, tol in (("full_width_bf16", full, BF16_TOL),
-                           ("ragged_fp32_h0", ragged, FP32_TOL)):
+                           ("ragged_fp32_h0", ragged, FP32_TOL),
+                           ("b1_bf16", single, BF16_TOL)):
         out, h_last = kernel.selective_scan_fwd(
             **inp, delta_softplus=True, return_last_state=True)
         torch.cuda.synchronize()
@@ -281,10 +315,32 @@ def phase_kernel(cfg, clock_hz, sms):
     kernel_ms = cuda_ms(lambda: kernel.selective_scan_fwd(**full, delta_softplus=True), 20)
     plain_ms = cuda_ms(lambda: selective_scan_ref(**full, delta_softplus=True), 5)
     bound_ms, bound_by = scan_bound_ms(full, clock_hz, sms)
+    measured_ms, measured_by = scan_bound_ms(full, clock_hz, sms, rates)
+    # The time segments against batch: each batch against its plain
+    # version, and timed with the segments chosen for each blocks-per-SM
+    # target (0: unsplit), the evidence for kernel.FWD_SPLIT_BELOW and
+    # FWD_BLOCKS_PER_SM; `segments` is what the wrapper chooses.
+    by_batch = {}
+    for bsz in (1, 2, 4, 8, 16, 32):
+        inp = (single if bsz == 1 else full if bsz == 32 else
+               scan_inputs(bsz, 751, d_inner, cfg.mamba.d_state, torch.bfloat16, gen))
+        out = kernel.selective_scan_fwd(**inp, delta_softplus=True)
+        torch.cuda.synchronize()
+        err = check_close(f"b{bsz}_bf16", out, selective_scan_ref(**inp, delta_softplus=True),
+                          *BF16_TOL)
+        swept = {t: k1_at(kernel, inp, sms, t) for t in K1_SPLIT_TARGETS}
+        by_batch[bsz] = {
+            "max_abs_err": err, "bound_ms": scan_bound_ms(inp, clock_hz, sms)[0],
+            "segments": kernel.time_segments(bsz, 751, d_inner, sms)[0],
+            "swept": {t: {"segments": seg, "kernel_ms": ms} for t, (seg, ms) in swept.items()}}
     result = {"phase": "kernel", "name": "selective_scan_fwd", "cases": cases,
-              "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "library_ms": None,
-              "launches_in_phase": kernel.LAUNCHES}
+              "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "bound_measured_ms": measured_ms,
+              "bound_measured_by": measured_by,
+              "measured_rates": {"exp2_per_s": rates[0], "flop_per_s": rates[1]},
+              "library_ms": None, "split_below": kernel.FWD_SPLIT_BELOW,
+              "blocks_per_sm": kernel.FWD_BLOCKS_PER_SM,
+              "by_batch": by_batch, "launches_in_phase": kernel.LAUNCHES}
     emit(result)
     return result
 
@@ -393,11 +449,13 @@ def phase_recognize(cfg, frontend, state):
 
 def device_profile(fn, top: int):
     """One call of fn() under torch.profiler: (wall ms, device kernel ms,
-    the `top` kernels by device time as {kernel, ms, calls})."""
+    the `top` kernels by device time as {kernel, ms, calls}). Only the
+    card's activity is traced: recording the host's operators as well made
+    the S2S search's profile take 67 s instead of 22 s on an H100 host."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -409,6 +467,8 @@ def device_profile(fn, top: int):
             dev_us = getattr(ev, "cuda_time_total", 0.0)
         if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((dev_us, ev.key, ev.count))
+    if not rows:
+        raise AssertionError("the profile recorded no device time")
     rows.sort(reverse=True)
     total_ms = sum(r[0] for r in rows) / 1e3
     return wall_ms, total_ms, [{"kernel": k[:80], "ms": us / 1e3, "calls": c}
@@ -475,6 +535,176 @@ def phase_kernel_bwd(cfg, clock_hz, sms):
               "fwd_train": {"kernel_ms": fwd_train_ms, "inference_form_ms": fwd_ms,
                             "bound_ms": fwd_bound_ms, "bound_by": fwd_bound_by,
                             "chunk_states_mb": h_chunks.numel() * 4 / 1e6}}
+    emit(result)
+    return result
+
+
+# -- The scan-attribution tools: P2, the peak probe; P1, the variants --------
+
+# P2 vs its plain loop: FMA against a separate multiply and add, exp2f
+# against torch.exp2, over 64 steps of contracting chains.
+PROBE_TOL = (1e-6, 1e-5)
+VARIANT_SHAPE = (2, 200, 280, 16)  # ragged against the 32-step tile and 16 channels
+
+
+def probe_bound_ms(numel, k, mode, clock_hz, sms):
+    """Least time for the probe's work: x read and out written once,
+    against 2 FLOP per FMA at the float32 peak, or one exp2 per step on the
+    SFUs."""
+    from mamba_asr_torch.tools.peak_probe import steps_per_element
+
+    steps = steps_per_element(mode, k) * numel
+    bytes_s = 8.0 * numel / HBM_BYTES_PER_S
+    if mode == "exp2":
+        ops_s = steps / (SFU_PER_CLOCK_PER_SM * sms * clock_hz)
+    else:
+        ops_s = 2.0 * steps / FP32_FLOP_PER_S
+    return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s else "operations")
+
+
+def phase_peak_probe(clock_hz, sms):
+    from mamba_asr_torch.kernels import peak_probe as p2
+    from mamba_asr_torch.ops.peak_probe import MODES, peak_probe_ref
+    from mamba_asr_torch.tools import peak_probe as tool
+
+    small = tool.probe_input(2, 37, 100, SEED + 7, "cuda")
+    errs = {}
+    for mode in MODES:
+        got = p2.peak_probe(small, 64, mode)
+        torch.cuda.synchronize()
+        errs[mode] = check_close(f"peak_probe {mode}", got, peak_probe_ref(small, 64, mode),
+                                 *PROBE_TOL)
+    # The entry point, at its defaults (the scan's B32 x 751 x 288, k 64 and 1024).
+    p2.LAUNCHES = 0
+    records = tool.run(MODES)
+    launches = p2.LAUNCHES
+    if launches == 0:
+        raise AssertionError("the peak_probe tool launched no probe kernel")
+    if not all(r["finite"] for r in records):
+        raise AssertionError(f"peak_probe produced non-finite values: {records}")
+    by_mode = {r["mode"]: r for r in records}
+    # The tool's own input and chain lengths, against the plain loop: the
+    # kernel's grid-stride loop runs past one pass of its grid here.
+    x = tool.probe_input(32, 751, 288, tool.SEED, "cuda")
+    main_errs = {}
+    for mode in MODES:
+        for k in (64, 64 * tool.K2_PER_K):
+            got = p2.peak_probe(x, k, mode)
+            torch.cuda.synchronize()
+            main_errs[f"{mode}_k{k}"] = check_close(
+                f"peak_probe {mode} k {k} at {tuple(x.shape)}", got,
+                peak_probe_ref(x, k, mode), *PROBE_TOL)
+    bound_ms, bound_by = probe_bound_ms(x.numel(), 64, "dependent", clock_hz, sms)
+    flop_per_s = 1e12 * max(by_mode[m]["attained_tflops"] for m in ("dependent", "independent"))
+    result = {"phase": "peak_probe", "name": "peak_probe", "records": records,
+              "small_max_abs_err": errs, "main_max_abs_err": main_errs,
+              "max_abs_err": max(list(errs.values()) + list(main_errs.values())),
+              "tol": PROBE_TOL, "launches": launches,
+              "ms": by_mode["dependent"]["ms"],
+              "plain_ms": cuda_ms(lambda: peak_probe_ref(x, 64, "dependent"), 5),
+              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+              "rates": (by_mode["exp2"]["attained_exp2_per_s"], flop_per_s)}
+    emit(result)
+    return result
+
+
+def phase_scan_variants(clock_hz, sms):
+    from mamba_asr_torch.kernels import scan_variants as p1
+    from mamba_asr_torch.kernels import selective_scan as k1
+    from mamba_asr_torch.ops import scan_variants as sv
+    from mamba_asr_torch.tools import scan_variants as tool
+
+    b, length, d, n = VARIANT_SHAPE
+    inp = sv.variant_inputs(b, length, d, n, torch.float32, SEED + 8, "cuda")
+    dout = sv.variant_dout(inp, SEED + 9)
+    gen = torch.Generator().manual_seed(SEED + 10)
+    h0 = torch.randn(b, d, n, generator=gen).cuda()
+    dhl = torch.randn(b, d, n, generator=gen).cuda()
+    _, _, h_chunks = k1.selective_scan_fwd_train(**inp, delta_softplus=True, h0=h0)
+    tiles = -(-d // sv.bwd_channels_per_block(n))
+    fwd_err, bwd_err = {}, {}
+    for v in sv.FWD_VARIANTS:
+        out, h_last = p1.scan_variant_fwd(v, **inp, h0=h0)
+        torch.cuda.synchronize()
+        ref, h_ref = sv.selective_scan_variant_ref(v, **inp, h0=h0)
+        atol, rtol = sv.FWD_CARD_TOL.get(v, sv.FWD_CARD_TOL_DEFAULT)
+        fwd_err[v] = max(check_close(f"scan_variants fwd {v}", out, ref, atol, rtol),
+                         check_close(f"scan_variants fwd {v} h_last", h_last, h_ref, atol, rtol))
+    for v in sv.BWD_VARIANTS:
+        got = p1.scan_variant_bwd(v, **inp, h0=h0, h_chunks=h_chunks, dout=dout, dh_last=dhl)
+        torch.cuda.synchronize()
+        ref = sv.selective_scan_bwd_variant_ref(v, **inp, h0=h0, h_chunks=h_chunks, dout=dout,
+                                                dh_last=dhl, chunk=k1.CHUNK, tiles=tiles)
+        bwd_err[v] = check_grads(f"scan_variants bwd {v}", got, ref, *sv.BWD_CARD_TOL)[1]
+    # The entry point, at its defaults: the main path's B32 L751 (L626 with
+    # --bwd) D288 N16 bf16, every variant.
+    p1.FWD_LAUNCHES = p1.BWD_LAUNCHES = 0
+    fwd = tool.run()
+    bwd = tool.run(bwd=True)
+    launches = {"fwd": p1.FWD_LAUNCHES, "bwd": p1.BWD_LAUNCHES}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the scan_variants tool launched {launches}")
+    bad = [r["variant"] for r in fwd + bwd if not r["finite"]]
+    if bad:
+        raise AssertionError(f"scan variants with non-finite outputs: {bad}")
+    # Each variant again on the tool's own inputs (the kernels are
+    # deterministic: these are the tool's outputs), against its plain
+    # version: out within BF16_TOL or the variant's own tolerance, if
+    # larger; h_last (float32 arithmetic on the same values) within the
+    # variant's; the adjoint within K2's bf16 tolerance.
+    main_in = sv.variant_inputs(32, tool.FWD_FRAMES, 288, 16, tool.DTYPE, tool.SEED, "cuda")
+    train_in = sv.variant_inputs(32, tool.BWD_FRAMES, 288, 16, tool.DTYPE, tool.SEED, "cuda")
+    train_hc = tool.chunk_states(train_in)
+    train_dout = sv.variant_dout(train_in, tool.SEED + 1)
+    train_tiles = -(-288 // sv.bwd_channels_per_block(16))
+    main_fwd_err, main_bwd_err = {}, {}
+    for v in sv.FWD_VARIANTS:
+        out, h_last = p1.scan_variant_fwd(v, **main_in)
+        torch.cuda.synchronize()
+        ref, h_ref = sv.selective_scan_variant_ref(v, **main_in)
+        vtol = sv.FWD_CARD_TOL.get(v, sv.FWD_CARD_TOL_DEFAULT)
+        main_fwd_err[v] = max(
+            check_close(f"scan_variants fwd {v} bf16", out, ref,
+                        *(max(a, b) for a, b in zip(BF16_TOL, vtol))),
+            check_close(f"scan_variants fwd {v} bf16 h_last", h_last, h_ref, *vtol))
+    for v in sv.BWD_VARIANTS:
+        got = p1.scan_variant_bwd(v, **train_in, h0=None, h_chunks=train_hc, dout=train_dout)
+        torch.cuda.synchronize()
+        ref = sv.selective_scan_bwd_variant_ref(v, **train_in, h0=None, h_chunks=train_hc,
+                                                dout=train_dout, chunk=k1.CHUNK,
+                                                tiles=train_tiles)
+        main_bwd_err[v] = check_grads(f"scan_variants bwd {v} bf16", got, ref,
+                                      *BWD_BF16_TOL)[1]
+    fwd_bound = scan_bound_ms(main_in, clock_hz, sms)
+    bwd_bound = scan_bwd_bound_ms(dict(train_in, dout=train_dout, h_chunks=train_hc),
+                                  clock_hz, sms)
+    plain_fwd_ms = cuda_ms(lambda: sv.selective_scan_variant_ref("base", **main_in), 3)
+    plain_bwd_ms = cuda_ms(lambda: sv.selective_scan_bwd_variant_ref(
+        "base", **train_in, h0=None, h_chunks=train_hc, dout=train_dout, chunk=k1.CHUNK,
+        tiles=train_tiles), 1)
+
+    def table(records, errs, main_errs):
+        return [{"variant": r["variant"], "ms": r["ms"], "delta_ms": r["delta_ms"],
+                 "max_abs_err": errs[r["variant"]],
+                 "main_max_abs_err": main_errs[r["variant"]],
+                 **({"kernel_of": r["kernel_of"]} if "kernel_of" in r else {})}
+                for r in records]
+
+    result = {"phase": "scan_variants", "check_shape": list(VARIANT_SHAPE),
+              "check_dtype": "float32", "launches": launches,
+              "fwd": {"shape": fwd[0]["shape"], "dtype": fwd[0]["dtype"],
+                      "variants": table(fwd, fwd_err, main_fwd_err), "ms": fwd[0]["ms"],
+                      "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound[0],
+                      "bound_by": fwd_bound[1],
+                      "max_abs_err": max(list(fwd_err.values()) + list(main_fwd_err.values()))},
+              "bwd": {"shape": bwd[0]["shape"], "dtype": bwd[0]["dtype"],
+                      "variants": table(bwd, bwd_err, main_bwd_err), "ms": bwd[0]["ms"],
+                      "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound[0],
+                      "bound_by": bwd_bound[1],
+                      "max_abs_err": max(list(bwd_err.values()) + list(main_bwd_err.values()))},
+              "tol": {"fwd": sv.FWD_CARD_TOL_DEFAULT, "fwd_except": sv.FWD_CARD_TOL,
+                      "bwd": sv.BWD_CARD_TOL, "main_fwd_out": BF16_TOL,
+                      "main_bwd": BWD_BF16_TOL}}
     emit(result)
     return result
 
@@ -926,8 +1156,10 @@ def main() -> int:
 
     clock_hz, sms = clock_mhz * 1e6, props.multi_processor_count
     timed(phase_build)
-    k = timed(phase_kernel, cfg, clock_hz, sms)
+    probe = timed(phase_peak_probe, clock_hz, sms)
+    k = timed(phase_kernel, cfg, clock_hz, sms, probe["rates"])
     kb = timed(phase_kernel_bwd, cfg, clock_hz, sms)
+    variants = timed(phase_scan_variants, clock_hz, sms)
     state = seeded_state(cfg)
     timed(phase_parity, cfg, frontend, state)
     launches, rec32, batch = timed(phase_recognize, cfg, frontend, state)
@@ -954,6 +1186,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": full["max_abs_err"],
         "ms": k["kernel_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
+        "bound_measured_ms": k["bound_measured_ms"],
     }, {
         "name": "selective_scan_fwd_train", "route": "cuda",
         "source": "mamba_asr_torch/csrc/selective_scan_fwd.cu",
@@ -985,6 +1218,20 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in k4["cases"]),
         "ms": k4["kernel_ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
+    }] + [{
+        "name": f"scan_variants_{part}", "route": "cuda",
+        "source": "mamba_asr_torch/csrc/scan_variants.cu",
+        "replaces": f"scripts/exp_scan_variants.py:{line}",
+        "launches": variants["launches"][part],
+        "max_abs_err": variants[part]["max_abs_err"], "ms": variants[part]["ms"],
+        "plain_ms": variants[part]["plain_ms"], "bound_ms": variants[part]["bound_ms"],
+        "bound_by": variants[part]["bound_by"], "library_ms": None,
+    } for part, line in (("fwd", 283), ("bwd", 601))] + [{
+        "name": "peak_probe", "route": "cuda", "source": "mamba_asr_torch/csrc/peak_probe.cu",
+        "replaces": "scripts/vpu_peak.py:68", "launches": probe["launches"],
+        "max_abs_err": probe["max_abs_err"], "ms": probe["ms"],
+        "plain_ms": probe["plain_ms"], "bound_ms": probe["bound_ms"],
+        "bound_by": probe["bound_by"], "library_ms": None,
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,8 @@ Ported so far: offline ConMamba CTC recognition
 (`serving.recognizer.Recognizer`), the CTC training step
 (`training.trainer.Trainer`), and S2S recognition with the joint
 CTC/attention beam search over the Transformer decoder
-(`Recognizer(..., search="s2s")`, `decoding.s2s_beam`).
+(`Recognizer(..., search="s2s")`, `decoding.s2s_beam`), and the
+scan-attribution tools (`tools.scan_variants`, `tools.peak_probe`).
 """
 
 from mamba_asr_torch.utils.device import resolve_device

@@ -23,6 +23,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "mamba_asr_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--split-compile=0",  # optimise a source's kernels in parallel (scan_variants.cu)
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -14,7 +14,8 @@ SelectiveScanFn` sends CUDA tensors here and CPU tensors there.
 
 `LAUNCHES` counts the launches of K1 (both forms) in this process and
 `BWD_LAUNCHES` those of K2: each grows by one for each launch and
-nowhere else.
+nowhere else. At small batches one K1 launch is two kernels, the segment
+pass and the walk (`time_segments`).
 """
 
 from __future__ import annotations
@@ -30,6 +31,15 @@ from mamba_asr_torch.kernels import build
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 CHUNK = 32  # steps per boundary state: kTileT / kChunk of the two kernels
+FWD_CHANNELS = 16  # channels per K1 block (selective_scan_fwd.cuh kCh)
+# K1 splits time where rows x channel groups give fewer than FWD_SPLIT_BELOW
+# blocks per SM, into segments that give about FWD_BLOCKS_PER_SM. On an H100
+# at L751 D288 (PERF.md) splitting won at B1 to B8 (below 1.1 blocks
+# per SM; 4 segments at B8 took 0.044 ms against 0.061 unsplit) and lost at
+# B16 (2.2 per SM; 2 segments 0.085 against 0.076): the segment pass adds
+# work that a card already half full pays for.
+FWD_SPLIT_BELOW = 2
+FWD_BLOCKS_PER_SM = 4
 MAX_D_STATE = 32  # register-resident state; as ops/pallas/scan.py:supported
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -38,7 +48,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def _launcher():
     """The C launcher, built and loaded at first use."""
     fn = build.library("selective_scan_fwd").mamba_selective_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -103,6 +113,22 @@ def _check_inputs(u, delta, A, B, C, D, z, delta_bias, h0) -> None:
         _check("h0", h0, (bsz, d_in, n), torch.float32, dev)
 
 
+def time_segments(bsz: int, length: int, d_in: int, sms: int) -> Tuple[int, int]:
+    """(segments, steps per segment) of one K1 launch. Where rows x channel
+    groups give fewer than FWD_SPLIT_BELOW blocks per SM, time splits into
+    segments of a whole number of CHUNKs, at least two, so that segments x
+    rows x groups give about FWD_BLOCKS_PER_SM blocks per SM: B1 x 30 s at
+    d_inner 288 (18 groups) runs in 12 segments of 64 steps, B8 in 4;
+    B16 and B32 run unsplit."""
+    chunks = -(-length // CHUNK)
+    blocks = bsz * -(-d_in // FWD_CHANNELS)
+    if blocks >= FWD_SPLIT_BELOW * sms:
+        return 1, chunks * CHUNK
+    want = -(-FWD_BLOCKS_PER_SM * sms // blocks)
+    per = -(-chunks // max(1, min(want, chunks // 2)))
+    return -(-chunks // per), per * CHUNK
+
+
 def _launch_fwd(u, delta, A, B, C, D, z, delta_bias, delta_softplus, h0,
                 want_last: bool, want_chunks: bool):
     global LAUNCHES
@@ -116,12 +142,19 @@ def _launch_fwd(u, delta, A, B, C, D, z, delta_bias, delta_softplus, h0,
     h_last = torch.empty((bsz, d_in, n), **f32) if want_last else None
     h_chunks = (torch.empty((bsz, -(-length // CHUNK), d_in, n), **f32)
                 if want_chunks else None)
+    segments, seg_len = time_segments(
+        bsz, length, d_in, torch.cuda.get_device_properties(dev).multi_processor_count)
+    seg_h = seg_dt = None
+    if segments > 1:
+        seg_h = torch.empty((bsz, segments - 1, d_in, n), **f32)
+        seg_dt = torch.empty((bsz, segments - 1, d_in), **f32)
     with torch.cuda.device(dev):  # the launch goes to the current context
         rc = launch(
             _ptr(u), _ptr(delta), _ptr(B), _ptr(C), _ptr(z), _ptr(A),
             _ptr(delta_bias), _ptr(D), _ptr(h0), _ptr(out), _ptr(h_last),
-            _ptr(h_chunks), bsz, length, d_in, n, int(u.dtype == torch.bfloat16),
-            int(delta_softplus), torch.cuda.current_stream(dev).cuda_stream,
+            _ptr(h_chunks), _ptr(seg_h), _ptr(seg_dt), bsz, length, d_in, n,
+            int(u.dtype == torch.bfloat16), int(delta_softplus), seg_len, segments,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"selective-scan kernel launch failed: CUDA error {rc}")
@@ -165,18 +198,12 @@ def selective_scan_fwd_train(
                        h0, return_last_state, True)
 
 
-def selective_scan_bwd(
-    u, delta, A, B, C, D, z, delta_bias, delta_softplus: bool, h0,
-    h_chunks: torch.Tensor, dout: torch.Tensor,
-    dh_last: Optional[torch.Tensor] = None,
-) -> Tuple[Optional[torch.Tensor], ...]:
-    """Launch K2: the adjoint of the scan that `selective_scan_fwd_train`
-    ran on the same inputs (its `h_chunks`), for the cotangents dout (B, L,
-    D) in u's dtype and dh_last (B, D, N) float32 (None: zero). Returns
-    (du, ddelta, dA, dB, dC, dD, dz, ddelta_bias, dh0), each in its
-    input's dtype, with None for an absent D, delta_bias or h0. The
-    per-tile and per-row partial sums are added here, in float32."""
-    global BWD_LAUNCHES
+def run_bwd(launch, channels_per_block: int, what: str, u, delta, A, B, C, D, z,
+            delta_bias, delta_softplus: bool, h0, h_chunks: torch.Tensor,
+            dout: torch.Tensor, dh_last: Optional[torch.Tensor] = None):
+    """Check K2's inputs, allocate its outputs and partials, call
+    `launch(*pointers, *ints, stream)` (a C entry with K2's arguments) and
+    sum the partials: (du, ddelta, dA, dB, dC, dD, dz, ddelta_bias, dh0)."""
     _check_inputs(u, delta, A, B, C, D, z, delta_bias, h0)
     bsz, length, d_in = u.shape
     n = A.shape[1]
@@ -185,8 +212,7 @@ def selective_scan_bwd(
     _check("h_chunks", h_chunks, (bsz, -(-length // CHUNK), d_in, n), torch.float32, dev)
     if dh_last is not None:
         _check("dh_last", dh_last, (bsz, d_in, n), torch.float32, dev)
-    launch, per_block = _bwd_launcher()
-    tiles = -(-d_in // per_block(n))
+    tiles = -(-d_in // channels_per_block)
     f32 = dict(dtype=torch.float32, device=dev)
     du, ddelta, dz = (torch.empty_like(u) for _ in range(3))
     dB_part = torch.empty((tiles, bsz, length, n), **f32)
@@ -205,10 +231,30 @@ def selective_scan_bwd(
             int(delta_softplus), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"selective-scan adjoint launch failed: CUDA error {rc}")
-    BWD_LAUNCHES += 1
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
     return (
         du, ddelta, dA_part.sum(0), dB_part.sum(0).to(B.dtype),
         dC_part.sum(0).to(C.dtype), None if D is None else dD_part.sum(0),
         dz, None if delta_bias is None else ddb_part.sum(0), dh0,
     )
+
+
+def selective_scan_bwd(
+    u, delta, A, B, C, D, z, delta_bias, delta_softplus: bool, h0,
+    h_chunks: torch.Tensor, dout: torch.Tensor,
+    dh_last: Optional[torch.Tensor] = None,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """Launch K2: the adjoint of the scan that `selective_scan_fwd_train`
+    ran on the same inputs (its `h_chunks`), for the cotangents dout (B, L,
+    D) in u's dtype and dh_last (B, D, N) float32 (None: zero). Returns
+    (du, ddelta, dA, dB, dC, dD, dz, ddelta_bias, dh0), each in its
+    input's dtype, with None for an absent D, delta_bias or h0. The
+    per-tile and per-row partial sums are added here, in float32."""
+    global BWD_LAUNCHES
+    if u.device.type != "cuda":
+        raise ValueError(f"the CUDA selective scan needs CUDA tensors, got {u.device}")
+    launch, per_block = _bwd_launcher()
+    grads = run_bwd(launch, per_block(A.shape[1]), "selective-scan adjoint", u, delta, A,
+                    B, C, D, z, delta_bias, delta_softplus, h0, h_chunks, dout, dh_last)
+    BWD_LAUNCHES += 1
+    return grads

@@ -11,6 +11,8 @@ package's tests. This file imports no JAX.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -291,3 +293,208 @@ def test_beam_attention_kernel_matches_plain_on_card(dtype, dh, pos):
     assert k4.LAUNCHES == before + 1 and got.dtype == dt
     tol = 1e-2 if dt == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+# -- P1, the scan-attribution variants; the redesigned K1 at B1 -------------
+
+
+@pytest.mark.cuda
+def test_scan_kernel_full_length_at_batch_one_on_card():
+    """K1 at B1 L751 D288 N16 bf16 (18 blocks: the small-batch case)
+    within (1e-2, 1e-2), one bf16 ulp of the output."""
+    _card()
+    t = _on_card(scan_inputs(23, bsz=1, length=751, d=288, n=16), torch.bfloat16)
+    out, h_last = kernel.selective_scan_fwd(**t, delta_softplus=True, return_last_state=True)
+    torch.cuda.synchronize()
+    ref, h_ref = selective_scan.selective_scan_ref(**t, delta_softplus=True,
+                                                   return_last_state=True)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(h_last, h_ref, rtol=2e-4, atol=2e-4)
+
+
+def test_time_segments_cover_the_steps():
+    """Every K1 launch's segments are whole CHUNKs and cover L, the last
+    one non-empty; at 30 s and d_inner 288 on 132 SMs B1 runs in 12, B8 in
+    4, and B16 (2.2 blocks per SM) and B32 unsplit."""
+    for bsz in (1, 2, 3, 8, 16, 32, 64):
+        for length in (1, 31, 32, 77, 300, 626, 751, 3001):
+            for d in (8, 200, 288):
+                segs, seg_len = kernel.time_segments(bsz, length, d, 132)
+                assert segs >= 1 and seg_len % kernel.CHUNK == 0
+                assert (segs - 1) * seg_len < length <= segs * seg_len
+    assert kernel.time_segments(32, 751, 288, 132) == (1, 768)
+    assert kernel.time_segments(16, 751, 288, 132) == (1, 768)
+    assert kernel.time_segments(8, 751, 288, 132) == (4, 192)
+    assert kernel.time_segments(1, 751, 288, 132) == (12, 64)
+
+
+@pytest.mark.cuda
+def test_scan_kernel_time_segments_on_card():
+    """B2 L300 D200 fp32 runs in 5 segments of 64 steps: out, h_last from h0
+    and the chunk states against the plain scan (2e-4, exp2 of the summed dt
+    against the product of exps), out bit-identical across the two forms."""
+    _card()
+    assert kernel.time_segments(2, 300, 200, torch.cuda.get_device_properties(0)
+                                .multi_processor_count)[0] > 1
+    t = _on_card(scan_inputs(29, bsz=2, length=300, d=200, n=16), torch.float32)
+    h = torch.randn(2, 200, 16, device="cuda")
+    out, h_last = kernel.selective_scan_fwd(**t, delta_softplus=True, h0=h,
+                                            return_last_state=True)
+    out2, _, h_chunks = kernel.selective_scan_fwd_train(**t, delta_softplus=True, h0=h)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+    ref, h_ref = selective_scan.selective_scan_ref(**t, delta_softplus=True, h0=h,
+                                                   return_last_state=True)
+    torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h_last, h_ref, rtol=2e-4, atol=2e-4)
+    for c, end in enumerate(range(32, 300 + 32, 32)):
+        part = {k: (v[:, :min(end, 300)] if k in ("u", "delta", "B", "C", "z") else v)
+                for k, v in t.items()}
+        _, h_c = selective_scan.selective_scan_ref(**part, delta_softplus=True, h0=h,
+                                                   return_last_state=True)
+        torch.testing.assert_close(h_chunks[:, c], h_c, rtol=2e-4, atol=2e-4)
+
+
+def _variant_case(device, dtype=torch.float32):
+    """B2 L200 (ragged against the 32-step tile) D280 (ragged against 16
+    channels) N16, from ops.scan_variants.variant_inputs."""
+    from mamba_asr_torch.ops import scan_variants as sv
+
+    inp = sv.variant_inputs(2, 200, 280, 16, dtype, 31, device)
+    return inp, sv.variant_dout(inp, 32)
+
+
+def test_variant_wrappers_refuse_cpu_tensors():
+    from mamba_asr_torch.kernels import scan_variants as p1
+
+    inp, dout = _variant_case("cpu")
+    before = (p1.FWD_LAUNCHES, p1.BWD_LAUNCHES)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        p1.scan_variant_fwd("noexp", **inp)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        p1.scan_variant_bwd("nogh", **inp, h0=None, h_chunks=torch.zeros(2, 7, 280, 16),
+                            dout=dout)
+    assert (p1.FWD_LAUNCHES, p1.BWD_LAUNCHES) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["base", "noexp", "nosoftplus", "noscan", "nodbu", "noy",
+                                     "fastexp", "bf16scan", "nloop", "fusedy"])
+def test_fwd_variant_matches_plain_on_card(variant, dtype):
+    """float32 within the variant's tolerance (ops/scan_variants.py); bf16
+    out within 1e-2 + 1e-2 abs (one bf16 ulp is 0.78 %, as K1's) or the
+    variant's own, whichever is larger, and h_last (float32 arithmetic on
+    the same values) within the variant's."""
+    _card()
+    from mamba_asr_torch.kernels import scan_variants as p1
+    from mamba_asr_torch.ops import scan_variants as sv
+
+    inp, _ = _variant_case("cuda", getattr(torch, dtype))
+    before = p1.FWD_LAUNCHES
+    out, h_last = sv.scan_variant_fwd(variant, **inp)
+    torch.cuda.synchronize()
+    assert p1.FWD_LAUNCHES == before + 1
+    ref, h_ref = sv.selective_scan_variant_ref(variant, **inp)
+    atol, rtol = sv.FWD_CARD_TOL.get(variant, sv.FWD_CARD_TOL_DEFAULT)
+    torch.testing.assert_close(h_last, h_ref, rtol=rtol, atol=atol)
+    if dtype == "bfloat16":
+        atol, rtol = max(atol, 1e-2), max(rtol, 1e-2)
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["base", "nloop", "noexp", "nosoftplus", "nofwdscan",
+                                     "norevscan", "noreduce_n", "noreduce_d", "nogh"])
+def test_bwd_variant_matches_plain_on_card(variant, dtype):
+    """From K1's own chunk states, with h0 and a d(h_last) cotangent
+    (noreduce_d's dB, dC are the channel tiles' count times B, C: the
+    plain version's tile count is the kernel's). bf16 within K2's bf16
+    tolerance, 2e-2 + 2e-2 of the largest."""
+    _card()
+    from mamba_asr_torch.kernels import scan_variants as p1
+    from mamba_asr_torch.ops import scan_variants as sv
+
+    inp, dout = _variant_case("cuda", getattr(torch, dtype))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    h0 = torch.randn(2, 280, 16, device="cuda", generator=gen)
+    dhl = torch.randn(2, 280, 16, device="cuda", generator=gen)
+    _, _, h_chunks = kernel.selective_scan_fwd_train(**inp, delta_softplus=True, h0=h0)
+    before = p1.BWD_LAUNCHES
+    got = sv.scan_variant_bwd(variant, **inp, h0=h0, h_chunks=h_chunks, dout=dout,
+                              dh_last=dhl)
+    torch.cuda.synchronize()
+    assert p1.BWD_LAUNCHES == before + 1
+    tiles = -(-280 // sv.bwd_channels_per_block(16))
+    ref = sv.selective_scan_bwd_variant_ref(variant, **inp, h0=h0, h_chunks=h_chunks,
+                                            dout=dout, dh_last=dhl, chunk=kernel.CHUNK,
+                                            tiles=tiles)
+    assert_grads_close(got, ref, *((2e-2, 2e-2) if dtype == "bfloat16" else sv.BWD_CARD_TOL))
+
+
+# -- P2, the peak probe -------------------------------------------------------
+
+
+def test_probe_wrapper_refuses_cpu_tensors():
+    from mamba_asr_torch.kernels import peak_probe as p2
+
+    before = p2.LAUNCHES
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        p2.peak_probe(torch.full((4, 5), 0.5), 8)
+    assert p2.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [((2, 37, 100), 64), ((32, 751, 288), 1024)])
+@pytest.mark.parametrize("mode", ["dependent", "independent", "exp2"])
+def test_probe_matches_plain_on_card(mode, shape, k):
+    """Within 1e-5 relative: FMA against separate multiply and add, exp2f
+    against torch.exp2, on contracting chains. The tool's shape has more
+    elements than one pass of the kernel's grid, so its grid-stride loop
+    runs."""
+    _card()
+    from mamba_asr_torch.kernels import peak_probe as p2
+    from mamba_asr_torch.ops import peak_probe as probe
+
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0.1, 0.9, shape)
+                         .astype(np.float32)).cuda()
+    before = p2.LAUNCHES
+    got = probe.peak_probe(x, k, mode)
+    torch.cuda.synchronize()
+    assert p2.LAUNCHES == before + 1
+    torch.testing.assert_close(got, probe.peak_probe_ref(x, k, mode), rtol=1e-5, atol=1e-6)
+
+
+# -- Timing -------------------------------------------------------------------
+
+
+def test_median_ms_on_cpu_is_the_host_time():
+    from mamba_asr_torch.tools.timing import median_ms, time_key
+
+    assert median_ms(lambda: time.sleep(0.002), 3, torch.device("cpu")) >= 2.0
+    assert time_key(torch.device("cpu")) == "cpu_ms"
+
+
+@pytest.mark.cuda
+def test_median_ms_excludes_the_host_enqueue_on_card():
+    """A call that spends 1 ms on the host and launches one tiny kernel:
+    events around the call read >= 1 ms (the fault of the
+    kernel timing before median_ms); median_ms, the calls queued behind a spin kernel, reads the
+    card's time alone."""
+    _card()
+    from mamba_asr_torch.tools.timing import median_ms
+
+    x = torch.zeros(1024, device="cuda")
+
+    def call():
+        time.sleep(0.001)
+        x.add_(1.0)
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    call()
+    end.record()
+    end.synchronize()
+    assert start.elapsed_time(end) >= 1.0
+    assert median_ms(call, 5, torch.device("cuda")) < 0.2

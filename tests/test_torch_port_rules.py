@@ -24,6 +24,8 @@ import torch
 from mamba_asr_torch.configs.loader import FrontendConfig
 from mamba_asr_torch.models.asr import ASRConfig
 from mamba_asr_torch.serving.recognizer import Recognizer
+from mamba_asr_torch.tools import peak_probe as peak_probe_tool
+from mamba_asr_torch.tools import scan_variants as scan_variants_tool
 from mamba_asr_torch.training.trainer import Trainer
 from mamba_asr_torch.utils.device import resolve_device
 
@@ -71,6 +73,10 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         Recognizer(ASRConfig(num_decoder_layers=2), FrontendConfig(), {}, search="s2s")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(ASRConfig(), FrontendConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scan_variants_tool.run(["base"], b=1, t=8, d=8, n=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        peak_probe_tool.run(b=1, t=2, d=8, k=4)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
