@@ -52,12 +52,19 @@ exits non-zero; it prints no result without a CUDA card):
              of 4 micro-steps) and peak memory
   train_profile  one such micro-step under torch.profiler
   kernel_ctc_dp  the CTC prefix DP (K3) against its plain loop at T 751
-             (30 s) with N 66 and 528 hypotheses and a ragged case; times
-             and bound
+             (30 s) with N 66 and 528 hypotheses, ragged N 66 and 528,
+             T 1, T 2, N 1 and N 33; time, bound, the chain of dependent
+             logaddexps, and the time per 768-frame segment (T 768
+             against 9 x 768)
   kernel_beam_attn  the beam attention (K4) against the plain gather at
              the S2S-Small decoder's H 4, dh 36, S 320, N 66 and 528,
-             bf16, pos 0, 63, 64, 255; times, bound, and the gather +
-             scaled_dot_product_attention yardstick
+             bf16, pos 0, 31, 32, 63, 64, 255, on a beam-shaped ancestor
+             table, at forced splits 1 to 16, at pos 1,023 (S 1,024), and
+             at the Large decoder's 8 heads of 64 in fp32 and bf16; times
+             at pos 63, 127, 255 on a random and a beam-shaped table with
+             bounds (distinct rows, and their 32-byte sectors) and the
+             gather + scaled_dot_product_attention yardstick; a sweep of
+             the position split at N 66 and 528
   s2s_parity the full-width ConMamba-Small S2S model (hparams/S2S/
              conmamba_small.yaml, seeded, fp32, TF32 and cuDNN off, B2 x
              4 s), card against CPU on the same encoder output: 8 cached
@@ -69,7 +76,8 @@ exits non-zero; it prints no result without a CUDA card):
              batch=1; then B8 x 30 s of noise at batch=8, S2S RTFx as the
              median of 5 searches (the seeded decoder rarely emits eos, so
              each search runs all 256 steps: the worst case)
-  s2s_profile  one B8 x 30 s search under torch.profiler
+  s2s_profile  one B8 x 30 s search under torch.profiler, with K3's and
+             K4's device ms
 
 Each phase also prints its wall seconds. Then the kernels line, the
 card's name and power limit, and last
@@ -447,9 +455,10 @@ def phase_recognize(cfg, frontend, state):
     return main_launches, rec32, batch
 
 
-def device_profile(fn, top: int):
+def device_profile(fn, top: int, named=()):
     """One call of fn() under torch.profiler: (wall ms, device kernel ms,
-    the `top` kernels by device time as {kernel, ms, calls}). Only the
+    the `top` kernels by device time as {kernel, ms, calls}, followed by
+    any other kernel whose name holds one of `named`). Only the
     card's activity is traced: recording the host's operators as well made
     the S2S search's profile take 67 s instead of 22 s on an H100 host."""
     from torch.profiler import ProfilerActivity, profile
@@ -472,7 +481,8 @@ def device_profile(fn, top: int):
     rows.sort(reverse=True)
     total_ms = sum(r[0] for r in rows) / 1e3
     return wall_ms, total_ms, [{"kernel": k[:80], "ms": us / 1e3, "calls": c}
-                               for us, k, c in rows[:top]]
+                               for i, (us, k, c) in enumerate(rows)
+                               if i < top or any(name in k for name in named)]
 
 
 def phase_profile(rec32, batch):
@@ -846,6 +856,8 @@ def sentinel_close(name, got, ref, atol, rtol) -> float:
         raise AssertionError(f"{name}: {int((dead_g ^ dead_r).sum())} entries at -1e30 "
                              "on one side only")
     live = ~dead_r
+    if not live.any():  # e.g. r_b at T 1: every entry at -1e30
+        return 0.0
     return check_close(name, got[live], ref[live], atol, rtol)
 
 
@@ -878,30 +890,59 @@ def ctc_dp_bound_ms(frames, n, clock_hz, sms):
     return 1e3 * max(bytes_s, sfu_s), ("bytes" if bytes_s >= sfu_s else "operations")
 
 
+def ctc_dp_chain_steps(frames):
+    """Dependent logaddexps of one K3 thread (both recurrences, every
+    segment): per recurrence, compose and walk a chunk (2 x frames per
+    chunk), the lane's own chunk maps and their carries (2 x (C / 32 - 1)),
+    5 shuffle rounds and the lane's entering state."""
+    from mamba_asr_torch.kernels.ctc_dp import CHUNKS as chunks, MOST as most
+
+    steps = 0
+    for s0 in range(0, frames, chunks * most):
+        length = -(-min(chunks * most, frames - s0) // chunks)
+        steps += 2 * (2 * length + 2 * (chunks // 32 - 1) + 5 + 1)
+    return steps
+
+
 def phase_kernel_ctc_dp(clock_hz, sms):
     from mamba_asr_torch.kernels import ctc_dp as k3
     from mamba_asr_torch.ops.ctc_dp import ctc_dp_ref
 
     frames = 751  # 30 s
     cases, timing = [], {}
-    for name, n, ragged in (("n66", 66, False), ("n528", 528, False),
-                            ("ragged_n66", 66, True)):
-        planes = dp_planes(frames, n, 31 + n, ragged)
+    for name, t, n, ragged in (("n66", frames, 66, False), ("n528", frames, 528, False),
+                               ("ragged_n66", frames, 66, True),
+                               ("ragged_n528", frames, 528, True), ("t1", 1, 66, False),
+                               ("t2", 2, 66, True), ("n1", frames, 1, False),
+                               ("n33", frames, 33, True)):
+        planes = dp_planes(t, n, 31 + n + t, ragged)
+        ref = ctc_dp_ref(*planes)
         got = k3.ctc_dp_fwd(*planes)
         torch.cuda.synchronize()
-        ref = ctc_dp_ref(*planes)
         err = max(sentinel_close(f"ctc_dp {name} {part}", g, r, *CTC_DP_TOL)
                   for part, g, r in zip(("r_nb", "r_b"), got, ref))
-        cases.append({"case": name, "shape": [frames, n], "max_abs_err": err,
-                      "tol": CTC_DP_TOL})
-        if not ragged:
-            bound_ms, bound_by = ctc_dp_bound_ms(frames, n, clock_hz, sms)
+        cases.append({"case": name, "shape": [t, n], "max_abs_err": err, "tol": CTC_DP_TOL})
+        if name in ("n66", "n528"):
+            bound_ms, bound_by = ctc_dp_bound_ms(t, n, clock_hz, sms)
             timing[name] = {
                 "kernel_ms": cuda_ms(lambda: k3.ctc_dp_fwd(*planes), 50),
                 "plain_ms": cuda_ms(lambda: ctc_dp_ref(*planes), 3),
-                "bound_ms": bound_ms, "bound_by": bound_by}
-    result = {"phase": "kernel_ctc_dp", "name": "ctc_dp", "cases": cases,
-              "timing": timing, "library_ms": None, **timing["n528"]}
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "chain_steps": ctc_dp_chain_steps(t)}
+    # The time per 768-frame segment (one chain of both recurrences) from
+    # T 768 and 9 x 768 at N 66, and the launch floor at T 1.
+    seg = {}
+    for t in (1, 768, 9 * 768):
+        planes = dp_planes(t, 66, 7, False)
+        seg[t] = cuda_ms(lambda: k3.ctc_dp_fwd(*planes), 50)
+    per_segment = (seg[9 * 768] - seg[768]) / 8
+    steps = ctc_dp_chain_steps(768)
+    result = {"phase": "kernel_ctc_dp", "name": "ctc_dp", "block": [k3.HYPS, k3.CHUNKS, k3.MOST],
+              "cases": cases, "timing": timing, "library_ms": None,
+              "t1_ms": seg[1], "t768_ms": seg[768], "t6912_ms": seg[9 * 768],
+              "ms_per_segment": per_segment, "chain_steps_per_segment": steps,
+              "cycles_per_chain_step": per_segment * 1e-3 * clock_hz / steps,
+              **timing["n528"]}
     emit(result)
     return result
 
@@ -913,21 +954,45 @@ def anc_table(s, n, pos, rng):
     return torch.from_numpy(anc).cuda()
 
 
+def beam_table(s, n, pos, rng, beam=66):
+    """An ancestor table as the search builds it (decoding/s2s_beam.py): at
+    each step row s is the identity, then every hypothesis draws its parent
+    among its utterance's `beam` rows and takes the parent's column."""
+    anc = np.zeros((s, n), np.int32)
+    base = np.arange(n) // beam * beam
+    for step in range(pos + 1):
+        anc[step] = np.arange(n)
+        if step < pos:
+            anc[:step + 1] = anc[:step + 1][:, base + rng.integers(0, beam, n)]
+    return torch.from_numpy(anc).cuda()
+
+
 def beam_attn_bound_ms(h, dh, anc, pos, elem_bytes, clock_hz, sms):
     """Least time for K4's work on this ancestor table: each distinct K and
     V row (j, anc[j, n]) with j <= pos read once, the ancestor column and q
     read once, out written once, against 4 * H * N * (pos + 1) * dh FLOP
-    and one exp per score."""
+    and one exp per score. Also the least time at the memory's 32-byte
+    sector: the distinct sectors those rows touch (a row of 72 bytes spans
+    3 or 4), and the share of (position, hypothesis) pairs that are
+    distinct rows."""
     rows, n = pos + 1, anc.shape[1]
     col = anc[:rows].long()
-    distinct = torch.unique(
-        torch.arange(rows, device=col.device)[:, None] * n + col).numel()
-    nbytes = (2 * h * distinct * dh * elem_bytes + rows * n * 4
-              + 2 * n * h * dh * elem_bytes)
+    keys = torch.unique(torch.arange(rows, device=col.device)[:, None] * n + col)
+    distinct = keys.numel()
+    row_bytes = dh * elem_bytes
+    start = keys * row_bytes  # one head's plane; every head's is a whole number of sectors
+    span = (row_bytes + 31) // 32 + 1
+    sec = (start[:, None] // 32 + torch.arange(span, device=col.device)[None, :])
+    sec = sec[sec * 32 < start[:, None] + row_bytes]
+    sectors = torch.unique(sec).numel()
+    small = rows * n * 4 + 2 * n * h * dh * elem_bytes
+    nbytes = 2 * h * distinct * row_bytes + small
     bytes_s = nbytes / HBM_BYTES_PER_S
     ops_s = max(4.0 * h * n * rows * dh / FP32_FLOP_PER_S,
                 h * n * rows / (SFU_PER_CLOCK_PER_SM * sms * clock_hz))
-    return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s else "operations")
+    sector_ms = 1e3 * max((2 * h * sectors * 32 + small) / HBM_BYTES_PER_S, ops_s)
+    return (1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s else "operations"),
+            sector_ms, distinct / (rows * n))
 
 
 def sdpa_on_gathered(q, k_buf, v_buf, anc, pos):
@@ -941,6 +1006,15 @@ def sdpa_on_gathered(q, k_buf, v_buf, anc, pos):
     return out[:, :, 0]
 
 
+def beam_attn_inputs(gen, n, h, s, dh, dtype):
+    """q (N, H, dh) and K, V buffers (H, S, N, dh) of N(0, 1) values, drawn
+    on the card from the generator `gen`."""
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    return draw(n, h, dh), [draw(h, s, n, dh) for _ in range(2)]
+
+
 def phase_kernel_beam_attn(s2s_cfg, clock_hz, sms):
     from mamba_asr_torch.kernels import beam_attention as k4
     from mamba_asr_torch.ops.beam_attention import beam_attention_ref
@@ -949,29 +1023,57 @@ def phase_kernel_beam_attn(s2s_cfg, clock_hz, sms):
     dh = s2s_cfg.d_model // h
     s = 320  # 256 steps + 1, rounded up to 64
     rng = np.random.default_rng(SEED + 4)
-    cases, timing = [], {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    cases, timing, sweep = [], {}, {}
+
+    def check(name, q, kv, anc, pos, tol, splits=None):
+        got = k4.beam_attention_fwd(q, *kv, anc, pos, splits=splits)
+        torch.cuda.synchronize()
+        ref = beam_attention_ref(q, *kv, anc, pos)
+        err = check_close(f"beam_attn {name}", got, ref, *tol)
+        cases.append({"case": name, "shape": list(kv[0].shape), "pos": pos,
+                      "dtype": str(q.dtype)[6:], "splits": splits, "max_abs_err": err,
+                      "tol": tol})
+        return ref
+
     for n in (66, 528):
-        q = torch.from_numpy(rng.normal(size=(n, h, dh)).astype(np.float32)).cuda().bfloat16()
-        kv = [torch.from_numpy(rng.normal(size=(h, s, n, dh)).astype(np.float32)).cuda()
-              .bfloat16() for _ in range(2)]
-        for pos in (0, 63, 64, 255):
+        q, kv = beam_attn_inputs(gen, n, h, s, dh, torch.bfloat16)
+        for pos in (0, 31, 32, 63, 64, 255):
             anc = anc_table(s, n, pos, rng)
-            got = k4.beam_attention_fwd(q, *kv, anc, pos)
-            torch.cuda.synchronize()
-            ref = beam_attention_ref(q, *kv, anc, pos)
-            err = check_close(f"beam_attn n{n} pos{pos}", got, ref, *BF16_TOL)
+            ref = check(f"n{n}_pos{pos}", q, kv, anc, pos, BF16_TOL)
             lib_err = (sdpa_on_gathered(q, *kv, anc, pos).float() - ref.float()).abs().max().item()
-            cases.append({"case": f"n{n}_pos{pos}", "shape": [h, s, n, dh],
-                          "dtype": "bfloat16", "max_abs_err": err, "tol": BF16_TOL,
-                          "library_max_abs_diff": lib_err})
-        bound_ms, bound_by = beam_attn_bound_ms(h, dh, anc, 255, 2, clock_hz, sms)
-        timing[f"n{n}_pos255"] = {
-            "kernel_ms": cuda_ms(lambda: k4.beam_attention_fwd(q, *kv, anc, 255), 50),
-            "plain_ms": cuda_ms(lambda: beam_attention_ref(q, *kv, anc, 255), 5),
-            "library_ms": cuda_ms(lambda: sdpa_on_gathered(q, *kv, anc, 255), 20),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            cases[-1]["library_max_abs_diff"] = lib_err
+        for table in ("random", "beam"):
+            for pos in (63, 127, 255):
+                anc = (anc_table if table == "random" else beam_table)(s, n, pos, rng)
+                if table == "beam":
+                    check(f"n{n}_pos{pos}_beam", q, kv, anc, pos, BF16_TOL)
+                bound_ms, bound_by, sector_ms, distinct = beam_attn_bound_ms(
+                    h, dh, anc, pos, 2, clock_hz, sms)
+                timing[f"n{n}_pos{pos}_{table}"] = {
+                    "kernel_ms": cuda_ms(lambda: k4.beam_attention_fwd(q, *kv, anc, pos), 50),
+                    "plain_ms": cuda_ms(lambda: beam_attention_ref(q, *kv, anc, pos), 5),
+                    "library_ms": cuda_ms(lambda: sdpa_on_gathered(q, *kv, anc, pos), 20),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_sector_ms": sector_ms, "distinct_rows": distinct,
+                    "split_rule": k4.split_rule(n, h, pos, sms)}
+        anc = anc_table(s, n, 255, rng)
+        for splits in (1, 2, 4, 8, 16):
+            check(f"n{n}_pos255_splits{splits}", q, kv, anc, 255, BF16_TOL, splits)
+            sweep[f"n{n}_pos255_splits{splits}"] = cuda_ms(
+                lambda: k4.beam_attention_fwd(q, *kv, anc, 255, splits=splits), 50)
+        del q, kv
+    # past the old shared-memory ceiling (pos above ~760 at dh 36)
+    q, kv = beam_attn_inputs(gen, 528, h, 1024, dh, torch.bfloat16)
+    check("n528_pos1023_s1024", q, kv, anc_table(1024, 528, 1023, rng), 1023, BF16_TOL)
+    # the Large decoder's width: d_model 512, 8 heads of 64
+    for dtype, tol in ((torch.float32, (2e-5, 2e-5)), (torch.bfloat16, BF16_TOL)):
+        q, kv = beam_attn_inputs(gen, 528, 8, s, 64, dtype)
+        check(f"n528_h8_dh64_pos255_{str(dtype)[6:]}", q, kv, anc_table(s, 528, 255, rng),
+              255, tol)
+    del q, kv
     result = {"phase": "kernel_beam_attn", "name": "beam_attention", "cases": cases,
-              "timing": timing, **timing["n528_pos255"]}
+              "timing": timing, "split_sweep_ms": sweep, **timing["n528_pos255_random"]}
     emit(result)
     return result
 
@@ -1133,9 +1235,12 @@ def phase_s2s_recognize(s2s_cfg, frontend, state):
 def phase_s2s_profile(rec8, batch):
     wav = torch.from_numpy(np.stack(batch))
     lens = torch.full((8,), 480000, dtype=torch.int32)
-    wall_ms, total_ms, top = device_profile(lambda: rec8.decode_batch(wav, lens), 15)
+    wall_ms, total_ms, top = device_profile(lambda: rec8.decode_batch(wav, lens), 15,
+                                            ("ctc_dp_kernel", "beam_attention_kernel"))
     emit({"phase": "s2s_profile", "wall_ms": wall_ms, "device_kernel_ms": total_ms,
           "idle_share": 1.0 - total_ms / wall_ms, "steps": rec8.searcher.last_steps,
+          "K3_ms": sum(r["ms"] for r in top if "ctc_dp_kernel" in r["kernel"]),
+          "K4_ms": sum(r["ms"] for r in top if "beam_attention_kernel" in r["kernel"]),
           "top": top})
 
 

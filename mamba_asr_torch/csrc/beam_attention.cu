@@ -11,159 +11,370 @@
 // anc[j, n] = the row that holds position j of hypothesis n. q, k, v and
 // out share one dtype (float32 or bfloat16). All contiguous.
 //
-// Design. One warp per (n, h), four warps per block. The warp stages q in
-// shared memory as float. Pass 1: lanes over positions j = lane, lane+32,
-// ..., each lane gathers its row anc[j, n] of k and computes the score in
-// fp32, keeping score and row in shared memory; a warp max and a warp sum
-// of exp(s - max) by shuffles. Pass 2: lanes over dh (up to 4 values per
-// lane, so dh <= 128), a loop over j reads each position's v row, which
-// the warp loads as one contiguous segment. Rows past pos are never read,
-// so a never-written buffer tail cannot leak in. pos is a host int passed
-// by value: no device read, no sync. On the TPU the kernel renders the
-// (J, R, N) validity plane and sweeps all rows with an online softmax; a
-// gather is what suits this card, and it serves every N (the TPU falls
-// back to the XLA gather above ~N 400 for lack of VMEM).
+// Bound. The work is a gather: each distinct K and V row (j, anc[j, n]),
+// j <= pos, read once, ~4 FLOP per element read. At the S2S-Small decoder
+// (H 4, dh 36, bf16), N 528 and pos 255 that is up to 77.9 MB (49.3 MB of
+// distinct rows on a random table, fewer on a beam's, where hypotheses
+// share ancestors): memory bounds it. The rows are scattered 72-byte
+// pieces, so what the card pays is the number of 128-byte lines each load
+// instruction touches in L1, and then the 32-byte sectors it fetches: a
+// load in which 32 lanes read 32 different rows touches 32 lines.
 //
-// Bound. The bytes it must move are the k and v rows of positions <= pos,
-// the anc column and q in, out written: at the S2S-Small decoder (H 4,
-// dh 36, bf16), N 528 and pos 255, 2 * 4 * 256 * 528 * 72 B = 77.9 MB,
-// ~23 us at 3.35 TB/s. The arithmetic (4 * H * N * (pos + 1) * dh FLOP)
-// is tiny. Known limits of this simple design: pass 1 reads each k row
-// with one lane (72 scattered bytes, not coalesced across the warp), and
-// pass 2 is a dependent loop over j per lane. Staging the anc column and
-// k tiles in shared memory (TMA) is a later PR's work.
+// Design. One pass over memory with an online softmax (as FlashDecoding).
+// A block takes `hyps` neighbouring hypotheses x `head_block` heads x
+// `splits` position splits, one warp each (at most kMaxWarps). In a warp,
+// `lanes_per_row` lanes (G, the largest power of two <= the row's
+// `vec_bytes` chunks) read one row together, lane g the chunks g, g + G,
+// ..., so a load instruction reads whole runs of G chunks of 32 / G rows
+// (at dh 36 bf16: G 8, 64 contiguous bytes and then 8, of 4 rows). A lane
+// issues the K and V loads of kUnroll positions at once (they depend only
+// on the ancestor entries), takes each score by a shuffle sum over its G
+// lanes, and keeps a running max, sum and accumulator of its chunks in
+// fp32. The block stages the ancestor entries of its hypotheses, kAncTile
+// positions at a time, with coalesced loads into shared memory: each is
+// read from memory once for all heads. After the walk the lanes merge by
+// shuffles, the splits through shared memory of fixed size (none grows
+// with pos, so any pos < S is taken). The geometry is the wrapper's
+// (kernels/beam_attention.py: row_layout, split_rule), which splits
+// positions over more warps when N x H warps cannot fill the card. Rows
+// past pos are never read, so a never-written buffer tail cannot leak
+// in. pos is a host int passed by value: no device read, no sync. On the
+// TPU the kernel renders a (J, R, N) validity plane and sweeps all rows;
+// a gather is what suits this card. On an H100 SXM (700 W) at N 528, pos
+// 255 this takes ~2.4x the time of the distinct 32-byte sectors (PERF.md).
+// In dev builds one, two or four positions in flight per lane timed
+// alike at two blocks per SM, so the loads' latency is not what remains;
+// builds at one block per SM (four or eight in flight) were slower at N 528.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 
-constexpr int kWarps = 4;      // (n, h) items per block
-constexpr int kMaxDhTiles = 4;  // dh <= 32 * kMaxDhTiles
+constexpr int kMaxWarps = 16;     // warps per block
+constexpr int kAncTile = 256;     // positions of ancestor entries staged at once
+constexpr int kMaxDh = 128;
+constexpr int kUnroll = 2;        // warp steps whose loads a lane issues together
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// Chunks of one row a lane walks at most: the wrapper gives a row
+// lanes_per_row = the largest power of two <= its chunks (at most 32), so
+// a lane walks 2 at most, or 4 where 2- or 4-byte loads make a row more
+// than 64 chunks.
+__host__ __device__ constexpr int chunks_per_lane(int vec_bytes) {
+  return vec_bytes <= 4 ? 4 : 2;
+}
+
+template <int VB> struct Raw;
+template <> struct Raw<2> { using type = unsigned short; };
+template <> struct Raw<4> { using type = unsigned int; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<16> { using type = uint4; };
+
+// One 32-bit word as 2 bf16 (low half first) or 1 float.
+template <bool BF16>
+__device__ __forceinline__ void unpack_word(unsigned w, float* o) {
+  if constexpr (BF16) {
+    o[0] = __uint_as_float(w << 16);
+    o[1] = __uint_as_float(w & 0xffff0000u);
+  } else {
+    o[0] = __uint_as_float(w);
+  }
+}
+
+template <bool BF16>
+__device__ __forceinline__ void unpack(unsigned short x, float* o) {
+  o[0] = __uint_as_float(static_cast<unsigned>(x) << 16);
+}
+template <bool BF16>
+__device__ __forceinline__ void unpack(unsigned x, float* o) { unpack_word<BF16>(x, o); }
+template <bool BF16>
+__device__ __forceinline__ void unpack(uint2 x, float* o) {
+  constexpr int w = BF16 ? 2 : 1;
+  unpack_word<BF16>(x.x, o);
+  unpack_word<BF16>(x.y, o + w);
+}
+template <bool BF16>
+__device__ __forceinline__ void unpack(uint4 x, float* o) {
+  constexpr int w = BF16 ? 2 : 1;
+  unpack_word<BF16>(x.x, o);
+  unpack_word<BF16>(x.y, o + w);
+  unpack_word<BF16>(x.z, o + 2 * w);
+  unpack_word<BF16>(x.w, o + 3 * w);
+}
+
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ void store(unsigned short* p, float v) {
+  *p = __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+template <bool BF16, int VB>
+__global__ void __launch_bounds__(32 * kMaxWarps, 2)
+beam_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
+                      const void* __restrict__ v, const int* __restrict__ anc,
+                      void* __restrict__ out, int heads, int s_len, int n, int dh,
+                      int pos, float scale_log2, int hyps, int head_block,
+                      int splits, int lanes_per_row) {
+  using R = typename Raw<VB>::type;
+  using T = typename std::conditional<BF16, unsigned short, float>::type;
+  constexpr int kElem = BF16 ? 2 : 4;
+  constexpr int kVe = VB / kElem;   // elements per chunk
+  constexpr int kChunks = chunks_per_lane(VB);
 
-template <typename T>
-__global__ void __launch_bounds__(32 * kWarps)
-beam_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const int* __restrict__ anc,
-                      T* __restrict__ out, int heads, int s_len, int n, int dh,
-                      int pos, float sqrt_dh) {
-  extern __shared__ float smem[];
+  __shared__ int anc_s[kAncTile * kMaxWarps];
+  __shared__ __align__(16) float q_s[kMaxWarps * kMaxDh];
+  __shared__ float part_s[kMaxWarps * (kMaxDh + 2)];
+
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int item = blockIdx.x * kWarps + warp;  // = hyp * heads + h
-  if (item >= n * heads) return;  // whole warps only; no block barrier below
-  const int hyp = item / heads;
-  const int h = item - hyp * heads;
-  const int len = pos + 1;
+  const int pairs = hyps * head_block;
+  const int pair = warp % pairs;
+  const int split = warp / pairs;
+  const int b = pair / head_block;
+  const int hyp = blockIdx.x * hyps + b;
+  const int h = blockIdx.y * head_block + pair % head_block;
+  const bool live = hyp < n && h < heads;
 
-  float* q_s = smem + static_cast<size_t>(warp) * (dh + 2 * len);
-  float* p_s = q_s + dh;
-  int* row_s = reinterpret_cast<int*>(p_s + len);
-
-  const T* qv = q + static_cast<size_t>(item) * dh;
-  for (int d = lane; d < dh; d += 32) q_s[d] = to_f32(qv[d]);
-  __syncwarp();
-
-  // Pass 1: scores, lanes over positions.
-  float m = -INFINITY;
-  for (int j = lane; j < len; j += 32) {
-    const int r = anc[static_cast<size_t>(j) * n + hyp];
-    const T* kr = k + ((static_cast<size_t>(h) * s_len + j) * n + r) * dh;
-    float acc = 0.f;
-    for (int d = 0; d < dh; ++d) acc = fmaf(q_s[d], to_f32(kr[d]), acc);
-    const float s = acc / sqrt_dh;
-    p_s[j] = s;
-    row_s[j] = r;
-    m = fmaxf(m, s);
+  for (int i = threadIdx.x; i < pairs * dh; i += blockDim.x) {
+    const int pr = i / dh, d = i - pr * dh;
+    const int hy = blockIdx.x * hyps + pr / head_block;
+    const int hh = blockIdx.y * head_block + pr % head_block;
+    float x = 0.f;
+    if (hy < n && hh < heads) {
+      const size_t at = (static_cast<size_t>(hy) * heads + hh) * dh + d;
+      x = BF16 ? __uint_as_float(static_cast<unsigned>(static_cast<const T*>(q)[at]) << 16)
+               : static_cast<const float*>(q)[at];
+    }
+    q_s[pr * kMaxDh + d] = x;
   }
-  m = warp_max(m);
-  float l = 0.f;
-  for (int j = lane; j < len; j += 32) {
-    const float e = expf(p_s[j] - m);
-    p_s[j] = e;
-    l += e;
-  }
-  l = warp_sum(l);
-  __syncwarp();
 
-  // Pass 2: weighted sum of v rows, lanes over dh.
-  float acc[kMaxDhTiles] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-  for (int j = 0; j < len; ++j) {
-    const float p = p_s[j];
-    const T* vr = v + ((static_cast<size_t>(h) * s_len + j) * n + row_s[j]) * dh;
+  const int G = lanes_per_row;
+  const int g = lane & (G - 1);
+  const int slot = lane / G;
+  const int slots = 32 / G;                      // positions per warp step
+  const int stride = splits * slots;             // positions per block step
+  const int nch = dh / kVe;                      // chunks per row
+  const int cpl = (nch + G - 1) / G;             // chunks a lane's group walks
+  const size_t row_bytes = static_cast<size_t>(dh) * kElem;
+  const float* qw = q_s + pair * kMaxDh;
+
+  float m = -INFINITY, l = 0.f;
+  float acc[kChunks * kVe];
 #pragma unroll
-    for (int i = 0; i < kMaxDhTiles; ++i) {
-      const int d = lane + 32 * i;
-      if (d < dh) acc[i] = fmaf(p, to_f32(vr[d]), acc[i]);
+  for (int i = 0; i < kChunks * kVe; ++i) acc[i] = 0.f;
+
+  const int len = pos + 1;
+  for (int t0 = 0; t0 < len; t0 += kAncTile) {
+    const int tl = min(kAncTile, len - t0);
+    __syncthreads();  // q staged; the previous tile consumed
+    for (int i = threadIdx.x; i < tl * hyps; i += blockDim.x) {
+      const int jj = i / hyps, hb = i - jj * hyps;
+      const int hy = blockIdx.x * hyps + hb;
+      anc_s[i] = hy < n ? anc[static_cast<size_t>(t0 + jj) * n + hy] : 0;
+    }
+    __syncthreads();
+    if (!live) continue;
+    // kUnroll warp steps at once: every K and V load of them in flight.
+    for (int base = split * slots; base < tl; base += kUnroll * stride) {  // warp-uniform
+      R kr[kUnroll][kChunks], vr[kUnroll][kChunks];
+      bool valid[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int jj = base + u * stride + slot;
+        valid[u] = jj < tl;
+        if (valid[u]) {
+          const int r = anc_s[jj * hyps + b];
+          const size_t row = (static_cast<size_t>(h) * s_len + t0 + jj) * n + r;
+          const char* kp = static_cast<const char*>(k) + row * row_bytes;
+          const char* vp = static_cast<const char*>(v) + row * row_bytes;
+#pragma unroll
+          for (int c = 0; c < kChunks; ++c) {
+            const int ch = g + c * G;
+            if (c < cpl && ch < nch) {
+              kr[u][c] = *reinterpret_cast<const R*>(kp + ch * VB);
+              vr[u][c] = *reinterpret_cast<const R*>(vp + ch * VB);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        float s = 0.f;
+        if (valid[u]) {
+#pragma unroll
+          for (int c = 0; c < kChunks; ++c) {
+            const int ch = g + c * G;
+            if (c < cpl && ch < nch) {
+              float kf[kVe];
+              unpack<BF16>(kr[u][c], kf);
+#pragma unroll
+              for (int e = 0; e < kVe; ++e) s = fmaf(qw[ch * kVe + e], kf[e], s);
+            }
+          }
+        }
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {  // the score over the row's lanes
+          if (o < G) s += __shfl_xor_sync(0xffffffffu, s, o);
+        }
+        if (valid[u]) {
+          s *= scale_log2;
+          const float mn = fmaxf(m, s);
+          const float c0 = exp2f(m - mn);  // 0 on a lane's first position (m = -inf)
+          const float p = exp2f(s - mn);
+          l = fmaf(l, c0, p);
+          m = mn;
+#pragma unroll
+          for (int c = 0; c < kChunks; ++c) {
+            const int ch = g + c * G;
+            if (c < cpl && ch < nch) {  // a chunk past the row keeps acc 0
+              float vf[kVe];
+              unpack<BF16>(vr[u][c], vf);
+#pragma unroll
+              for (int e = 0; e < kVe; ++e) {
+                acc[c * kVe + e] = fmaf(acc[c * kVe + e], c0, p * vf[e]);
+              }
+            }
+          }
+        }
+      }
     }
   }
-  T* o = out + static_cast<size_t>(item) * dh;
+
+  // Merge the warp's position slots (lanes with equal g): max, then the
+  // rescaled sums. A lane, or a whole warp, that owns no position has
+  // m = -inf and weighs 0.
+  float mw = m;
 #pragma unroll
-  for (int i = 0; i < kMaxDhTiles; ++i) {
-    const int d = lane + 32 * i;
-    if (d < dh) store(o + d, acc[i] / l);
+  for (int o = 1; o < 32; o <<= 1) {
+    if (o >= G) mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, o));
+  }
+  const float c0 = m == -INFINITY ? 0.f : exp2f(m - mw);
+  l *= c0;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    if (o >= G) l += __shfl_xor_sync(0xffffffffu, l, o);
+  }
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    if (c < cpl) {  // uniform over the warp
+#pragma unroll
+      for (int e = 0; e < kVe; ++e) {
+        float a = acc[c * kVe + e] * c0;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          if (o >= G) a += __shfl_xor_sync(0xffffffffu, a, o);
+        }
+        acc[c * kVe + e] = a;
+      }
+    }
+  }
+  float* part = part_s + warp * (kMaxDh + 2);
+  if (lane < G) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int ch = g + c * G;
+      if (c < cpl && ch < nch) {
+#pragma unroll
+        for (int e = 0; e < kVe; ++e) part[ch * kVe + e] = acc[c * kVe + e];
+      }
+    }
+    if (lane == 0) {
+      part[kMaxDh] = mw;
+      part[kMaxDh + 1] = l;
+    }
+  }
+  __syncthreads();
+
+  // Split 0's warp of each (hypothesis, head) merges the splits.
+  if (split != 0 || !live) return;
+  float mx = -INFINITY;
+  for (int p = 0; p < splits; ++p) {
+    mx = fmaxf(mx, part_s[(p * pairs + pair) * (kMaxDh + 2) + kMaxDh]);
+  }
+  float wsum = 0.f;
+  for (int p = 0; p < splits; ++p) {
+    const float* pp = part_s + (p * pairs + pair) * (kMaxDh + 2);
+    wsum += pp[kMaxDh] == -INFINITY ? 0.f : pp[kMaxDh + 1] * exp2f(pp[kMaxDh] - mx);
+  }
+  const float inv = 1.f / wsum;
+  T* o = static_cast<T*>(out) + (static_cast<size_t>(hyp) * heads + h) * dh;
+  for (int d = lane; d < dh; d += 32) {
+    float a = 0.f;
+    for (int p = 0; p < splits; ++p) {
+      const float* pp = part_s + (p * pairs + pair) * (kMaxDh + 2);
+      if (pp[kMaxDh] != -INFINITY) a = fmaf(pp[d], exp2f(pp[kMaxDh] - mx), a);
+    }
+    store(o + d, a * inv);
   }
 }
 
-template <typename T>
-void launch(const void* q, const void* k, const void* v, const int* anc,
-            void* out, int heads, int s_len, int n, int dh, int pos,
-            float sqrt_dh, size_t smem, cudaStream_t stream) {
-  const int items = n * heads;
-  const int blocks = (items + kWarps - 1) / kWarps;
-  beam_attention_kernel<T><<<blocks, 32 * kWarps, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), anc, static_cast<T*>(out), heads, s_len, n,
-      dh, pos, sqrt_dh);
+template <bool BF16, int VB>
+void launch(const void* q, const void* k, const void* v, const int* anc, void* out,
+            int heads, int s_len, int n, int dh, int pos, float scale_log2, int hyps,
+            int head_block, int splits, int lanes_per_row, cudaStream_t stream) {
+  const dim3 grid((n + hyps - 1) / hyps, (heads + head_block - 1) / head_block);
+  const int threads = 32 * hyps * head_block * splits;
+  beam_attention_kernel<BF16, VB><<<grid, threads, 0, stream>>>(
+      q, k, v, anc, out, heads, s_len, n, dh, pos, scale_log2, hyps, head_block,
+      splits, lanes_per_row);
 }
+
+bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
 
 }  // namespace
 
-// Shared memory one launch needs, in bytes (the wrapper checks it
-// against the 48 KB a block may take without opting in).
-extern "C" int mamba_beam_attention_smem_bytes(int dh, int pos) {
-  return kWarps * (dh + 2 * (pos + 1)) * 4;
-}
-
 // Plain C entry, bound with ctypes. is_bf16 selects the dtype of q, k, v
-// and out. Attends positions 0..pos (pos < s_len). Returns the CUDA error
-// of the launch (0 on success); the launch is asynchronous on `stream`.
+// and out. Attends positions 0..pos (pos < s_len). The launch geometry is
+// the wrapper's (kernels/beam_attention.py:launch_shape): `hyps`
+// hypotheses x `head_block` heads x `splits` position splits per block,
+// at most 16 warps; `lanes_per_row` (a power of two) lanes per position,
+// each walking at most chunks_per_lane chunks of `vec_bytes` (2 (bf16
+// only), 4, 8 or 16, dividing dh x the element size and the alignment of
+// k and v). Returns the CUDA error of the launch (0 on
+// success); the launch is asynchronous on `stream`.
 extern "C" int mamba_beam_attention(const void* q, const void* k, const void* v,
                                     const void* anc, void* out, int heads,
                                     int s_len, int n, int dh, int pos,
-                                    float sqrt_dh, int is_bf16, void* stream) {
-  if (heads <= 0 || n <= 0 || dh <= 0 || dh > 32 * kMaxDhTiles || pos < 0 ||
-      pos >= s_len) {
+                                    float sqrt_dh, int is_bf16, int hyps,
+                                    int head_block, int splits, int lanes_per_row,
+                                    int vec_bytes, void* stream) {
+  const int elem = is_bf16 ? 2 : 4;
+  const bool vec_ok = (vec_bytes == 2 && is_bf16) || vec_bytes == 4 || vec_bytes == 8 ||
+                      vec_bytes == 16;
+  if (heads <= 0 || n <= 0 || dh <= 0 || dh > kMaxDh || pos < 0 || pos >= s_len ||
+      hyps <= 0 || head_block <= 0 || !pow2(splits) ||
+      hyps * head_block * splits > kMaxWarps || !pow2(lanes_per_row) ||
+      lanes_per_row > 32 || !vec_ok || (dh * elem) % vec_bytes != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = static_cast<size_t>(mamba_beam_attention_smem_bytes(dh, pos));
+  const int nch = dh * elem / vec_bytes;
+  if ((nch + lanes_per_row - 1) / lanes_per_row > chunks_per_lane(vec_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float scale_log2 = kLog2e / sqrt_dh;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* a = static_cast<const int*>(anc);
+#define MAMBA_BA_LAUNCH(BF, VB)                                                    \
+  launch<BF, VB>(q, k, v, a, out, heads, s_len, n, dh, pos, scale_log2, hyps,     \
+                 head_block, splits, lanes_per_row, s)
   if (is_bf16) {
-    launch<__nv_bfloat16>(q, k, v, a, out, heads, s_len, n, dh, pos, sqrt_dh, smem, s);
+    switch (vec_bytes) {
+      case 2: MAMBA_BA_LAUNCH(true, 2); break;
+      case 4: MAMBA_BA_LAUNCH(true, 4); break;
+      case 8: MAMBA_BA_LAUNCH(true, 8); break;
+      default: MAMBA_BA_LAUNCH(true, 16); break;
+    }
   } else {
-    launch<float>(q, k, v, a, out, heads, s_len, n, dh, pos, sqrt_dh, smem, s);
+    switch (vec_bytes) {
+      case 4: MAMBA_BA_LAUNCH(false, 4); break;
+      case 8: MAMBA_BA_LAUNCH(false, 8); break;
+      default: MAMBA_BA_LAUNCH(false, 16); break;
+    }
   }
+#undef MAMBA_BA_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,9 @@ import torch
 from mamba_asr_torch.kernels import build
 
 LAUNCHES = 0
+# K3's block (csrc/ctc_dp.cu: kHB, kC, kLmax): hypotheses, chunks of frames,
+# frames per chunk at most; T is walked in segments of CHUNKS * MOST frames.
+HYPS, CHUNKS, MOST = 8, 128, 6
 
 
 @functools.lru_cache(maxsize=None)

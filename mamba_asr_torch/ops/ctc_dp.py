@@ -16,7 +16,8 @@ the scorer's finite stand-in for -inf.
 - `linear_log_scan` / `ctc_dp_ref`: the plain version. The JAX package's
   CPU branch solves each recurrence with `lax.associative_scan`
   (`_linear_log_scan`); this is the same recurrence as a sequential loop
-  over T, the order K3 uses, so the two agree to rounding.
+  over T. K3 composes chunks of frames (a two-level scan, as the TPU
+  kernel), so the two agree to rounding in another order.
 - `ctc_dp`: the dispatch. CUDA tensors go to K3 (`kernels/ctc_dp.py`,
   which replaces `_ctc_dp_kernel`), CPU tensors to the plain version.
 """

@@ -231,16 +231,19 @@ def test_ctc_dp_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.cuda
-def test_ctc_dp_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("t,n", [(131, 70), (1, 70), (2, 5), (131, 1), (131, 33),
+                                 (2000, 33)])
+def test_ctc_dp_kernel_matches_plain_on_card(t, n):
     """The dispatch sends CUDA tensors to K3 (one launch) and both
     recurrences agree with the plain loop within 1e-4 + 1e-5 relative
-    (expf/log1pf against torch's; the -1e30 sentinels by the relative
-    part)."""
+    (ex2/lg2.approx against torch's exp/log1p, sums composed in another
+    order; the -1e30 sentinels by the relative part), at T 1 and 2, N 1
+    and 33, and T 2000 (three 768-frame segments)."""
     _card()
     from mamba_asr_torch.kernels import ctc_dp as k3
     from mamba_asr_torch.ops import ctc_dp
 
-    planes = [torch.from_numpy(x).cuda() for x in dp_inputs(21)]
+    planes = [torch.from_numpy(x).cuda() for x in dp_inputs(21, t=t, n=n)]
     before = k3.LAUNCHES
     r_nb, r_b = ctc_dp.ctc_dp(*planes)
     torch.cuda.synchronize()
@@ -265,30 +268,50 @@ def test_beam_attention_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,dh,pos", [("bfloat16", 36, 0), ("bfloat16", 36, 200),
-                                          ("float32", 8, 63), ("float32", 100, 64)])
-def test_beam_attention_kernel_matches_plain_on_card(dtype, dh, pos):
-    """K4 against the plain gather at H 4, S 256, N 70 with a random
-    ancestor table (row pos the identity), never-written rows past pos set
-    to NaN in the kernel's input (it must not read them): float32 within
-    2e-5, bf16 within 1e-2 + 1e-2 relative (the output rounds to bf16)."""
+@pytest.mark.parametrize("dtype,dh,pos,s,n,splits,offset", [
+    ("bfloat16", 36, 0, 256, 70, None, 0), ("bfloat16", 36, 200, 256, 70, None, 0),
+    ("float32", 8, 63, 256, 70, None, 0), ("float32", 100, 64, 256, 70, None, 0),
+    ("bfloat16", 36, 31, 256, 70, None, 0), ("bfloat16", 36, 1023, 1024, 70, None, 0),
+    ("float32", 64, 127, 256, 70, None, 0), ("bfloat16", 64, 127, 256, 70, None, 0),
+    ("bfloat16", 36, 100, 256, 1, None, 0), ("bfloat16", 36, 255, 256, 70, 16, 0),
+    ("float32", 128, 90, 128, 9, 4, 0), ("bfloat16", 7, 40, 64, 9, None, 0),
+    ("bfloat16", 36, 77, 128, 9, None, 1),
+])
+def test_beam_attention_kernel_matches_plain_on_card(dtype, dh, pos, s, n, splits, offset):
+    """K4 against the plain gather at H 4 with a random ancestor table (row
+    pos the identity), never-written rows past pos set to NaN in the
+    kernel's input (it must not read them): float32 within 2e-5, bf16
+    within 1e-2 + 1e-2 relative (the output rounds to bf16). Past the old
+    shared-memory ceiling (pos 1,023), the Large decoder's dh 64, N 1,
+    forced splits, dh 128 over 8 lanes, odd dh 7 (2-byte loads), and K/V
+    buffers `offset` elements past an aligned address (narrower loads)."""
     _card()
     from mamba_asr_torch.kernels import beam_attention as k4
     from mamba_asr_torch.ops import beam_attention as ba
 
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(pos + dh)
-    h, s, n = 4, 256, 70
+    h = 4
+
+    def buf():
+        x = torch.from_numpy(rng.normal(size=(h, s, n, dh)).astype(np.float32)).to(dt)
+        flat = torch.empty(x.numel() + offset, dtype=dt, device="cuda")
+        out = flat[offset:].view(h, s, n, dh)
+        out.copy_(x)
+        return out
+
     q = torch.from_numpy(rng.normal(size=(n, h, dh)).astype(np.float32)).cuda().to(dt)
-    k = torch.from_numpy(rng.normal(size=(h, s, n, dh)).astype(np.float32)).cuda().to(dt)
-    v = torch.from_numpy(rng.normal(size=(h, s, n, dh)).astype(np.float32)).cuda().to(dt)
+    k, v = buf(), buf()
     anc = rng.integers(0, n, size=(s, n)).astype(np.int32)
     anc[pos] = np.arange(n)
     anc = torch.from_numpy(anc).cuda()
     ref = ba.beam_attention_ref(q, k, v, anc, pos)
     k[:, pos + 1:], v[:, pos + 1:] = float("nan"), float("nan")
     before = k4.LAUNCHES
-    got = ba.beam_attention(q, k, v, anc, pos)
+    if splits is None:
+        got = ba.beam_attention(q, k, v, anc, pos)
+    else:
+        got = k4.beam_attention_fwd(q, k, v, anc, pos, splits=splits)
     torch.cuda.synchronize()
     assert k4.LAUNCHES == before + 1 and got.dtype == dt
     tol = 1e-2 if dt == torch.bfloat16 else 2e-5
