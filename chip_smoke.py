@@ -34,7 +34,9 @@ exits non-zero; it prints no result without a CUDA card):
              the training shape (B32 x 25 s -> L626, D288, N16, bf16) and
              on a ragged fp32 case with h0 and d(h_last); K1's training
              form against its inference form and the plain chunk states;
-             times and bounds
+             K2's time alone (its C entry) and through the wrapper (with
+             the torch sums of its partials), bounds, and the registers,
+             stack and spills ptxas reported for each K2 instantiation
   scan_variants  each forward and adjoint variant (P1) against its plain
              version at B2 L200 D280 N16 fp32 (ragged), then the
              tools.scan_variants entry point at its defaults (B32 L751,
@@ -88,6 +90,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -493,7 +496,32 @@ def phase_profile(rec32, batch):
           "top": top})
 
 
+# "bwd_kernel<V, NS, T>" in a mangled name: variant, states per lane, dtype.
+PTXAS_BWD = re.compile(r"scan_bwd10bwd_kernelILi(\d+)ELi(\d+)E(13__nv_bfloat16|f)")
+
+
+def bwd_ptxas(log: str):
+    """Registers, stack frame and spill bytes of each K2 body
+    instantiation in a build log ('-Xptxas -v'): {"V0 NS2 bf16": {...}}."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            m = PTXAS_BWD.search(line)
+            name = None if m is None else (
+                f"V{m[1]} NS{m[2]} {'bf16' if m[3] != 'f' else 'fp32'}")
+            if name:
+                out[name] = {}
+        elif name and "stack frame" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[name].update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif name and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+            name = None
+    return out
+
+
 def phase_kernel_bwd(cfg, clock_hz, sms):
+    from mamba_asr_torch.kernels import build
     from mamba_asr_torch.kernels import selective_scan as kernel
     from mamba_asr_torch.ops.selective_scan import selective_scan_bwd_ref
 
@@ -529,7 +557,10 @@ def phase_kernel_bwd(cfg, clock_hz, sms):
     dout, _ = cots["train_bf16"]
     _, _, h_chunks = kernel.selective_scan_fwd_train(**train, delta_softplus=True)
     bwd_args = dict(train, delta_softplus=True, h_chunks=h_chunks, dout=dout)
-    kernel_ms = cuda_ms(lambda: kernel.selective_scan_bwd(**bwd_args), 20)
+    launch = kernel._bwd_launcher()
+    c_args, _ = kernel.bwd_launch_args(kernel.BWD_CHANNELS, **bwd_args)
+    kernel_ms = cuda_ms(lambda: launch(*c_args), 20)
+    wrapper_ms = cuda_ms(lambda: kernel.selective_scan_bwd(**bwd_args), 20)
     plain_ms = cuda_ms(lambda: selective_scan_bwd_ref(
         *(train[k] for k in GRAD_NAMES[:8]), True, None, dout), 3)
     fwd_train_ms = cuda_ms(lambda: kernel.selective_scan_fwd_train(
@@ -539,9 +570,13 @@ def phase_kernel_bwd(cfg, clock_hz, sms):
                                            clock_hz, sms)
     fwd_bound_ms, fwd_bound_by = scan_bound_ms(train, clock_hz, sms)
     fwd_bound_ms = max(fwd_bound_ms, 1e3 * h_chunks.numel() * 4 / HBM_BYTES_PER_S)
+    ptxas = bwd_ptxas(build.build_log("selective_scan_bwd"))
+    if not ptxas:
+        raise AssertionError("no K2 instantiation in the selective_scan_bwd build log")
     result = {"phase": "kernel_bwd", "name": "selective_scan_bwd", "cases": cases,
-              "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "library_ms": None,
+              "kernel_ms": kernel_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+              "ptxas": ptxas,
               "fwd_train": {"kernel_ms": fwd_train_ms, "inference_form_ms": fwd_ms,
                             "bound_ms": fwd_bound_ms, "bound_by": fwd_bound_by,
                             "chunk_states_mb": h_chunks.numel() * 4 / 1e6}}
@@ -631,7 +666,7 @@ def phase_scan_variants(clock_hz, sms):
     h0 = torch.randn(b, d, n, generator=gen).cuda()
     dhl = torch.randn(b, d, n, generator=gen).cuda()
     _, _, h_chunks = k1.selective_scan_fwd_train(**inp, delta_softplus=True, h0=h0)
-    tiles = -(-d // sv.bwd_channels_per_block(n))
+    tiles = -(-d // k1.BWD_CHANNELS)
     fwd_err, bwd_err = {}, {}
     for v in sv.FWD_VARIANTS:
         out, h_last = p1.scan_variant_fwd(v, **inp, h0=h0)
@@ -666,7 +701,7 @@ def phase_scan_variants(clock_hz, sms):
     train_in = sv.variant_inputs(32, tool.BWD_FRAMES, 288, 16, tool.DTYPE, tool.SEED, "cuda")
     train_hc = tool.chunk_states(train_in)
     train_dout = sv.variant_dout(train_in, tool.SEED + 1)
-    train_tiles = -(-288 // sv.bwd_channels_per_block(16))
+    train_tiles = -(-288 // k1.BWD_CHANNELS)
     main_fwd_err, main_bwd_err = {}, {}
     for v in sv.FWD_VARIANTS:
         out, h_last = p1.scan_variant_fwd(v, **main_in)
@@ -1307,7 +1342,7 @@ def main() -> int:
         "replaces": "mamba_asr_tpu/ops/pallas/scan.py:387",
         "launches": train_launches["K2"], "max_abs_err": kb["cases"][0]["max_abs_err"],
         "ms": kb["kernel_ms"], "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
-        "bound_by": kb["bound_by"], "library_ms": None,
+        "bound_by": kb["bound_by"], "library_ms": None, "wrapper_ms": kb["wrapper_ms"],
     }, {
         "name": "ctc_dp", "route": "cuda", "source": "mamba_asr_torch/csrc/ctc_dp.cu",
         "replaces": "mamba_asr_tpu/ops/pallas/log_scan.py:75",

@@ -40,6 +40,9 @@ FWD_CHANNELS = 16  # channels per K1 block (selective_scan_fwd.cuh kCh)
 # work that a card already half full pays for.
 FWD_SPLIT_BELOW = 2
 FWD_BLOCKS_PER_SM = 4
+# Channels per K2 block at any d_state (selective_scan_bwd.cuh kCh): the
+# width of its dB/dC channel tiles; the C entry's value is checked against it.
+BWD_CHANNELS = 16
 MAX_D_STATE = 32  # register-resident state; as ops/pallas/scan.py:supported
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -62,7 +65,9 @@ def _bwd_launcher():
     per_block = lib.mamba_selective_scan_bwd_channels_per_block
     per_block.argtypes = [ctypes.c_int]
     per_block.restype = ctypes.c_int
-    return fn, per_block
+    if any(per_block(n) != BWD_CHANNELS for n in range(1, MAX_D_STATE + 1)):
+        raise RuntimeError("selective_scan_bwd.cu and BWD_CHANNELS disagree")
+    return fn
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -198,12 +203,13 @@ def selective_scan_fwd_train(
                        h0, return_last_state, True)
 
 
-def run_bwd(launch, channels_per_block: int, what: str, u, delta, A, B, C, D, z,
-            delta_bias, delta_softplus: bool, h0, h_chunks: torch.Tensor,
-            dout: torch.Tensor, dh_last: Optional[torch.Tensor] = None):
-    """Check K2's inputs, allocate its outputs and partials, call
-    `launch(*pointers, *ints, stream)` (a C entry with K2's arguments) and
-    sum the partials: (du, ddelta, dA, dB, dC, dD, dz, ddelta_bias, dh0)."""
+def bwd_launch_args(channels_per_block: int, u, delta, A, B, C, D, z, delta_bias,
+                    delta_softplus: bool, h0, h_chunks: torch.Tensor, dout: torch.Tensor,
+                    dh_last: Optional[torch.Tensor] = None):
+    """Check K2's inputs and allocate its outputs and partials. Returns
+    (the arguments of a C entry with K2's signature, the outputs (du,
+    ddelta, dz, dB_part, dC_part, dA_part, dD_part, ddb_part, dh0));
+    calling the entry on the arguments launches the kernel alone."""
     _check_inputs(u, delta, A, B, C, D, z, delta_bias, h0)
     bsz, length, d_in = u.shape
     n = A.shape[1]
@@ -221,15 +227,28 @@ def run_bwd(launch, channels_per_block: int, what: str, u, delta, A, B, C, D, z,
     dD_part = torch.empty((bsz, d_in), **f32)
     ddb_part = torch.empty((bsz, d_in), **f32)
     dh0 = torch.empty((bsz, d_in, n), **f32) if h0 is not None else None
-    with torch.cuda.device(dev):
-        rc = launch(
-            _ptr(u), _ptr(delta), _ptr(B), _ptr(C), _ptr(z), _ptr(dout),
-            _ptr(A), _ptr(delta_bias), _ptr(D), _ptr(h0), _ptr(dh_last),
-            _ptr(h_chunks), _ptr(du), _ptr(ddelta), _ptr(dz), _ptr(dB_part),
-            _ptr(dC_part), _ptr(dA_part), _ptr(dD_part), _ptr(ddb_part),
-            _ptr(dh0), bsz, length, d_in, n, int(u.dtype == torch.bfloat16),
-            int(delta_softplus), torch.cuda.current_stream(dev).cuda_stream,
-        )
+    args = (
+        _ptr(u), _ptr(delta), _ptr(B), _ptr(C), _ptr(z), _ptr(dout),
+        _ptr(A), _ptr(delta_bias), _ptr(D), _ptr(h0), _ptr(dh_last),
+        _ptr(h_chunks), _ptr(du), _ptr(ddelta), _ptr(dz), _ptr(dB_part),
+        _ptr(dC_part), _ptr(dA_part), _ptr(dD_part), _ptr(ddb_part),
+        _ptr(dh0), bsz, length, d_in, n, int(u.dtype == torch.bfloat16),
+        int(delta_softplus), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    return args, (du, ddelta, dz, dB_part, dC_part, dA_part, dD_part, ddb_part, dh0)
+
+
+def run_bwd(launch, channels_per_block: int, what: str, u, delta, A, B, C, D, z,
+            delta_bias, delta_softplus: bool, h0, h_chunks: torch.Tensor,
+            dout: torch.Tensor, dh_last: Optional[torch.Tensor] = None):
+    """Check K2's inputs, allocate its outputs and partials, call
+    `launch(*pointers, *ints, stream)` (a C entry with K2's arguments) and
+    sum the partials: (du, ddelta, dA, dB, dC, dD, dz, ddelta_bias, dh0)."""
+    args, outs = bwd_launch_args(channels_per_block, u, delta, A, B, C, D, z, delta_bias,
+                                 delta_softplus, h0, h_chunks, dout, dh_last)
+    du, ddelta, dz, dB_part, dC_part, dA_part, dD_part, ddb_part, dh0 = outs
+    with torch.cuda.device(u.device):
+        rc = launch(*args)
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
     return (
@@ -253,8 +272,7 @@ def selective_scan_bwd(
     global BWD_LAUNCHES
     if u.device.type != "cuda":
         raise ValueError(f"the CUDA selective scan needs CUDA tensors, got {u.device}")
-    launch, per_block = _bwd_launcher()
-    grads = run_bwd(launch, per_block(A.shape[1]), "selective-scan adjoint", u, delta, A,
+    grads = run_bwd(_bwd_launcher(), BWD_CHANNELS, "selective-scan adjoint", u, delta, A,
                     B, C, D, z, delta_bias, delta_softplus, h0, h_chunks, dout, dh_last)
     BWD_LAUNCHES += 1
     return grads

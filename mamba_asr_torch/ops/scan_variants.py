@@ -230,13 +230,6 @@ def selective_scan_bwd_variant_ref(
     )
 
 
-def bwd_channels_per_block(n: int) -> int:
-    """Channels of one K2 block at d_state n (csrc/selective_scan_bwd.cuh
-    Shape): 256 lanes at 8 or 16 lanes per channel, 128 at 32."""
-    lanes = 8 if n <= 8 else 16 if n <= 16 else 32
-    return (128 if lanes == 32 else 256) // lanes
-
-
 def scan_variant_fwd(variant: str, **inputs) -> Tuple[torch.Tensor, torch.Tensor]:
     """CPU tensors -> `selective_scan_variant_ref`; CUDA tensors -> the
     kernel. Returns (out, h_last)."""
@@ -256,9 +249,9 @@ def scan_variant_bwd(variant: str, **inputs) -> Tuple[Optional[torch.Tensor], ..
     those of `kernels.scan_variants.scan_variant_bwd`."""
     dev = inputs["u"].device
     if dev.type == "cpu":
-        from mamba_asr_torch.kernels.selective_scan import CHUNK
+        from mamba_asr_torch.kernels.selective_scan import BWD_CHANNELS, CHUNK
 
-        tiles = -(-inputs["u"].shape[2] // bwd_channels_per_block(inputs["A"].shape[1]))
+        tiles = -(-inputs["u"].shape[2] // BWD_CHANNELS)
         return selective_scan_bwd_variant_ref(variant, **inputs, chunk=CHUNK, tiles=tiles)
     if dev.type == "cuda":
         from mamba_asr_torch.kernels import scan_variants as kernel

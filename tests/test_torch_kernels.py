@@ -125,25 +125,40 @@ def test_bwd_wrapper_refuses_cpu_tensors():
     assert kernel.BWD_LAUNCHES == before
 
 
+# (dtype, B, L, D, N, h0): ragged L 77 and D 200 at each lane width (N 4,
+# 16, 20 -> 1, 2, 4 states per lane), B1, L 1 and 33, N 1 and 32, and the
+# training path's B32 L626 D288 N16 bf16.
+BWD_CASES = [("bfloat16", 3, 77, 200, 16, False), ("float32", 3, 77, 200, 16, True),
+             ("float32", 3, 77, 200, 4, True), ("float32", 3, 77, 200, 20, False),
+             ("float32", 1, 77, 200, 16, True), ("float32", 3, 1, 200, 16, True),
+             ("float32", 3, 33, 200, 16, False), ("float32", 3, 77, 200, 1, True),
+             ("float32", 3, 77, 200, 32, True), ("bfloat16", 32, 626, 288, 16, False)]
+
+
+def _bwd_case(dtype, bsz, length, d, n, h0):
+    """K2's inputs on the card: scan inputs, h0, dout, a d(h_last)
+    cotangent and K1's chunk states."""
+    dt = getattr(torch, dtype)
+    t = _on_card(scan_inputs(17, bsz=bsz, length=length, d=d, n=n), dt)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h = torch.randn(bsz, d, n, device="cuda", generator=gen) if h0 else None
+    dout = torch.randn(bsz, length, d, device="cuda", generator=gen).to(dt)
+    dhl = torch.randn(bsz, d, n, device="cuda", generator=gen)
+    _, _, h_chunks = kernel.selective_scan_fwd_train(**t, delta_softplus=True, h0=h)
+    return t, h, dout, dhl, h_chunks
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,n,h0", [("bfloat16", 16, False), ("float32", 16, True),
-                                        ("float32", 4, True), ("float32", 20, False)])
-def test_scan_bwd_kernel_matches_plain_on_card(dtype, n, h0):
+@pytest.mark.parametrize("dtype,bsz,length,d,n,h0", BWD_CASES)
+def test_scan_bwd_kernel_matches_plain_on_card(dtype, bsz, length, d, n, h0):
     """K2 (fed by K1's training form) against selective_scan_bwd_ref, with
-    ragged L 77 and D 200, each lane width (N 4, 16, 20 -> 8, 16, 32
-    lanes), h0 and a d(h_last) cotangent. fp32 within 1e-3 relative +
+    h0 and a d(h_last) cotangent (BWD_CASES). fp32 within 1e-3 relative +
     1e-4 of the largest value (exp2 vs exp, sums in other orders); bf16
     within 2e-2 + 2e-2 (du, ddelta, dz, dB, dC round to bf16 on both
     sides, one ulp is 0.78 %)."""
     _card()
     dt = getattr(torch, dtype)
-    t = _on_card(scan_inputs(17, bsz=3, length=77, d=200, n=n), dt)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    h = torch.randn(3, 200, n, device="cuda", generator=gen) if h0 else None
-    dout = torch.randn(3, 77, 200, device="cuda", generator=gen).to(dt)
-    dhl = torch.randn(3, 200, n, device="cuda", generator=gen)
-    out, h_last, h_chunks = kernel.selective_scan_fwd_train(
-        **t, delta_softplus=True, h0=h, return_last_state=True)
+    t, h, dout, dhl, h_chunks = _bwd_case(dtype, bsz, length, d, n, h0)
     before = kernel.BWD_LAUNCHES
     got = kernel.selective_scan_bwd(**t, delta_softplus=True, h0=h, h_chunks=h_chunks,
                                     dout=dout, dh_last=dhl)
@@ -153,6 +168,21 @@ def test_scan_bwd_kernel_matches_plain_on_card(dtype, n, h0):
         *(t[k] for k in GRAD_NAMES[:8]), True, h, dout, dhl)
     rtol, atol = (2e-2, 2e-2) if dt == torch.bfloat16 else (1e-3, 1e-4)
     assert_grads_close(got, ref, rtol, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[-1]])
+def test_scan_bwd_kernel_is_deterministic_on_card(case):
+    """K2 uses no atomics: two launches on the same inputs give
+    bit-identical gradients (ragged fp32 with h0, and the training shape)."""
+    _card()
+    t, h, dout, dhl, h_chunks = _bwd_case(*case)
+    runs = [kernel.selective_scan_bwd(**t, delta_softplus=True, h0=h, h_chunks=h_chunks,
+                                      dout=dout, dh_last=dhl) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(GRAD_NAMES, *runs):
+        assert (a is None) == (b is None), name
+        assert a is None or torch.equal(a, b), name
 
 
 @pytest.mark.cuda
@@ -449,7 +479,7 @@ def test_bwd_variant_matches_plain_on_card(variant, dtype):
                               dh_last=dhl)
     torch.cuda.synchronize()
     assert p1.BWD_LAUNCHES == before + 1
-    tiles = -(-280 // sv.bwd_channels_per_block(16))
+    tiles = -(-280 // kernel.BWD_CHANNELS)
     ref = sv.selective_scan_bwd_variant_ref(variant, **inp, h0=h0, h_chunks=h_chunks,
                                             dout=dout, dh_last=dhl, chunk=kernel.CHUNK,
                                             tiles=tiles)

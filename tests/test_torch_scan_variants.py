@@ -267,7 +267,7 @@ def test_dispatch_on_cpu_takes_the_plain_versions():
     assert torch.equal(out, ref[0]) and torch.equal(h_last, ref[1])
     got = sv.scan_variant_bwd("noreduce_d", **args, h0=None, h_chunks=None, dout=x["dout"],
                               dh_last=None)
-    # 128 channels at N 4: 32 channels per K2 block, 4 tiles.
-    torch.testing.assert_close(got[3], 4 * x["B"])
+    # 128 channels: 16 channels per K2 block at any N, 8 tiles.
+    torch.testing.assert_close(got[3], 8 * x["B"])
     with pytest.raises(ValueError, match="unknown variant"):
         sv.scan_variant_fwd("nosuch", **args)
