@@ -44,9 +44,16 @@ exits non-zero; it prints no result without a CUDA card):
              delta to base; each variant against its plain version again
              on the tool's own inputs; base's plain time and bound
   train_parity  one Trainer.train_step of the full-width model (fp32,
-             TF32 and cuDNN off, dropout 0, SpecAugment off, B2 x 4 s)
-             on the card against the CPU: loss and every parameter's
-             gradient (the cuDNN-on difference is reported)
+             TF32 and cuDNN off, dropout 0, SpecAugment off, B2 x 4 s,
+             one row zero-padded) on the card against the CPU: loss and
+             every parameter's gradient; then every parameter's gradient
+             against the same step in float64 on the CPU, for the CPU in
+             fp32 and the card with cuDNN off, on (both held: no more
+             than 10x the CPU's error where above 1e-3) and on with TF32
+             (PyTorch's default; reported). Where an fp32 step put a
+             front-end leaky_relu input on the other side of 0 than the
+             float64 step, its reference is the float64 step on the fp32
+             step's sides (the flips are reported)
   train      Trainer(device="cuda") with the YAML's settings (bf16,
              dropout 0.1, SpecAugment, accumulation 4) on B32 x 25 s of
              noise with ~300-token targets: 8 checked micro-steps, then
@@ -80,6 +87,29 @@ exits non-zero; it prints no result without a CUDA card):
              each search runs all 256 steps: the worst case)
   s2s_profile  one B8 x 30 s search under torch.profiler, with K3's and
              K4's device ms
+  data       the CTC recipe's input pipeline: a 30 s FLAC file through the
+             port's C++ decoder (exact against its 16-bit samples), the C++
+             windowed-sinc speed perturbation against its numpy version at
+             0.95 and 1.05, and two bucketed loaders from one seed (speed
+             perturbation on) giving the same batches for epochs 0 and 1,
+             over the train-to-floor tone corpus (32 / 8 / 8 utterances)
+  ctc_beam   the CTC prefix beam search (beam 100, the YAML's pruning) on
+             B8 x T751 x V31 log-probs, card against CPU: tokens equal,
+             best totals within BEAM_TOL; card time, CPU time, and the
+             device's idle share in a profiled search
+  recipe     `python -m mamba_asr_torch.train_ctc` (cli.run_training) at
+             full ConMamba-Small width (the YAML's model, bf16) with
+             train_to_floor's data and training settings, RECIPE_EPOCHS
+             epochs on the tone corpus, then averaged evaluation with the
+             beam search: per-epoch seconds, loss and valid WER, test WER
+             and CER, training audio-s per s, K1 and K2 launches; one more
+             epoch profiled (idle share); then the CLI again with one more
+             epoch, which must resume from the last
+  train_to_floor  mamba_asr_torch.tools.train_to_floor at the JAX
+             script's settings (60 epochs): test WER <= 2.0 %
+  bf16       the train-to-floor test set decoded with its averaged
+             checkpoint, the card in bf16 against the CPU in fp32: greedy
+             tokens equal; the log-probs' largest difference
 
 Each phase also prints its wall seconds. Then the kernels line, the
 card's name and power limit, and last
@@ -90,10 +120,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -114,10 +147,7 @@ BWD_BF16_TOL = (2e-2, 2e-2)
 BWD_FP32_TOL = (1e-3, 1e-4)
 # One fp32 train step, card vs CPU, cuDNN off: the loss, and each
 # parameter's gradient after 12 layers forward and back (sums in other
-# orders, torch's CTC against the plain recursion). With cuDNN on, its
-# convolution backward differs from the CPU's by up to ~1e-2 of the
-# largest value on the front end's weight gradients even with TF32 off,
-# and by a different amount in each run: that is reported, not held.
+# orders, torch's CTC against the plain recursion).
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = (1e-2, 1e-3)
 TRAIN_SECONDS = 25.0        # 626 encoder frames; B32 x 25 s = 800 s < max_batch_seconds 850
@@ -130,6 +160,21 @@ CTC_DP_TOL = (1e-4, 1e-5)
 # and the DP; the searches' best length-normalized scores.
 S2S_PARITY_TOL = 1e-3
 GRAD_NAMES = ("u", "delta", "A", "B", "C", "D", "z", "delta_bias", "h0")
+# The whole fp32 step's gradients on the card against the same step in
+# float64 on the CPU: a fault where a parameter's error is more than
+# CUDNN_FAULT_RATIO times the CPU's fp32 error and above CUDNN_FAULT_FRAC
+# of its largest value.
+CUDNN_FAULT_RATIO = 10.0
+CUDNN_FAULT_FRAC = 1e-3
+# The CTC recipe: its epochs at full width on the tone corpus, the best
+# beam totals card vs CPU (float32 logaddexp chains over 751 frames in two
+# libraries), the speed perturbation's C++ against numpy in float64
+# (float32 output rounding) and the train-to-floor target (% WER, the JAX
+# script's --target).
+RECIPE_EPOCHS = 40
+BEAM_TOL = 1e-3
+RESAMPLE_TOL = 2e-6
+FLOOR_TARGET = 2.0
 
 
 def emit(obj) -> None:
@@ -770,36 +815,163 @@ def char_batch(bsz, seconds, tokens, seed, vocab):
             "weight": torch.ones(bsz)}
 
 
-def phase_train_parity(exp, state):
-    from mamba_asr_torch.kernels import selective_scan as kernel
+class in_float64(torch.overrides.TorchFunctionMode):
+    """Within the block every torch call computes in float64: float32
+    tensor arguments are promoted, a float32 dtype argument (and `.float()`)
+    becomes float64, and factories default to float64. Only for a step on
+    the CPU whose model, normaliser and inputs are already float64: an
+    in-place op on a float32 tensor made outside the block writes a copy
+    (the optimizer's accumulators; the check reads `.grad` instead)."""
+
+    def __enter__(self):
+        self.default = torch.get_default_dtype()
+        torch.set_default_dtype(torch.float64)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        torch.set_default_dtype(self.default)
+        return super().__exit__(*exc)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        def up(x):
+            if isinstance(x, torch.Tensor) and x.dtype == torch.float32:
+                return x.double()
+            if x is torch.float32:
+                return torch.float64
+            if isinstance(x, (list, tuple)) and type(x) in (list, tuple):
+                return type(x)(up(v) for v in x)
+            return x
+
+        if func is torch.Tensor.float:
+            func = torch.Tensor.double
+        return func(*(up(a) for a in args), **{k: up(v) for k, v in (kwargs or {}).items()})
+
+
+class leaky_relu_sides:
+    """Within the block, F.leaky_relu (the front end's activation, the
+    step's one kink) records which side of 0 each input element lies on,
+    call by call; given `follow` (such a record), it takes those sides
+    instead of its input's. A float64 step that follows an fp32 step's
+    sides differentiates the same linear piece: an input within rounding
+    of 0 that an fp32 step puts on the other side changes the front end's
+    gradients by a whole slope (1 against 0.01), not by rounding."""
+
+    def __init__(self, follow=None):
+        self.follow, self.sides = follow, []
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        self.saved, self.busy = F.leaky_relu, False
+
+        def leaky_relu(x, negative_slope=0.01, inplace=False):
+            # F.leaky_relu hands a call under a torch function mode (the
+            # float64 step's) back to the name it is bound to: this wrapper.
+            if self.busy:
+                return self.saved(x, negative_slope, inplace)
+            self.busy = True
+            try:
+                if self.follow is None:
+                    self.sides.append((x > 0).cpu())
+                    return self.saved(x, negative_slope, inplace)
+                side = self.follow[len(self.sides)].to(x.device)
+                self.sides.append(side)
+                return torch.where(side, x, x * negative_slope)
+            finally:
+                self.busy = False
+
+        F.leaky_relu = leaky_relu
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+
+        F.leaky_relu = self.saved
+        return False
+
+
+def step_grads(exp, spec, cfg32, state, batch, device, float64=False, follow=None):
+    """One Trainer.train_step on `device`: (loss, each parameter's
+    gradient on the CPU, the leaky_relu sides). float64: the whole step in
+    float64 on the CPU; follow: the sides its leaky_relu takes."""
+    from mamba_asr_torch.training.normalizer import NormalizerState
     from mamba_asr_torch.training.trainer import Trainer
 
+    tr = Trainer(cfg32, exp.frontend, exp.train, spec, state_dict=state, device=device)
+    if exp.train.grad_accumulation_factor < 2:
+        raise AssertionError("the check reads .grad, which the first micro-step of "
+                             "an accumulation leaves in place")
+    with leaky_relu_sides(follow) as sides:
+        if float64:
+            tr.model.double()
+            tr.normalizer = NormalizerState(*(t.double() for t in tr.normalizer))
+            with in_float64():
+                m = tr.train_step(dict(batch, wav=batch["wav"].double()))
+        else:
+            m = tr.train_step(batch)
+    grads = {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}
+    if float64 and any(g.dtype != torch.float64 for g in grads.values()):
+        raise AssertionError("the float64 step computed a gradient in another dtype")
+    if not sides.sides:
+        raise AssertionError("the step ran no leaky_relu: the front end changed")
+    return m["loss"].item(), grads, sides.sides
+
+
+def grad_errs(grads, ref):
+    """Each parameter's max |g - ref| over ref's largest |value|."""
+    return {n: ((g.double() - r).abs().max() / r.abs().max()).item()
+            for n, r in ref.items() for g in (grads[n],)}
+
+
+def phase_train_parity(exp, state):
+    from mamba_asr_torch.kernels import selective_scan as kernel
+
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg32 = dataclasses.replace(exp.model, compute_dtype="float32", dropout=0.0)
     spec = dataclasses.replace(exp.specaug, enabled=False)
     batch = char_batch(2, 4.0, 20, 3, exp.model.vocab_size)
+    loss64, g64, sides64 = step_grads(exp, spec, cfg32, state, batch, "cpu", float64=True)
+    # (label, device, cuDNN on, its TF32 on): the CPU in fp32, the card
+    # with cuDNN off, on (TF32 off) and on at PyTorch's default (TF32 on).
+    runs = (("cpu", "cpu", True, False), ("cudnn_off", "cuda", False, False),
+            ("cudnn_on", "cuda", True, False), ("cudnn_on_tf32", "cuda", True, True))
     res = {}
-    for dev, cudnn in (("cuda", False), ("cuda", True), ("cpu", True)):
-        torch.backends.cudnn.enabled = cudnn
-        tr = Trainer(cfg32, exp.frontend, exp.train, spec, state_dict=state, device=dev)
+    for label, dev, cudnn, tf32 in runs:
+        torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32 = cudnn, tf32
         kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
-        m = tr.train_step(batch)
-        launches = (kernel.LAUNCHES, kernel.BWD_LAUNCHES)
+        loss, grads, sides = step_grads(exp, spec, cfg32, state, batch, dev)
         if dev == "cuda":
             torch.cuda.synchronize()
             want = (2 * cfg32.num_encoder_layers,) * 2
-            if launches != want:
-                raise AssertionError(f"train_parity launched K1, K2 {launches} times, want {want}")
-        names = [n for n, _ in tr.model.named_parameters()]
-        res[dev, cudnn] = (m["loss"].item(),
-                           dict(zip(names, (a.cpu() for a in tr.optimizer.acc))))
+            if (kernel.LAUNCHES, kernel.BWD_LAUNCHES) != want:
+                raise AssertionError(f"train_parity {label} launched K1, K2 "
+                                     f"{(kernel.LAUNCHES, kernel.BWD_LAUNCHES)} times, want {want}")
+        flips = sum(int((a != b).sum()) for a, b in zip(sides, sides64))
+        ref = g64 if flips == 0 else step_grads(exp, spec, cfg32, state, batch, "cpu",
+                                                float64=True, follow=sides)[1]
+        res[label] = {"loss": loss, "grads": grads, "flips": flips,
+                      "errs": grad_errs(grads, ref), "errs_unfollowed": grad_errs(grads, g64)}
     torch.backends.cudnn.enabled = True
     torch.backends.cudnn.allow_tf32 = True  # back to PyTorch's defaults
-    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = res["cuda", False], res["cpu", True]
-    g_cudnn = res["cuda", True][1]
-    cudnn_err = max(((g_cudnn[n] - r).abs().max() / r.abs().max()).item()
-                    for n, r in g_cpu.items())
+
+    cpu_errs = res["cpu"]["errs"]
+
+    def summary(label):
+        r = res[label]
+        e, faults = r["errs"], sorted(n for n, v in r["errs"].items()
+                                      if v > CUDNN_FAULT_RATIO * cpu_errs[n]
+                                      and v > CUDNN_FAULT_FRAC)
+        worst = max(e, key=e.get)
+        return {"loss": r["loss"], "leaky_relu_flips": r["flips"], "max_rel_err": e[worst],
+                "worst_param": worst, "median_rel_err": statistics.median(e.values()),
+                "faults": len(faults), "fault_params": faults[:4],
+                "max_rel_err_unfollowed": max(r["errs_unfollowed"].values())}
+
+    against64 = {label: summary(label) for label in res}
+    if against64["cudnn_on"]["faults"] or against64["cudnn_off"]["faults"]:
+        raise AssertionError(f"train_parity against float64: {against64}")
+    loss_gpu, g_gpu = res["cudnn_off"]["loss"], res["cudnn_off"]["grads"]
+    loss_cpu, g_cpu = res["cpu"]["loss"], res["cpu"]["grads"]
     loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     if not loss_err <= TRAIN_LOSS_RTOL:
         raise AssertionError(f"train_parity loss {loss_gpu} vs {loss_cpu}")
@@ -811,10 +983,11 @@ def phase_train_parity(exp, state):
         if err / max(scale, 1e-30) > worst:
             worst, worst_name = err / max(scale, 1e-30), name
     emit({"phase": "train_parity", "loss_cuda": loss_gpu, "loss_cpu": loss_cpu,
-          "loss_rel_err": loss_err, "params": len(g_cpu),
+          "loss_float64": loss64, "loss_rel_err": loss_err, "params": len(g_cpu),
           "grad_max_rel_err": worst, "grad_worst_param": worst_name,
-          "cudnn_on_grad_max_rel_err": cudnn_err,
-          "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad": TRAIN_GRAD_TOL},
+          "against_float64": against64,
+          "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad": TRAIN_GRAD_TOL,
+                  "fault": {"ratio": CUDNN_FAULT_RATIO, "frac": CUDNN_FAULT_FRAC}},
           "scan_launches": {"K1": 2 * cfg32.num_encoder_layers,
                             "K2": 2 * cfg32.num_encoder_layers}})
 
@@ -1279,6 +1452,277 @@ def phase_s2s_profile(rec8, batch):
           "top": top})
 
 
+# -- the CTC recipe: data pipeline, beam search, CLI, train to floor -----------
+
+
+def same_batches(a, b) -> bool:
+    """Two loader epochs' batches equal key for key (arrays exactly)."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        for key, v in x.items():
+            same = (np.array_equal(v, y[key]) and v.dtype == y[key].dtype
+                    if isinstance(v, np.ndarray) else v == y[key])
+            if not same:
+                return False
+    return True
+
+
+def phase_data(work):
+    from mamba_asr_torch.data import audio, augment, dataset
+    from mamba_asr_torch.data.librispeech import load_manifest, prepare_librispeech
+    from mamba_asr_torch.data.tokenizer import CharTokenizer
+    from mamba_asr_torch.tools.train_to_floor import build_corpus
+
+    from mamba_asr_torch.native.build import flac_lib
+
+    t0 = time.perf_counter()
+    flac_lib()  # g++ builds the decoder and resamplers at first use
+    native_build_s = time.perf_counter() - t0
+    corpus = os.path.join(work, "corpus")
+    t0 = time.perf_counter()
+    build_corpus(corpus)
+    corpus_s = time.perf_counter() - t0
+
+    wav = noise(30.0, 7)
+    path = os.path.join(work, "noise.flac")
+    audio.write_flac(path, wav, 16000)
+    t0 = time.perf_counter()
+    got, sr = audio.read_audio(path)
+    flac_ms = 1e3 * (time.perf_counter() - t0)
+    pcm = (np.clip(wav, -1.0, 1.0) * 32767.0).astype(np.int16).astype(np.float32) / 32768.0
+    if sr != 16000 or not np.array_equal(got, pcm):
+        raise AssertionError("FLAC decode differs from the file's samples")
+
+    resample = {}
+    for factor in (0.95, 1.05):
+        t0 = time.perf_counter()
+        native = augment.speed_perturb(got, factor)
+        native_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        plain = augment.sinc_resample_np(got, factor)
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        err = np.abs(native - plain).max() / np.abs(plain).max()
+        if len(native) != len(plain) or not err <= RESAMPLE_TOL:
+            raise AssertionError(f"speed_perturb {factor}: {err:.3e} of the largest sample")
+        resample[str(factor)] = {"max_rel_err": float(err), "native_ms": native_ms,
+                                 "plain_ms": plain_ms}
+
+    man = os.path.join(work, "manifests")
+    prepare_librispeech(corpus, man, tr_splits=["train-clean-100"])
+    csv_path = os.path.join(man, "train-clean-100.csv")
+    tok = CharTokenizer.fit(u.words for u in load_manifest(csv_path))
+    epochs, epoch_s = [], []
+    for _ in range(2):
+        loader = dataset.BucketedLoader(dataset.ASRDataset.from_csv(csv_path, tok),
+                                        num_buckets=2, max_batch_seconds=24.0,
+                                        speed_perturb=True, seed=SEED)
+        for epoch in (0, 1):
+            t0 = time.perf_counter()
+            epochs.append(list(loader.epoch(epoch)))
+            epoch_s.append(time.perf_counter() - t0)
+        loader.close()
+    if not (same_batches(epochs[0], epochs[2]) and same_batches(epochs[1], epochs[3])):
+        raise AssertionError("two loaders from one seed gave different batches")
+    if same_batches(epochs[0], epochs[1]):
+        raise AssertionError("epochs 0 and 1 gave the same batches")
+    emit({"phase": "data", "native_build_s": native_build_s, "corpus_s": corpus_s,
+          "flac_30s_ms": flac_ms,
+          "speed_perturb": resample, "resample_tol": RESAMPLE_TOL,
+          "loader": {"batches_per_epoch": len(epochs[0]), "epoch_s": epoch_s,
+                     "utterances": len(load_manifest(csv_path))}})
+    return corpus
+
+
+def ctc_like_log_probs(bsz, frames, vocab, seed):
+    """(B, T, V) log-probs shaped like a CTC model's: N(0, 1) logits with a
+    +4 peak on the blank in 70 % of the frames and on a random token in
+    the rest; ragged lengths (the last row 60 % long)."""
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(0.0, 1.0, (bsz, frames, vocab)).astype(np.float32)
+    peak = np.where(rng.random((bsz, frames)) < 0.7, 0, rng.integers(1, vocab, (bsz, frames)))
+    logits[np.arange(bsz)[:, None], np.arange(frames)[None, :], peak] += 4.0
+    lens = np.full(bsz, frames, np.int32)
+    lens[-1] = int(0.6 * frames)
+    return torch.log_softmax(torch.from_numpy(logits), -1), torch.from_numpy(lens)
+
+
+def phase_ctc_beam(exp):
+    from mamba_asr_torch.decoding.ctc_beam import _beam_search_full
+
+    d = exp.decode
+    lp, lens = ctc_like_log_probs(8, 751, exp.model.vocab_size, 21)
+
+    def search(x, n):
+        return _beam_search_full(x, n, d.test_beam_size, d.blank_index, d.beam_prune_logp,
+                                 d.token_prune_min_logp, x.shape[1])
+
+    def best(toks, lns, total):
+        i = total.argmax(1)
+        rows = torch.arange(toks.shape[0], device=toks.device)
+        return toks[rows, i].cpu(), lns[rows, i].cpu(), total.max(1).values.cpu()
+
+    t0 = time.perf_counter()
+    cpu = best(*search(lp, lens))
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    lp_gpu, lens_gpu = lp.cuda(), lens.cuda()
+    search(lp_gpu, lens_gpu)  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = search(lp_gpu, lens_gpu)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    gpu = best(*out)
+    if not (torch.equal(gpu[0], cpu[0]) and torch.equal(gpu[1], cpu[1])):
+        raise AssertionError("ctc_beam: the card's best prefixes differ from the CPU's")
+    err = (gpu[2] - cpu[2]).abs().max().item()
+    if not err <= BEAM_TOL:
+        raise AssertionError(f"ctc_beam: best totals differ by {err:.3e}")
+    wall_ms, device_ms, top = device_profile(lambda: search(lp_gpu, lens_gpu), 6)
+    emit({"phase": "ctc_beam", "shape": list(lp.shape), "beam": d.test_beam_size,
+          "prune": [d.beam_prune_logp, d.token_prune_min_logp],
+          "tokens": [int(n) for n in cpu[1]], "best_total_max_abs_err": err,
+          "tol": BEAM_TOL, "ms": statistics.median(times), "ms_runs": times,
+          "cpu_ms": cpu_ms, "profile": {"wall_ms": wall_ms, "device_kernel_ms": device_ms,
+                                        "idle_share": 1.0 - device_ms / wall_ms, "top": top}})
+
+
+def recipe_args(corpus, out, epochs):
+    """The CLI's arguments for the full-width recipe: the YAML's model with
+    train_to_floor's data and training overrides (not its model ones)."""
+    from mamba_asr_torch.tools.train_to_floor import ctc_overrides
+
+    flat = ctc_overrides(corpus, out, epochs)
+    pairs = [flat[i:i + 2] for i in range(0, len(flat), 2)]
+    return [CONFIG] + [a for key, value in pairs
+                       if not key.startswith(("--model.", "--frontend.")) for a in (key, value)]
+
+
+def epoch_rows(trainer):
+    return [{"epoch": e["epoch"], "epoch_s": e["epoch_sec"], "train_s": e["train_sec"],
+             "train_audio_s": e["train_audio_s"], "loss": e["train"]["loss"],
+             "valid_wer": e["valid"].get("WER")} for e in trainer.epoch_log]
+
+
+def audio_rate(rows):
+    """Audio seconds trained per wall second of the training passes."""
+    if not rows:
+        return None
+    return sum(r["train_audio_s"] for r in rows) / sum(r["train_s"] for r in rows)
+
+
+def phase_recipe(work, corpus):
+    from mamba_asr_torch import cli
+    from mamba_asr_torch.kernels import selective_scan as kernel
+
+    out = os.path.join(work, "recipe")
+    kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    tr = cli.run_training(recipe_args(corpus, out, RECIPE_EPOCHS))
+    wall = time.perf_counter() - t0
+    launches = {"K1": kernel.LAUNCHES, "K2": kernel.BWD_LAUNCHES}
+    cfg = tr.cfg
+    per_step = 2 * cfg.model.num_encoder_layers
+    if launches["K2"] != per_step * tr.micro_steps or launches["K1"] <= launches["K2"]:
+        raise AssertionError(f"recipe: {launches} scan launches for {tr.micro_steps} steps")
+    if cfg.model.d_model != 144 or cfg.model.compute_dtype != "bfloat16":
+        raise AssertionError("recipe: not the YAML's full-width model")
+    rows = epoch_rows(tr)
+    test = tr.test_stats["test-clean"]
+    if [r["epoch"] for r in rows] != list(range(1, RECIPE_EPOCHS + 1)):
+        raise AssertionError(f"recipe: epochs {[r['epoch'] for r in rows]}")
+    if not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError("recipe: a non-finite training loss")
+
+    steps_saved = tr.micro_steps  # the last checkpoint's; the profiled epoch adds more
+    train_csv = os.path.join(cfg.output_folder, "manifests", cfg.data.train_csv)
+    loader = cli.train_loader(cfg, train_csv, tr.tokenizer)
+    wall_ms, device_ms, top = device_profile(
+        lambda: tr.train_epoch(loader, RECIPE_EPOCHS + 1), 10)
+
+    wer_file = os.path.join(cfg.output_folder, "wer_test-clean.txt")
+    before = os.path.getmtime(wer_file)
+    kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+    again = cli.run_training(recipe_args(corpus, out, RECIPE_EPOCHS + 1))
+    resume_launches = {"K1": kernel.LAUNCHES, "K2": kernel.BWD_LAUNCHES}
+    if again.start_epoch != RECIPE_EPOCHS + 1 or \
+            [e["epoch"] for e in again.epoch_log] != [RECIPE_EPOCHS + 1]:
+        raise AssertionError(f"recipe: did not resume from epoch {RECIPE_EPOCHS}")
+    if again.micro_steps <= steps_saved or os.path.getmtime(wer_file) < before:
+        raise AssertionError("recipe: the resumed run trained no step or wrote no wer file")
+    emit({"phase": "recipe", "config": CONFIG, "d_model": cfg.model.d_model,
+          "layers": cfg.model.num_encoder_layers, "compute_dtype": cfg.model.compute_dtype,
+          "epochs": rows, "test": test, "wall_s": wall, "micro_steps": steps_saved,
+          "train_audio_s_per_s": audio_rate(rows),
+          "train_audio_s_per_s_after_epoch_1": audio_rate(rows[1:]),
+          "launches": launches,
+          "epoch_profile": {"wall_ms": wall_ms, "device_kernel_ms": device_ms,
+                            "idle_share": 1.0 - device_ms / wall_ms, "top": top},
+          "resume": {"start_epoch": again.start_epoch, "epochs": epoch_rows(again),
+                     "test": again.test_stats["test-clean"], "launches": resume_launches}})
+    return launches
+
+
+def phase_train_to_floor(work, corpus):
+    from mamba_asr_torch.kernels import selective_scan as kernel
+    from mamba_asr_torch.tools import train_to_floor
+
+    kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+    res, tr = train_to_floor.run_mode("ctc", corpus, os.path.join(work, "floor"), 60)
+    launches = {"K1": kernel.LAUNCHES, "K2": kernel.BWD_LAUNCHES}
+    if launches["K2"] != 2 * tr.cfg.model.num_encoder_layers * tr.micro_steps:
+        raise AssertionError(f"train_to_floor: {launches} scan launches")
+    if not res["test_wer"] <= FLOOR_TARGET:
+        raise AssertionError(f"train_to_floor: test WER {res['test_wer']} > {FLOOR_TARGET}")
+    rows = epoch_rows(tr)
+    emit({"phase": "train_to_floor", **res, "target": FLOOR_TARGET,
+          "test": tr.test_stats["test-clean"], "launches": launches,
+          "epoch_s": [r["epoch_s"] for r in rows],
+          "first_zero_valid_wer_epoch": next((r["epoch"] for r in rows
+                                              if r["valid_wer"] == 0.0), None),
+          "loss": [r["loss"] for r in rows[::10]] + [rows[-1]["loss"]],
+          "train_audio_s_per_s": audio_rate(rows)})
+    return tr
+
+
+def phase_bf16(tr):
+    from mamba_asr_torch.data.audio import read_audio
+    from mamba_asr_torch.data.librispeech import load_manifest
+    from mamba_asr_torch.serving.recognizer import Recognizer
+
+    state = tr.ckpt.restore("averaged_test-clean")
+    norm = tuple(state["normalizer"][k] for k in ("count", "mean", "m2"))
+    cfg32 = tr.cfg.model
+    cfg16 = dataclasses.replace(cfg32, compute_dtype="bfloat16")
+    utts = load_manifest(os.path.join(tr.cfg.output_folder, "manifests", "test-clean.csv"))
+    wavs = [read_audio(u.path)[0] for u in utts]
+    recs = {"cpu": Recognizer(cfg32, tr.cfg.frontend, state["model"], normalizer=norm,
+                              device="cpu", batch=len(wavs)),
+            "cuda": Recognizer(cfg16, tr.cfg.frontend, state["model"], normalizer=norm,
+                               device="cuda", batch=len(wavs))}
+    tokens = {dev: rec.transcribe(wavs) for dev, rec in recs.items()}
+    if tokens["cuda"] != tokens["cpu"]:
+        diff = [i for i, (a, b) in enumerate(zip(tokens["cuda"], tokens["cpu"])) if a != b]
+        raise AssertionError(f"bf16: greedy tokens differ from fp32 in utterances {diff}")
+    n = max(len(w) for w in wavs)
+    mat = np.zeros((len(wavs), n), np.float32)
+    for i, w in enumerate(wavs):
+        mat[i, :len(w)] = w
+    lens = torch.tensor([len(w) for w in wavs], dtype=torch.int32)
+    outs = {dev: rec.eval_step(torch.from_numpy(mat), lens) for dev, rec in recs.items()}
+    valid = (torch.arange(outs["cpu"]["ctc_log_probs"].shape[1])[None, :]
+             < outs["cpu"]["enc_lengths"][:, None])
+    diff = (outs["cuda"]["ctc_log_probs"].float().cpu() - outs["cpu"]["ctc_log_probs"]).abs()
+    refs = [u.words for u in utts]
+    hyps = [tr.tokenizer.decode(t) for t in tokens["cuda"]]
+    emit({"phase": "bf16", "utterances": len(wavs), "greedy_tokens_equal": True,
+          "log_prob_max_abs_diff": diff[valid].max().item(),
+          "greedy_exact_transcripts": sum(h == r for h, r in zip(hyps, refs)),
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1316,6 +1760,16 @@ def main() -> int:
     per_search, rec8, s2s_batch = timed(phase_s2s_recognize, s2s.model, s2s.frontend,
                                         s2s_state)
     timed(phase_s2s_profile, rec8, s2s_batch)
+    del rec8, s2s_batch
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        corpus = timed(phase_data, work)
+        timed(phase_ctc_beam, exp)
+        recipe_launches = timed(phase_recipe, work, corpus)
+        floor = timed(phase_train_to_floor, work, corpus)
+        timed(phase_bf16, floor)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     full = k["cases"][0]
     fwd_train = kb["fwd_train"]
@@ -1327,6 +1781,7 @@ def main() -> int:
         "ms": k["kernel_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
         "bound_measured_ms": k["bound_measured_ms"],
+        "recipe_launches": recipe_launches["K1"],
     }, {
         "name": "selective_scan_fwd_train", "route": "cuda",
         "source": "mamba_asr_torch/csrc/selective_scan_fwd.cu",
@@ -1343,6 +1798,7 @@ def main() -> int:
         "launches": train_launches["K2"], "max_abs_err": kb["cases"][0]["max_abs_err"],
         "ms": kb["kernel_ms"], "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
         "bound_by": kb["bound_by"], "library_ms": None, "wrapper_ms": kb["wrapper_ms"],
+        "recipe_launches": recipe_launches["K2"],
     }, {
         "name": "ctc_dp", "route": "cuda", "source": "mamba_asr_torch/csrc/ctc_dp.cu",
         "replaces": "mamba_asr_tpu/ops/pallas/log_scan.py:75",

@@ -1,16 +1,19 @@
-"""Load the `model:`, `frontend:`, `train:`, `specaug:` and `decode:`
-stanzas of an hparams YAML (port of mamba_asr_tpu/configs/loader.py,
-with a copy of the JAX package's FrontendConfig from training/trainer.py
-and of its DecodeConfig).
+"""Load an hparams YAML (port of mamba_asr_tpu/configs/loader.py, with a
+copy of the JAX package's FrontendConfig from training/trainer.py and of
+its DataConfig and DecodeConfig).
 
+The stanzas are `name`, `seed`, `model`, `frontend`, `train`, `specaug`,
+`data` and `decode`, with every field and default of the JAX package's.
 `--section.key value` overrides are applied to the YAML before it is
-read and are type-coerced from the dataclass fields. The other stanzas
-(data, parallel) belong to slices not yet ported and are not read.
+read and are type-coerced from the dataclass fields. The `parallel`
+stanza (tensor, sequence and pipeline parallelism) is not ported: a YAML
+or an override that sets it raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import typing
 from typing import Any, Dict, Optional, Sequence, Tuple, get_args, get_origin
 
@@ -37,11 +40,37 @@ class FrontendConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Corpus, tokenizer and loader settings."""
+
+    data_folder: str = ""
+    output_folder: str = "results"
+    train_splits: Tuple[str, ...] = ("train-clean-100",)
+    dev_splits: Tuple[str, ...] = ("dev-clean",)
+    test_splits: Tuple[str, ...] = ("test-clean", "test-other")
+    train_csv: str = "train.csv"
+    skip_prep: bool = False
+    tokenizer_type: str = "char"  # char (bpe | unigram: not ported)
+    vocab_size: int = 31
+    sample_rate: int = 16000
+    num_buckets: int = 8
+    max_batch_seconds: float = 850.0
+    max_batch_ex: int = 128
+    valid_max_batch_seconds: float = 100.0
+    speed_perturb: bool = True
+    sorting: str = "random"
+    num_workers: int = 0  # decode/perturb threads; 0: one per CPU
+    prefetch_batches: int = 4
+    create_lexicon: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class DecodeConfig:
     """Decoding settings, every field and default of the JAX package's
-    DecodeConfig. The port reads the S2S joint search's fields
-    (`serving.recognizer.Recognizer(search="s2s")`); the CTC beam's and
-    the LM's wait for their slices."""
+    DecodeConfig. The port reads the CTC beam's fields (`training.loop.
+    Trainer.ctc_decoder`) and the S2S joint search's
+    (`serving.recognizer.Recognizer(search="s2s")`); the LM's wait for
+    their slice."""
 
     # CTC beam search (hparams/CTC/conmamba_large.yaml:168-172, 232-237).
     valid_greedy: bool = True
@@ -74,16 +103,22 @@ class DecodeConfig:
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     name: str = "experiment"
+    seed: int = 3407
     model: ASRConfig = ASRConfig()
     frontend: FrontendConfig = FrontendConfig()
     train: TrainConfig = TrainConfig()
     specaug: SpecAugmentConfig = SpecAugmentConfig()
+    data: DataConfig = DataConfig()
     decode: DecodeConfig = DecodeConfig()
+
+    @property
+    def output_folder(self) -> str:
+        return os.path.join(self.data.output_folder, self.name, str(self.seed))
 
 
 _NESTED = {"model": ASRConfig, "frontend": FrontendConfig, "mamba": MambaConfig,
            "train": TrainConfig, "specaug": SpecAugmentConfig,
-           "decode": DecodeConfig}
+           "data": DataConfig, "decode": DecodeConfig}
 
 
 def _coerce(field_type, value):
@@ -127,11 +162,10 @@ def load_config(path: str, overrides: Optional[Dict[str, Any]] = None
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = value
-    return _build(ExperimentConfig, {
-        k: raw[k] for k in ("name", "model", "frontend", "train", "specaug",
-                            "decode")
-        if k in raw
-    })
+    if "parallel" in raw:
+        raise NotImplementedError(
+            "the parallel stanza is not ported (ROADMAP slice 4 item 4)")
+    return _build(ExperimentConfig, raw)
 
 
 def parse_overrides(argv: Sequence[str]) -> Dict[str, Any]:

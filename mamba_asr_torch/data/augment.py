@@ -1,5 +1,12 @@
-"""SpecAugment's time and frequency drops (port of
-mamba_asr_tpu/data/augment.py:spec_augment).
+"""Speed perturbation on the host and SpecAugment's time and frequency
+drops on the device (port of mamba_asr_tpu/data/augment.py:
+speed_perturb, sinc_resample_np, random_speed_perturb and spec_augment).
+
+Speed perturbation resamples a waveform by 0.95, 1.0 or 1.05 (the
+reference recipe's SpeedPerturb) through the port's C++ windowed-sinc or
+linear resampler (`native/flac_decode.cpp`, the JAX package's code and
+flags, so the same bits); `sinc_resample_np` is the plain numpy
+restatement the tests hold it against.
 
 Each example gets `num_drops` spans with starts uniform in [0, length)
 and widths uniform in [1, max_width], set to `mask_value`, over time and
@@ -8,13 +15,71 @@ frames, 4 frequency drops of up to 10 bins). The random integers come
 from an explicit `torch.Generator` on the features' device; they are
 not the JAX package's bits, so the tests hand both the same spans.
 
-The time warps (bicubic and linear) and speed perturbation belong to the
-S2S configurations and the data pipeline; they raise until then.
+The time warps (bicubic and linear) belong to the S2S configurations;
+they raise until then.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import Tuple
+
+import numpy as np
 import torch
+
+from mamba_asr_torch.native.build import flac_lib
+
+SPEED_FACTORS = (0.95, 1.0, 1.05)
+SINC_WIDTH = 6  # speechbrain Resample lowpass_filter_width default
+
+
+def speed_perturb(wav: np.ndarray, factor: float, quality: str = "sinc") -> np.ndarray:
+    """Resample a float32 waveform by `factor` on the host (factor > 1
+    plays faster: a shorter output of round(len / factor) samples).
+    quality "sinc" is a Kaldi-style windowed-sinc lowpass resample,
+    "linear" plain interpolation."""
+    if factor == 1.0 or len(wav) == 0:
+        return wav
+    if wav.dtype != np.float32:
+        raise TypeError(f"speed_perturb takes float32 audio, got {wav.dtype}")
+    if quality not in ("sinc", "linear"):
+        raise ValueError(f"quality must be 'sinc' or 'linear', got {quality!r}")
+    lib = flac_lib()
+    n_out = int(round(len(wav) / factor))
+    src = np.ascontiguousarray(wav)
+    out = np.empty(n_out, np.float32)
+    fp = ctypes.POINTER(ctypes.c_float)
+    if quality == "sinc":
+        n = lib.sinc_resample(src.ctypes.data_as(fp), len(src), float(factor),
+                              out.ctypes.data_as(fp), n_out, SINC_WIDTH)
+    else:
+        n = lib.linear_resample(src.ctypes.data_as(fp), len(src), float(factor),
+                                out.ctypes.data_as(fp), n_out)
+    return out[:n]
+
+
+def sinc_resample_np(wav: np.ndarray, factor: float, width: int = SINC_WIDTH) -> np.ndarray:
+    """The windowed-sinc resample in numpy, float64 (the plain version of
+    the C++ `sinc_resample`)."""
+    n_in = len(wav)
+    n_out = int(round(n_in / factor))
+    fc = 0.99 * 0.5 * min(1.0, 1.0 / factor)
+    support = width / (2.0 * fc)
+    half = int(np.ceil(support))
+    t = np.arange(n_out, dtype=np.float64) * factor
+    j = (np.floor(t).astype(np.int64) - half)[:, None] + np.arange(2 * half + 1)[None, :]
+    x = j.astype(np.float64) - t[:, None]
+    window = np.where(np.abs(x) < support, 0.5 * (1.0 + np.cos(np.pi * x / support)), 0.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        s = np.where(x == 0.0, 2.0 * fc, np.sin(2.0 * np.pi * fc * x) / (np.pi * x))
+    valid = (j >= 0) & (j < n_in)
+    samples = np.where(valid, wav[np.clip(j, 0, n_in - 1)], 0.0)
+    return (s * window * samples * valid).sum(axis=1)
+
+
+def random_speed_perturb(wav: np.ndarray, rng: np.random.Generator,
+                         factors: Tuple[float, ...] = SPEED_FACTORS) -> np.ndarray:
+    return speed_perturb(wav, factors[rng.integers(len(factors))])
 
 
 def spans_mask(starts: torch.Tensor, widths: torch.Tensor, length: int) -> torch.Tensor:
@@ -66,8 +131,3 @@ def spec_augment(
     tmask = drop_mask(generator, t, num_time_drops, time_drop_width, b, feats.device)
     fmask = drop_mask(generator, f, num_freq_drops, freq_drop_width, b, feats.device)
     return apply_drop_masks(feats, tmask, fmask, mask_value)
-
-
-def speed_perturb(*args, **kwargs):
-    raise NotImplementedError(
-        "speed perturbation comes with the data pipeline (ROADMAP slice 2b)")

@@ -39,6 +39,24 @@ from mamba_asr_torch.training.normalizer import NormalizerState, apply_normalize
 from mamba_asr_torch.utils.device import resolve_device
 
 
+@torch.no_grad()
+def eval_step(model: ASRModel, frontend: FrontendConfig, normalizer: NormalizerState,
+              wav: torch.Tensor, wav_lens: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The forward of make_eval_step without a decoder, on the
+    normaliser's device (the model's): wav (B, T) float32, wav_lens (B,)
+    int -> log-mel features, normalised -> model -> ctc_log_probs,
+    enc_lengths, enc_out. The model must be in eval mode."""
+    dev = normalizer.mean.device
+    fe = frontend
+    wav_lens = wav_lens.to(dev)
+    feats = log_mel_spectrogram(
+        wav.to(dev), sample_rate=fe.sample_rate, n_fft=fe.n_fft, n_mels=fe.n_mels,
+        win_length_ms=fe.win_length_ms, hop_length_ms=fe.hop_length_ms,
+    )
+    flens = torch.clamp_max(wav_lens // fe.hop + 1, feats.shape[1])
+    return model(apply_normalizer(normalizer, feats), flens)
+
+
 class Recognizer:
     """Holds the model on its device and answers transcription requests.
 
@@ -91,21 +109,11 @@ class Recognizer:
                 min_decode_ratio=decode.min_decode_ratio,
             )
 
-    @torch.no_grad()
     def eval_step(self, wav: torch.Tensor, wav_lens: torch.Tensor
                   ) -> Dict[str, torch.Tensor]:
         """wav (B, T) float32, wav_lens (B,) int -> ctc_log_probs,
         enc_lengths, enc_out (make_eval_step without a decoder)."""
-        fe = self.frontend
-        wav = wav.to(self.device)
-        wav_lens = wav_lens.to(self.device)
-        feats = log_mel_spectrogram(
-            wav, sample_rate=fe.sample_rate, n_fft=fe.n_fft, n_mels=fe.n_mels,
-            win_length_ms=fe.win_length_ms, hop_length_ms=fe.hop_length_ms,
-        )
-        flens = torch.clamp_max(wav_lens // fe.hop + 1, feats.shape[1])
-        feats = apply_normalizer(self.normalizer, feats)
-        return self.model(feats, flens)
+        return eval_step(self.model, self.frontend, self.normalizer, wav, wav_lens)
 
     def decode_batch(self, wav: torch.Tensor, wav_lens: torch.Tensor) -> List[List[int]]:
         """One padded batch -> token ids per row, by the Recognizer's search."""

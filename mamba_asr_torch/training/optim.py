@@ -103,6 +103,26 @@ class AccumulatingAdamW:
         self.mini_step = (self.mini_step + 1) % self.k
         return emit
 
+    @property
+    def micro_steps(self) -> int:
+        """Micro-steps taken (the JAX TrainState's `step`)."""
+        return self.gradient_step * self.k + self.mini_step
+
+    def state_dict(self) -> dict:
+        """AdamW's moments and step, the schedule's count, the accumulated
+        gradients and the micro-step counters: what a checkpoint restores."""
+        return {"adamw": self.optimizer.state_dict(), "schedule": self.scheduler.state_dict(),
+                "acc": [a.detach().cpu() for a in self.acc],
+                "mini_step": self.mini_step, "gradient_step": self.gradient_step}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.optimizer.load_state_dict(state["adamw"])
+        self.scheduler.load_state_dict(state["schedule"])
+        for acc, saved in zip(self.acc, state["acc"], strict=True):
+            acc.copy_(saved)
+        self.mini_step = int(state["mini_step"])
+        self.gradient_step = int(state["gradient_step"])
+
 
 def make_optimizer(model: nn.Module, cfg) -> AccumulatingAdamW:
     """The optimizer of `model`'s parameters for a TrainConfig."""

@@ -132,6 +132,24 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(train.seed + 1)
         self.frontend, self.specaug = frontend, specaug
 
+    def rng_state(self) -> Dict[str, torch.Tensor]:
+        """The random state of the dropout masks (the device's default
+        generator) and of SpecAugment (`self.generator`), as CPU byte
+        tensors: a checkpoint holds it so that a resumed run draws what an
+        uninterrupted one would."""
+        if self.device.type == "cuda":
+            dropout = torch.cuda.get_rng_state(self.device)
+        else:
+            dropout = torch.get_rng_state()
+        return {"dropout": dropout, "specaug": self.generator.get_state()}
+
+    def set_rng_state(self, state: Mapping[str, torch.Tensor]) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.set_rng_state(state["dropout"], self.device)
+        else:
+            torch.set_rng_state(state["dropout"])
+        self.generator.set_state(state["specaug"])
+
     def _features(self, wav: torch.Tensor, wav_lens: torch.Tensor):
         fe = self.frontend
         feats = log_mel_spectrogram(

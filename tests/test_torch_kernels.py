@@ -551,3 +551,28 @@ def test_median_ms_excludes_the_host_enqueue_on_card():
     end.synchronize()
     assert start.elapsed_time(end) >= 1.0
     assert median_ms(call, 5, torch.device("cuda")) < 0.2
+
+
+# -- the CTC prefix beam search (torch ops, no kernel of its own) -----------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam", [4, 100])
+def test_ctc_beam_search_on_card_matches_cpu(beam):
+    """B3 x T120 x V31 CTC-shaped log-probs, ragged: the card's whole final
+    beam (tokens, lengths) equals the CPU's; live totals within 1e-4."""
+    from mamba_asr_torch.decoding.ctc_beam import _beam_search_full
+
+    _card()
+    rng = np.random.default_rng(beam)
+    logits = rng.normal(size=(3, 120, 31)).astype(np.float32)
+    peak = np.where(rng.random((3, 120)) < 0.7, 0, rng.integers(1, 31, (3, 120)))
+    logits[np.arange(3)[:, None], np.arange(120)[None, :], peak] += 3.0
+    lp = torch.log_softmax(torch.from_numpy(logits), -1)
+    lens = torch.tensor([120, 77, 1], dtype=torch.int32)
+    cpu = _beam_search_full(lp, lens, beam, 0, -12.0, -1.2, 120)
+    gpu = [t.cpu() for t in _beam_search_full(lp.cuda(), lens.cuda(), beam, 0, -12.0, -1.2, 120)]
+    assert torch.equal(gpu[0], cpu[0]) and torch.equal(gpu[1], cpu[1])
+    live = cpu[2] > -1e29
+    assert torch.equal(gpu[2] > -1e29, live)
+    assert (gpu[2][live] - cpu[2][live]).abs().max().item() <= 1e-4

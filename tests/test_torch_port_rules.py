@@ -12,6 +12,7 @@
 from __future__ import annotations
 
 import ast
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -21,11 +22,15 @@ from pathlib import Path
 import pytest
 import torch
 
-from mamba_asr_torch.configs.loader import FrontendConfig
+from mamba_asr_torch.cli import run_training
+from mamba_asr_torch.configs.loader import ExperimentConfig, FrontendConfig
+from mamba_asr_torch.data.tokenizer import CharTokenizer
 from mamba_asr_torch.models.asr import ASRConfig
 from mamba_asr_torch.serving.recognizer import Recognizer
 from mamba_asr_torch.tools import peak_probe as peak_probe_tool
 from mamba_asr_torch.tools import scan_variants as scan_variants_tool
+from mamba_asr_torch.tools import train_to_floor
+from mamba_asr_torch.training import loop
 from mamba_asr_torch.training.trainer import Trainer
 from mamba_asr_torch.utils.device import resolve_device
 
@@ -63,7 +68,7 @@ def test_import_scan_catches_each_form(tmp_path):
     assert {"jax", "flax", "mamba_asr_tpu"} <= set(_imported_roots(src))
 
 
-def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
+def test_entry_points_refuse_to_run_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
@@ -77,6 +82,18 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         scan_variants_tool.run(["base"], b=1, t=8, d=8, n=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         peak_probe_tool.run(b=1, t=2, d=8, k=4)
+    exp = ExperimentConfig()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop.Trainer(dataclasses.replace(exp, data=dataclasses.replace(
+            exp.data, output_folder=str(tmp_path))), CharTokenizer(list("AB")))
+    # The CLI refuses before it prepares anything.
+    yaml = str(REPO / "hparams" / "CTC" / "conmamba_small.yaml")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_training([yaml, "--data.output_folder", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_to_floor.main(["--workdir", str(tmp_path / "ttf"), "--n-train", "1",
+                             "--n-dev", "1", "--n-test", "1"])
+    assert not (tmp_path / "out").exists()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
