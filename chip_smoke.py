@@ -110,6 +110,33 @@ exits non-zero; it prints no result without a CUDA card):
   bf16       the train-to-floor test set decoded with its averaged
              checkpoint, the card in bf16 against the CPU in fp32: greedy
              tokens equal; the log-probs' largest difference
+  s2s_train_parity  one Trainer.train_step of the full-width S2S model
+             (hparams/S2S/conmamba_small.yaml, seeded, fp32, TF32 off,
+             dropout 0, B2 x 4 s, one row zero-padded), SpecAugment's
+             drops off and its bicubic time warp on with fixed draws: the
+             card (cuDNN off) against the CPU, every loss and gradient;
+             the CPU and the card (cuDNN off and on) against the float64
+             step, held as in train_parity
+  s2s_train  Trainer(device="cuda") with the S2S YAML's settings (bf16,
+             dropout 0.1, SpecAugment with the bicubic warp, accumulation
+             8, ctc_weight 0.3, Noam stepped twice, vocab 5000) on B32 x
+             25 s of noise with 60 to 80 random targets: 8 checked
+             micro-steps, S2S training throughput (median of 3 blocks of 8
+             micro-steps), peak memory and one profiled micro-step
+  s2s_recipe `python -m mamba_asr_torch.train_s2s` (cli.run_training) at
+             full ConMamba-Small S2S width (bf16, vocab 5000) with
+             train_to_floor's data and training settings for
+             S2S_RECIPE_EPOCHS epochs, the joint search validating every
+             S2S_SEARCH_INTERVAL epochs (beam 10) and decoding the test
+             set with the averaged checkpoints (beam 66): per-epoch
+             seconds, loss and valid ACC, test WER and CER, the loop's
+             audio-s per s, K1 to K4 launches; the keep set (the best by
+             ACC and the newest); the last validation search against a
+             fresh searcher on the same weights; one more epoch profiled;
+             then the CLI again with one more epoch, which must resume
+  s2s_train_to_floor  mamba_asr_torch.tools.train_to_floor --mode s2s at
+             its defaults (the JAX script's S2S settings, 180 epochs):
+             test WER <= 2.0 %
 
 Each phase also prints its wall seconds. Then the kernels line, the
 card's name and power limit, and last
@@ -175,6 +202,13 @@ RECIPE_EPOCHS = 40
 BEAM_TOL = 1e-3
 RESAMPLE_TOL = 2e-6
 FLOOR_TARGET = 2.0
+# The S2S recipe: the warp's fixed draws in s2s_train_parity (centre and
+# target frame of 401), the full-width recipe's epochs and validation
+# search interval, the train-to-floor tool's --epochs (S2S trains 3x).
+S2S_WARP_DRAWS = (200, 197)
+S2S_RECIPE_EPOCHS = 20
+S2S_SEARCH_INTERVAL = 10
+FLOOR_EPOCHS = 60
 
 
 def emit(obj) -> None:
@@ -891,9 +925,10 @@ class leaky_relu_sides:
 
 
 def step_grads(exp, spec, cfg32, state, batch, device, float64=False, follow=None):
-    """One Trainer.train_step on `device`: (loss, each parameter's
-    gradient on the CPU, the leaky_relu sides). float64: the whole step in
-    float64 on the CPU; follow: the sides its leaky_relu takes."""
+    """One Trainer.train_step on `device`: ({loss, loss_ctc[, loss_att]},
+    each parameter's gradient on the CPU, the leaky_relu sides). float64:
+    the whole step in float64 on the CPU; follow: the sides its leaky_relu
+    takes."""
     from mamba_asr_torch.training.normalizer import NormalizerState
     from mamba_asr_torch.training.trainer import Trainer
 
@@ -914,7 +949,8 @@ def step_grads(exp, spec, cfg32, state, batch, device, float64=False, follow=Non
         raise AssertionError("the float64 step computed a gradient in another dtype")
     if not sides.sides:
         raise AssertionError("the step ran no leaky_relu: the front end changed")
-    return m["loss"].item(), grads, sides.sides
+    losses = {k: v.item() for k, v in m.items() if k.startswith("loss")}
+    return losses, grads, sides.sides
 
 
 def grad_errs(grads, ref):
@@ -923,38 +959,36 @@ def grad_errs(grads, ref):
             for n, r in ref.items() for g in (grads[n],)}
 
 
-def phase_train_parity(exp, state):
+def against_float64(name, exp, spec, cfg32, state, batch, runs):
+    """Each of `runs` ((label, device, cuDNN on, its TF32 on); the first is
+    the CPU in fp32) takes one step, held against the same step in float64
+    on the CPU (on the step's own leaky_relu sides). Raises where a card
+    run with TF32 off is a fault: more than 10x the CPU's error and above
+    1e-3 of the largest value. Returns (the float64 step's losses, each
+    run's {losses, grads}, each run's summary)."""
     from mamba_asr_torch.kernels import selective_scan as kernel
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg32 = dataclasses.replace(exp.model, compute_dtype="float32", dropout=0.0)
-    spec = dataclasses.replace(exp.specaug, enabled=False)
-    batch = char_batch(2, 4.0, 20, 3, exp.model.vocab_size)
     loss64, g64, sides64 = step_grads(exp, spec, cfg32, state, batch, "cpu", float64=True)
-    # (label, device, cuDNN on, its TF32 on): the CPU in fp32, the card
-    # with cuDNN off, on (TF32 off) and on at PyTorch's default (TF32 on).
-    runs = (("cpu", "cpu", True, False), ("cudnn_off", "cuda", False, False),
-            ("cudnn_on", "cuda", True, False), ("cudnn_on_tf32", "cuda", True, True))
     res = {}
     for label, dev, cudnn, tf32 in runs:
         torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32 = cudnn, tf32
         kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
-        loss, grads, sides = step_grads(exp, spec, cfg32, state, batch, dev)
+        losses, grads, sides = step_grads(exp, spec, cfg32, state, batch, dev)
         if dev == "cuda":
             torch.cuda.synchronize()
             want = (2 * cfg32.num_encoder_layers,) * 2
             if (kernel.LAUNCHES, kernel.BWD_LAUNCHES) != want:
-                raise AssertionError(f"train_parity {label} launched K1, K2 "
+                raise AssertionError(f"{name} {label} launched K1, K2 "
                                      f"{(kernel.LAUNCHES, kernel.BWD_LAUNCHES)} times, want {want}")
         flips = sum(int((a != b).sum()) for a, b in zip(sides, sides64))
         ref = g64 if flips == 0 else step_grads(exp, spec, cfg32, state, batch, "cpu",
                                                 float64=True, follow=sides)[1]
-        res[label] = {"loss": loss, "grads": grads, "flips": flips,
+        res[label] = {"losses": losses, "grads": grads, "flips": flips,
                       "errs": grad_errs(grads, ref), "errs_unfollowed": grad_errs(grads, g64)}
     torch.backends.cudnn.enabled = True
     torch.backends.cudnn.allow_tf32 = True  # back to PyTorch's defaults
 
-    cpu_errs = res["cpu"]["errs"]
+    cpu_errs = res[runs[0][0]]["errs"]
 
     def summary(label):
         r = res[label]
@@ -962,28 +996,53 @@ def phase_train_parity(exp, state):
                                       if v > CUDNN_FAULT_RATIO * cpu_errs[n]
                                       and v > CUDNN_FAULT_FRAC)
         worst = max(e, key=e.get)
-        return {"loss": r["loss"], "leaky_relu_flips": r["flips"], "max_rel_err": e[worst],
-                "worst_param": worst, "median_rel_err": statistics.median(e.values()),
+        return {"loss": r["losses"]["loss"], "leaky_relu_flips": r["flips"],
+                "max_rel_err": e[worst], "worst_param": worst,
+                "median_rel_err": statistics.median(e.values()),
                 "faults": len(faults), "fault_params": faults[:4],
                 "max_rel_err_unfollowed": max(r["errs_unfollowed"].values())}
 
     against64 = {label: summary(label) for label in res}
-    if against64["cudnn_on"]["faults"] or against64["cudnn_off"]["faults"]:
-        raise AssertionError(f"train_parity against float64: {against64}")
-    loss_gpu, g_gpu = res["cudnn_off"]["loss"], res["cudnn_off"]["grads"]
-    loss_cpu, g_cpu = res["cpu"]["loss"], res["cpu"]["grads"]
-    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    if not loss_err <= TRAIN_LOSS_RTOL:
-        raise AssertionError(f"train_parity loss {loss_gpu} vs {loss_cpu}")
+    held = [label for label, dev, _, tf32 in runs if dev == "cuda" and not tf32]
+    if any(against64[label]["faults"] for label in held):
+        raise AssertionError(f"{name} against float64: {against64}")
+    return loss64, res, against64
+
+
+def card_vs_cpu(name, card, cpu):
+    """The card's step against the CPU's at TRAIN_LOSS_RTOL (every loss)
+    and TRAIN_GRAD_TOL (every gradient): (each loss's relative error, the
+    worst gradient's relative error and name)."""
+    loss_errs = {}
+    for key, ref in cpu["losses"].items():
+        loss_errs[key] = abs(card["losses"][key] - ref) / abs(ref)
+        if not loss_errs[key] <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{name} {key} {card['losses'][key]} vs {ref}")
     worst, worst_name = 0.0, ""
-    for name, ref in g_cpu.items():
+    for pname, ref in cpu["grads"].items():
         scale = ref.abs().max().item()
-        err = check_close(f"train_parity grad {name}", g_gpu[name], ref,
+        err = check_close(f"{name} grad {pname}", card["grads"][pname], ref,
                           TRAIN_GRAD_TOL[1] * scale, TRAIN_GRAD_TOL[0])
         if err / max(scale, 1e-30) > worst:
-            worst, worst_name = err / max(scale, 1e-30), name
-    emit({"phase": "train_parity", "loss_cuda": loss_gpu, "loss_cpu": loss_cpu,
-          "loss_float64": loss64, "loss_rel_err": loss_err, "params": len(g_cpu),
+            worst, worst_name = err / max(scale, 1e-30), pname
+    return loss_errs, worst, worst_name
+
+
+def phase_train_parity(exp, state):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(exp.model, compute_dtype="float32", dropout=0.0)
+    spec = dataclasses.replace(exp.specaug, enabled=False)
+    batch = char_batch(2, 4.0, 20, 3, exp.model.vocab_size)
+    # (label, device, cuDNN on, its TF32 on): the CPU in fp32, the card
+    # with cuDNN off, on (TF32 off) and on at PyTorch's default (TF32 on).
+    runs = (("cpu", "cpu", True, False), ("cudnn_off", "cuda", False, False),
+            ("cudnn_on", "cuda", True, False), ("cudnn_on_tf32", "cuda", True, True))
+    loss64, res, against64 = against_float64("train_parity", exp, spec, cfg32, state,
+                                             batch, runs)
+    loss_errs, worst, worst_name = card_vs_cpu("train_parity", res["cudnn_off"], res["cpu"])
+    emit({"phase": "train_parity", "loss_cuda": res["cudnn_off"]["losses"]["loss"],
+          "loss_cpu": res["cpu"]["losses"]["loss"], "loss_float64": loss64["loss"],
+          "loss_rel_err": loss_errs["loss"], "params": len(res["cpu"]["grads"]),
           "grad_max_rel_err": worst, "grad_worst_param": worst_name,
           "against_float64": against64,
           "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad": TRAIN_GRAD_TOL,
@@ -1670,7 +1729,7 @@ def phase_train_to_floor(work, corpus):
     from mamba_asr_torch.tools import train_to_floor
 
     kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
-    res, tr = train_to_floor.run_mode("ctc", corpus, os.path.join(work, "floor"), 60)
+    res, tr = train_to_floor.run_mode("ctc", corpus, os.path.join(work, "floor"), FLOOR_EPOCHS)
     launches = {"K1": kernel.LAUNCHES, "K2": kernel.BWD_LAUNCHES}
     if launches["K2"] != 2 * tr.cfg.model.num_encoder_layers * tr.micro_steps:
         raise AssertionError(f"train_to_floor: {launches} scan launches")
@@ -1723,6 +1782,312 @@ def phase_bf16(tr):
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
 
+# -- S2S training: joint CTC/attention, the recipe, train to floor -------------
+
+
+def s2s_batch(batch):
+    """A char_batch with the decoder's targets: tokens_bos (bos, tokens),
+    tokens_eos (tokens, eos) and eos_lens, padded with 0."""
+    tokens, lens = batch["tokens"], batch["token_lens"]
+    bsz, s = tokens.shape
+    bos = torch.zeros(bsz, s + 1, dtype=tokens.dtype)
+    eos = torch.zeros(bsz, s + 1, dtype=tokens.dtype)
+    for i, n in enumerate(lens.tolist()):
+        bos[i, 0], bos[i, 1:n + 1] = 1, tokens[i, :n]
+        eos[i, :n], eos[i, n] = tokens[i, :n], 2
+        tokens[i, n:] = 0
+    return dict(batch, tokens=tokens, tokens_bos=bos, tokens_eos=eos, eos_lens=lens + 1)
+
+
+class fixed_warp:
+    """Within the block SpecAugment's time warp takes S2S_WARP_DRAWS
+    (centre, target) on every device, so the card's step and the CPU's
+    warp alike."""
+
+    def __enter__(self):
+        from mamba_asr_torch.data import augment
+
+        self.saved = augment.draw_time_warp
+
+        def draws(generator, length, window, batch, mode="bicubic"):
+            if mode != "bicubic":
+                raise AssertionError("fixed_warp fixes the bicubic warp's draws")
+            return tuple(torch.tensor(v, device=generator.device) for v in S2S_WARP_DRAWS)
+
+        augment.draw_time_warp = draws
+        return self
+
+    def __exit__(self, *exc):
+        from mamba_asr_torch.data import augment
+
+        augment.draw_time_warp = self.saved
+        return False
+
+
+def phase_s2s_train_parity(s2s, state):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(s2s.model, compute_dtype="float32", dropout=0.0)
+    spec = dataclasses.replace(s2s.specaug, num_time_drops=0, num_freq_drops=0)
+    if not (spec.enabled and spec.apply_time_warp and spec.time_warp_mode == "bicubic"):
+        raise AssertionError("s2s_train_parity: the YAML's SpecAugment has no bicubic warp")
+    batch = s2s_batch(char_batch(2, 4.0, 20, 3, s2s.model.vocab_size))
+    runs = (("cpu", "cpu", True, False), ("cudnn_off", "cuda", False, False),
+            ("cudnn_on", "cuda", True, False))
+    with fixed_warp():
+        loss64, res, against64 = against_float64("s2s_train_parity", s2s, spec, cfg32, state,
+                                                 batch, runs)
+    loss_errs, worst, worst_name = card_vs_cpu("s2s_train_parity", res["cudnn_off"],
+                                               res["cpu"])
+    emit({"phase": "s2s_train_parity", "config": S2S_CONFIG,
+          "losses_cuda": res["cudnn_off"]["losses"], "losses_cpu": res["cpu"]["losses"],
+          "losses_float64": loss64, "loss_rel_errs": loss_errs,
+          "params": len(res["cpu"]["grads"]), "grad_max_rel_err": worst,
+          "grad_worst_param": worst_name, "against_float64": against64,
+          "warp_draws": S2S_WARP_DRAWS, "ctc_weight": s2s.train.ctc_weight,
+          "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad": TRAIN_GRAD_TOL,
+                  "fault": {"ratio": CUDNN_FAULT_RATIO, "frac": CUDNN_FAULT_FRAC}}})
+
+
+def s2s_train_batch(bsz, seconds, vocab, seed):
+    """B x seconds of N(0, 0.1) noise (the last row 5 % shorter) with
+    random targets of 60 to 80 tokens drawn from [4, vocab)."""
+    rng = np.random.default_rng(seed)
+    batch = char_batch(bsz, seconds, 80, seed, vocab)
+    batch["token_lens"] = torch.from_numpy(rng.integers(60, 81, bsz).astype(np.int32))
+    batch["tokens"] = torch.from_numpy(rng.integers(4, vocab, (bsz, 80)).astype(np.int64))
+    return s2s_batch(batch)
+
+
+def phase_s2s_train(s2s, state):
+    from mamba_asr_torch.kernels import selective_scan as kernel
+    from mamba_asr_torch.training.schedule import noam_schedule
+    from mamba_asr_torch.training.trainer import Trainer
+
+    cfg, tc = s2s.model, s2s.train
+    if (cfg.compute_dtype, cfg.dropout, tc.grad_accumulation_factor, tc.ctc_weight,
+            tc.scheduler_steps_per_update, cfg.vocab_size) != ("bfloat16", 0.1, 8, 0.3, 2, 5000):
+        raise AssertionError("s2s_train: not the S2S YAML's settings")
+    if not (s2s.specaug.enabled and s2s.specaug.apply_time_warp):
+        raise AssertionError("s2s_train: the YAML's SpecAugment has no time warp")
+    per_step = 2 * cfg.num_encoder_layers
+    tr = Trainer(cfg, s2s.frontend, tc, s2s.specaug, state_dict=state, device="cuda")
+    batch = s2s_train_batch(32, TRAIN_SECONDS, cfg.vocab_size, 5)
+    k = tc.grad_accumulation_factor
+    steps = []
+    kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+    for i in range(k):
+        before = [p.detach().clone() for p in tr.model.parameters()]
+        m = tr.train_step(batch)
+        changed = sum(not torch.equal(a, p) for a, p in zip(before, tr.model.parameters()))
+        row = {key: m[key].item() for key in ("loss", "loss_ctc", "loss_att", "grad_norm")}
+        if not all(np.isfinite(row[key]) for key in ("loss", "loss_ctc", "loss_att")):
+            raise AssertionError(f"s2s_train micro-step {i}: {row}")
+        emit_step = i % k == k - 1
+        if bool(m["updated"]) != emit_step or (changed > 0) != emit_step:
+            raise AssertionError(f"s2s_train micro-step {i}: {changed} parameters changed, "
+                                 f"updated={bool(m['updated'])}, emit step {emit_step}")
+        steps.append({**row, "params_changed": changed})
+    launches = {"K1": kernel.LAUNCHES, "K2": kernel.BWD_LAUNCHES}
+    if launches != {"K1": per_step * k, "K2": per_step * k}:
+        raise AssertionError(f"s2s_train: {launches} scan launches in {k} micro-steps")
+    lr_now = tr.optimizer.optimizer.param_groups[0]["lr"]
+    if lr_now != noam_schedule(tc.lr, tc.warmup_steps, tc.scheduler_steps_per_update)(1):
+        raise AssertionError(f"s2s_train: lr {lr_now} after one update is not Noam's "
+                             "count stepped twice per update")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blocks = []
+    audio = float(batch["wav_lens"].sum()) / 16000
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            tr.train_step(batch)
+        torch.cuda.synchronize()
+        blocks.append(k * audio / (time.perf_counter() - t0))
+    rate = statistics.median(blocks)
+    memory_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall_ms, device_ms, top = device_profile(lambda: tr.train_step(batch), 15,
+                                             named=("scan_fwd", "scan_bwd"))
+    emit({"phase": "s2s_train", "config": S2S_CONFIG, "batch": 32, "seconds_each": TRAIN_SECONDS,
+          "audio_s_per_step": audio, "target_tokens": batch["token_lens"].tolist(),
+          "micro_steps": steps, "accumulation": k, "compute_dtype": cfg.compute_dtype,
+          "dropout": cfg.dropout, "time_warp": s2s.specaug.time_warp_mode,
+          "launches_per_micro_step": {key: v // k for key, v in launches.items()},
+          "throughput": {"audio_s_per_s": rate, "blocks": blocks,
+                         "spread_pct": 100.0 * (max(blocks) - min(blocks)) / rate,
+                         "micro_steps_per_block": k},
+          "max_memory_allocated_gb": memory_gb,
+          "profile": {"wall_ms": wall_ms, "device_kernel_ms": device_ms,
+                      "idle_share": 1.0 - device_ms / wall_ms, "top": top}})
+    return launches
+
+
+def s2s_recipe_args(corpus, out, epochs):
+    """The S2S CLI's arguments for the full-width recipe: the YAML's model
+    with train_to_floor's data and training overrides (not its model
+    ones), and the validation search every S2S_SEARCH_INTERVAL epochs."""
+    from mamba_asr_torch.tools.train_to_floor import ctc_overrides
+
+    flat = ctc_overrides(corpus, out, epochs)
+    pairs = [flat[i:i + 2] for i in range(0, len(flat), 2)]
+    return [S2S_CONFIG] + [a for key, value in pairs
+                           if not key.startswith(("--model.", "--frontend.")) for a in (key, value)] + [
+        "--decode.valid_search_interval", str(S2S_SEARCH_INTERVAL)]
+
+
+def s2s_launch_counters():
+    from mamba_asr_torch.kernels import beam_attention as k4
+    from mamba_asr_torch.kernels import ctc_dp as k3
+    from mamba_asr_torch.kernels import selective_scan as k12
+
+    def reset():
+        k12.LAUNCHES = k12.BWD_LAUNCHES = k3.LAUNCHES = k4.LAUNCHES = 0
+
+    def read():
+        return {"K1": k12.LAUNCHES, "K2": k12.BWD_LAUNCHES, "K3": k3.LAUNCHES,
+                "K4": k4.LAUNCHES}
+
+    return reset, read
+
+
+def phase_s2s_recipe(work, corpus):
+    from mamba_asr_torch import cli
+    from mamba_asr_torch.decoding.s2s_beam import S2SBeamSearcher, strip_special
+    from mamba_asr_torch.training import loop
+
+    class Recording(loop.Trainer):
+        """The recipe's Trainer, keeping the last validation search's batch,
+        encoder outputs, hypotheses and epoch."""
+
+        last_search = None
+
+        def validate(self, loader, epoch=1):
+            self.epoch_now = epoch
+            return super().validate(loader, epoch)
+
+        def s2s_decoder(self, test=True):
+            decode = super().s2s_decoder(test)
+
+            def record(model, batch, out):
+                hyps = decode(model, batch, out)
+                if not test:
+                    self.last_search = {"epoch": self.epoch_now, "out": out, "hyps": hyps}
+                return hyps
+
+            return record
+
+    reset, read = s2s_launch_counters()
+    out = os.path.join(work, "s2s_recipe")
+    saved = cli.Trainer
+    cli.Trainer = Recording
+    try:
+        reset()
+        t0 = time.perf_counter()
+        tr = cli.run_training(s2s_recipe_args(corpus, out, S2S_RECIPE_EPOCHS))
+        wall = time.perf_counter() - t0
+        launches = read()
+    finally:
+        cli.Trainer = saved
+    cfg, d = tr.cfg, tr.cfg.decode
+    if (cfg.model.d_model, cfg.model.num_encoder_layers, cfg.model.num_decoder_layers,
+            cfg.model.d_ffn, cfg.model.nhead, cfg.model.compute_dtype, cfg.model.vocab_size) \
+            != (144, 12, 4, 1024, 4, "bfloat16", 5000) or d.s2s_test_beam_size != 66:
+        raise AssertionError("s2s_recipe: not the YAML's full-width model and test beam")
+    if launches["K2"] != 2 * cfg.model.num_encoder_layers * tr.micro_steps or \
+            launches["K1"] <= launches["K2"] or not launches["K3"] or not launches["K4"]:
+        raise AssertionError(f"s2s_recipe: launches {launches} for {tr.micro_steps} steps")
+    rows = epoch_rows(tr)
+    if [r["epoch"] for r in rows] != list(range(1, S2S_RECIPE_EPOCHS + 1)):
+        raise AssertionError(f"s2s_recipe: epochs {[r['epoch'] for r in rows]}")
+    if not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError("s2s_recipe: a non-finite training loss")
+    accs = {e["epoch"]: e["valid"]["ACC"] for e in tr.epoch_log}
+
+    # The ACC-ranked keep set: the best keep_checkpoints and the newest.
+    kept = sorted(e["metrics"]["epoch"] for e in tr.ckpt._entries())
+    keep, newest = min(cfg.train.keep_checkpoints, len(accs)), S2S_RECIPE_EPOCHS
+    ranked = kept if len(kept) == keep else [e for e in kept if e != newest]
+    if newest not in kept or len(ranked) != keep or \
+            sorted(accs[e] for e in ranked) != sorted(accs.values())[-keep:]:
+        raise AssertionError(f"s2s_recipe: kept epochs {kept}, ACC {accs}")
+    if "averaged_test-clean" not in {e["name"] for e in tr.ckpt._entries(include_averaged=True)}:
+        raise AssertionError("s2s_recipe: no averaged_test-clean checkpoint")
+
+    # Epoch 20's validation search decoded with epoch 20's weights.
+    rec = tr.last_search
+    if rec is None or rec["epoch"] != S2S_RECIPE_EPOCHS:
+        raise AssertionError(f"s2s_recipe: last validation search {rec and rec['epoch']}")
+    model = tr.step.model.eval()
+    fresh = S2SBeamSearcher(
+        model, beam_size=d.valid_beam_size, ctc_weight=d.ctc_weight_decode,
+        ctc_candidates=d.ctc_candidates, temperature=d.temperature,
+        length_normalization=d.length_normalization, max_decode_ratio=d.max_decode_ratio,
+        min_decode_ratio=d.min_decode_ratio)
+    o = rec["out"]
+    toks, lens, _ = fresh(o["enc_out"], o["enc_lengths"], o["ctc_log_probs"])
+    if strip_special(toks.cpu().numpy(), lens.cpu().numpy()) != rec["hyps"]:
+        raise AssertionError("s2s_recipe: epoch 20's validation search is not a fresh "
+                             "searcher's on epoch 20's weights")
+    model.train()
+
+    steps_saved = tr.micro_steps
+    train_csv = os.path.join(cfg.output_folder, "manifests", cfg.data.train_csv)
+    loader = cli.train_loader(cfg, train_csv, tr.tokenizer)
+    wall_ms, device_ms, top = device_profile(
+        lambda: tr.train_epoch(loader, S2S_RECIPE_EPOCHS + 1), 10)
+
+    reset()
+    again = cli.run_training(s2s_recipe_args(corpus, out, S2S_RECIPE_EPOCHS + 1))
+    resume_launches = read()
+    if again.start_epoch != S2S_RECIPE_EPOCHS + 1 or \
+            [e["epoch"] for e in again.epoch_log] != [S2S_RECIPE_EPOCHS + 1]:
+        raise AssertionError(f"s2s_recipe: did not resume from epoch {S2S_RECIPE_EPOCHS}")
+    if again.micro_steps <= steps_saved:
+        raise AssertionError("s2s_recipe: the resumed run trained no step")
+    emit({"phase": "s2s_recipe", "config": S2S_CONFIG, "d_model": cfg.model.d_model,
+          "layers": [cfg.model.num_encoder_layers, cfg.model.num_decoder_layers],
+          "vocab": cfg.model.vocab_size, "compute_dtype": cfg.model.compute_dtype,
+          "tokenizer": tr.tokenizer.vocab_size, "epochs": rows, "valid_acc": accs,
+          "last_valid_acc": accs[S2S_RECIPE_EPOCHS], "test": tr.test_stats["test-clean"],
+          "wall_s": wall, "micro_steps": steps_saved, "kept_epochs": kept,
+          "search_interval": S2S_SEARCH_INTERVAL, "valid_beam": d.valid_beam_size,
+          "test_beam": d.s2s_test_beam_size, "epoch20_search_equals_fresh": True,
+          "loop_audio_s_per_s": audio_rate(rows),
+          "loop_audio_s_per_s_after_epoch_1": audio_rate(rows[1:]),
+          "launches": launches,
+          "epoch_profile": {"wall_ms": wall_ms, "device_kernel_ms": device_ms,
+                            "idle_share": 1.0 - device_ms / wall_ms, "top": top},
+          "resume": {"start_epoch": again.start_epoch, "epochs": epoch_rows(again),
+                     "valid": again.epoch_log[0]["valid"],
+                     "test": again.test_stats["test-clean"], "launches": resume_launches}})
+    return launches
+
+
+def phase_s2s_train_to_floor(work, corpus):
+    from mamba_asr_torch.tools import train_to_floor
+
+    reset, read = s2s_launch_counters()
+    reset()
+    epochs = 3 * FLOOR_EPOCHS  # the tool's S2S rule
+    res, tr = train_to_floor.run_mode("s2s", corpus, os.path.join(work, "floor"), epochs)
+    launches = read()
+    if launches["K2"] != 2 * tr.cfg.model.num_encoder_layers * tr.micro_steps or \
+            not launches["K3"] or not launches["K4"]:
+        raise AssertionError(f"s2s_train_to_floor: launches {launches}")
+    rows = epoch_rows(tr)
+    result = {"phase": "s2s_train_to_floor", **res, "target": FLOOR_TARGET,
+              "config": train_to_floor.S2S_CONFIG, "test": tr.test_stats["test-clean"],
+              "launches": launches, "epoch_s": [r["epoch_s"] for r in rows],
+              "valid": {e["epoch"]: e["valid"] for e in tr.epoch_log
+                        if e["epoch"] % (epochs // 2) == 0 or e["epoch"] % 30 == 0},
+              "loss": [r["loss"] for r in rows[::10]] + [rows[-1]["loss"]],
+              "train_audio_s_per_s": audio_rate(rows)}
+    emit(result)
+    if not res["test_wer"] <= FLOOR_TARGET:
+        raise AssertionError(f"s2s_train_to_floor: test WER {res['test_wer']} > {FLOOR_TARGET}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1761,6 +2126,8 @@ def main() -> int:
                                         s2s_state)
     timed(phase_s2s_profile, rec8, s2s_batch)
     del rec8, s2s_batch
+    timed(phase_s2s_train_parity, s2s, s2s_state)
+    s2s_train_launches = timed(phase_s2s_train, s2s, s2s_state)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         corpus = timed(phase_data, work)
@@ -1768,6 +2135,8 @@ def main() -> int:
         recipe_launches = timed(phase_recipe, work, corpus)
         floor = timed(phase_train_to_floor, work, corpus)
         timed(phase_bf16, floor)
+        s2s_recipe_launches = timed(phase_s2s_recipe, work, corpus)
+        timed(phase_s2s_train_to_floor, work, corpus)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1782,6 +2151,7 @@ def main() -> int:
         "bound_by": k["bound_by"], "library_ms": None,
         "bound_measured_ms": k["bound_measured_ms"],
         "recipe_launches": recipe_launches["K1"],
+        "s2s_recipe_launches": s2s_recipe_launches["K1"],
     }, {
         "name": "selective_scan_fwd_train", "route": "cuda",
         "source": "mamba_asr_torch/csrc/selective_scan_fwd.cu",
@@ -1790,7 +2160,7 @@ def main() -> int:
         "max_abs_err": kb["cases"][0]["chunk_states_max_abs_err"],
         "ms": fwd_train["kernel_ms"], "plain_ms": k["plain_ms"],
         "bound_ms": fwd_train["bound_ms"], "bound_by": fwd_train["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "s2s_train_launches": s2s_train_launches["K1"],
     }, {
         "name": "selective_scan_bwd", "route": "cuda",
         "source": "mamba_asr_torch/csrc/selective_scan_bwd.cu",
@@ -1799,6 +2169,8 @@ def main() -> int:
         "ms": kb["kernel_ms"], "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
         "bound_by": kb["bound_by"], "library_ms": None, "wrapper_ms": kb["wrapper_ms"],
         "recipe_launches": recipe_launches["K2"],
+        "s2s_train_launches": s2s_train_launches["K2"],
+        "s2s_recipe_launches": s2s_recipe_launches["K2"],
     }, {
         "name": "ctc_dp", "route": "cuda", "source": "mamba_asr_torch/csrc/ctc_dp.cu",
         "replaces": "mamba_asr_tpu/ops/pallas/log_scan.py:75",
@@ -1806,6 +2178,7 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in k3["cases"]),
         "ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": None,
+        "s2s_recipe_launches": s2s_recipe_launches["K3"],
     }, {
         "name": "beam_attention", "route": "cuda",
         "source": "mamba_asr_torch/csrc/beam_attention.cu",
@@ -1814,6 +2187,7 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in k4["cases"]),
         "ms": k4["kernel_ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
+        "s2s_recipe_launches": s2s_recipe_launches["K4"],
     }] + [{
         "name": f"scan_variants_{part}", "route": "cuda",
         "source": "mamba_asr_torch/csrc/scan_variants.cu",

@@ -1,16 +1,21 @@
-"""The CTC training recipe's command line (port of mamba_asr_tpu/cli.py:
-build_tokenizer and run_training, CTC only, one device).
+"""The recipes' command line (port of mamba_asr_tpu/cli.py:
+build_tokenizer and run_training, one device): the CTC recipe, and the
+joint CTC/attention (S2S) recipe when the config has a decoder.
 
     python -m mamba_asr_torch.train_ctc hparams/CTC/conmamba_small.yaml \\
         --data.data_folder /path/to/LibriSpeech [--device cpu] [--train.lr 0.0005 ...]
+    python -m mamba_asr_torch.train_s2s hparams/S2S/conmamba_small.yaml \\
+        --data.data_folder /path/to/LibriSpeech [--device cpu] [--key value ...]
 
-Prepare the manifests -> fit (or load) the char tokenizer -> bucketed
-loaders (speed perturbation on the training set) -> `loop.Trainer.fit`
-with greedy validation and top-k checkpoints -> each test split decoded
-with averaged checkpoints and the CTC prefix beam search, writing
-wer_<split>.txt. It runs on the CUDA card unless `--device cpu` (or
-another torch device) is given, and refuses to start without a card.
-`--distributed` (multi-process training) is not ported and raises.
+Prepare the manifests -> fit (or load) the tokenizer (char, or bpe /
+unigram through the `tokenizers` package) -> bucketed loaders (speed
+perturbation on the training set) -> `loop.Trainer.fit` with validation
+and top-k checkpoints -> each test split decoded with averaged
+checkpoints and the CTC prefix beam search (CTC) or the joint beam
+search (S2S), writing wer_<split>.txt. It runs on the CUDA card unless
+`--device cpu` (or another torch device) is given, and refuses to start
+without a card. `--distributed` (multi-process training) and
+`decode.lm_path` (LM fusion) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from typing import List, Optional, Tuple
 from mamba_asr_torch.configs.loader import ExperimentConfig, load_config, parse_overrides
 from mamba_asr_torch.data.dataset import ASRDataset, BucketedLoader
 from mamba_asr_torch.data.librispeech import create_lexicon, load_manifest, prepare_librispeech
-from mamba_asr_torch.data.tokenizer import CharTokenizer, load_tokenizer
+from mamba_asr_torch.data.tokenizer import CharTokenizer, SubwordTokenizer, load_tokenizer
 from mamba_asr_torch.training.loop import Trainer
 from mamba_asr_torch.utils.device import resolve_device
 
@@ -33,12 +38,12 @@ def build_tokenizer(cfg: ExperimentConfig, train_csv: str):
     tok_path = os.path.join(cfg.output_folder, f"tokenizer_{cfg.data.tokenizer_type}.json")
     if os.path.isfile(tok_path):
         return load_tokenizer(tok_path)
-    if cfg.data.tokenizer_type != "char":
-        raise NotImplementedError(
-            f"data.tokenizer_type {cfg.data.tokenizer_type!r}: subword tokenizers are "
-            "not ported (ROADMAP slice 3b item 2)")
-    tok = CharTokenizer.fit([u.words for u in load_manifest(train_csv)],
-                            vocab_size=cfg.data.vocab_size)
+    corpus = [u.words for u in load_manifest(train_csv)]
+    if cfg.data.tokenizer_type == "char":
+        tok = CharTokenizer.fit(corpus, vocab_size=cfg.data.vocab_size)
+    else:
+        tok = SubwordTokenizer.train(corpus, vocab_size=cfg.data.vocab_size,
+                                     model_type=cfg.data.tokenizer_type)
     os.makedirs(cfg.output_folder, exist_ok=True)
     tok.save(tok_path)
     return tok
@@ -82,14 +87,18 @@ def eval_loader(cfg: ExperimentConfig, csv_path: str, tokenizer) -> BucketedLoad
 def run_training(argv: Optional[List[str]] = None) -> Trainer:
     argv = list(argv) if argv is not None else sys.argv[1:]
     if not argv:
-        raise SystemExit("usage: python -m mamba_asr_torch.train_ctc <hparams.yaml> "
-                         "[--device cpu] [--key value ...]")
+        raise SystemExit("usage: python -m mamba_asr_torch.train_ctc|train_s2s "
+                         "<hparams.yaml> [--device cpu] [--key value ...]")
     if "--distributed" in argv:
         raise NotImplementedError(
             "--distributed: multi-process training is not ported (ROADMAP slice 4 item 4)")
     argv, device = _pop_device(argv)
     device = resolve_device(device)
     cfg = load_config(argv[0], parse_overrides(argv[1:]))
+    if cfg.decode.lm_path:
+        raise NotImplementedError(
+            "decode.lm_path: LM loading and shallow fusion are not ported "
+            "(ROADMAP slice 3b item 4)")
     os.makedirs(cfg.output_folder, exist_ok=True)
 
     manifest_dir = os.path.join(cfg.output_folder, "manifests")
@@ -111,6 +120,7 @@ def run_training(argv: Optional[List[str]] = None) -> Trainer:
     trainer.fit(train_loader(cfg, train_csv, tokenizer), valid_loader)
     for split in cfg.data.test_splits:
         test_loader = eval_loader(cfg, os.path.join(manifest_dir, split + ".csv"), tokenizer)
-        summary = trainer.evaluate(test_loader, test_name=split, decoder=trainer.ctc_decoder())
+        decoder = trainer.s2s_decoder(test=True) if trainer.is_s2s else trainer.ctc_decoder()
+        summary = trainer.evaluate(test_loader, test_name=split, decoder=decoder)
         print(f"{split}: {summary}")
     return trainer

@@ -1,1 +1,2 @@
-"""Data augmentation of the port (the data pipeline waits for slice 2b)."""
+"""The recipes' data pipeline: audio I/O, LibriSpeech manifests,
+tokenizers, bucketed loading, speed perturbation and SpecAugment."""

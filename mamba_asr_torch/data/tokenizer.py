@@ -1,12 +1,14 @@
-"""The character tokenizer of the CTC recipes (port of
-mamba_asr_tpu/data/tokenizer.py: CharTokenizer, load_tokenizer).
+"""Tokenizers (port of mamba_asr_tpu/data/tokenizer.py: CharTokenizer,
+SubwordTokenizer, load_tokenizer).
 
-Ids follow the reference configs: pad == blank == 0, bos 1, eos 2, unk 3,
-then the characters in sorted order. The JSON file is the JAX package's
-(`{"type": "char", "chars": [...]}`), so either package loads the
-other's `tokenizer_char.json`. Subword (BPE / unigram) tokenizers need
-the `tokenizers` package and come with the S2S slice; `load_tokenizer`
-raises for their files.
+Ids follow the reference configs: pad == blank == 0, bos 1, eos 2, unk 3.
+- `CharTokenizer`: the characters in sorted order after the specials.
+  Its JSON file is the JAX package's (`{"type": "char", "chars": [...]}`).
+- `SubwordTokenizer`: BPE or unigram pieces (the S2S recipes' vocab
+  5000) through the HuggingFace `tokenizers` package, imported when a
+  subword tokenizer is fitted or loaded; without it those raise
+  RuntimeError. Its JSON file is that package's own.
+Either package loads the other's `tokenizer_<type>.json`.
 """
 
 from __future__ import annotations
@@ -66,11 +68,62 @@ class CharTokenizer:
         return cls(d["chars"])
 
 
-def load_tokenizer(path: str) -> CharTokenizer:
-    """Load a tokenizer from its JSON file (char only in the port)."""
+def _tokenizers():
+    try:
+        import tokenizers
+    except ImportError as e:
+        raise RuntimeError("SubwordTokenizer requires the `tokenizers` package; "
+                           "use CharTokenizer instead") from e
+    return tokenizers
+
+
+class SubwordTokenizer:
+    """BPE or unigram pieces over a Metaspace pre-tokenizer, the specials
+    at ids 0 to 3."""
+
+    def __init__(self, tok):
+        self._tok = tok
+
+    @classmethod
+    def train(cls, corpus: Iterable[str], vocab_size: int = 5000,
+              model_type: str = "bpe") -> "SubwordTokenizer":
+        tk = _tokenizers()
+        if model_type == "bpe":
+            tok = tk.Tokenizer(tk.models.BPE(unk_token="<unk>"))
+            trainer = tk.trainers.BpeTrainer(vocab_size=vocab_size, special_tokens=_SPECIALS)
+        elif model_type == "unigram":
+            tok = tk.Tokenizer(tk.models.Unigram())
+            trainer = tk.trainers.UnigramTrainer(vocab_size=vocab_size,
+                                                 special_tokens=_SPECIALS, unk_token="<unk>")
+        else:
+            raise ValueError(model_type)
+        tok.pre_tokenizer = tk.pre_tokenizers.Metaspace()
+        tok.decoder = tk.decoders.Metaspace()
+        tok.train_from_iterator(corpus, trainer)
+        return cls(tok)
+
+    @property
+    def vocab_size(self) -> int:
+        return self._tok.get_vocab_size()
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok.encode(text).ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode([int(i) for i in ids if i >= len(_SPECIALS)]).strip()
+
+    def save(self, path: str) -> None:
+        self._tok.save(path)
+
+    @classmethod
+    def load(cls, path: str) -> "SubwordTokenizer":
+        return cls(_tokenizers().Tokenizer.from_file(path))
+
+
+def load_tokenizer(path: str):
+    """Load either tokenizer type from its JSON file."""
     with open(path, encoding="utf-8") as f:
         head = f.read(4096)
     if '"type": "char"' in head:
         return CharTokenizer.load(path)
-    raise NotImplementedError(
-        f"{path}: subword tokenizers are not ported (ROADMAP slice 3b item 2)")
+    return SubwordTokenizer.load(path)

@@ -3,12 +3,16 @@ encoder with the CTC head and, for S2S configs, the Transformer decoder:
 
     feats -> Conv2d front end -> flatten (B, T', F'*C) -> src_proj ->
     dropout -> ConMamba encoder -> ctc_head (float32) -> log_softmax
-    tokens -> NormalizedEmbedding + sinusoidal PE -> TransformerDecoder
-           -> seq_head (float32)
+    tokens_bos -> NormalizedEmbedding + sinusoidal PE -> TransformerDecoder
+           -> seq_head (float32) -> log_softmax      (S2S configs)
 
-`cfg.dropout` applies in train() mode at the JAX package's places
-(models/layers.py and conmamba.py say which); eval() has none. The
-decoder has none yet (S2S training comes with a later slice).
+`forward(feats, lengths, tokens_bos)` is the JAX package's `__call__`
+(`asr.py:520-575`): with a decoder and tokens_bos it adds the teacher-
+forced `seq_log_probs`. `cfg.dropout` applies in train() mode at the JAX
+package's places (models/layers.py, conmamba.py and transformer.py say
+which), and in train() mode the decoder's self-attention also masks the
+targets' padding (tokens == 0, `asr.py:419`); eval() has neither. The
+memory's padding mask applies in both.
 
 The module tree is the reference's saved ModuleList, so the state dict
 has the names that `export_asr_params` writes and `params_import`
@@ -166,13 +170,14 @@ class _TransformerASR(nn.Module):
             self.custom_tgt_module = _TgtModule(cfg.vocab_size, cfg.d_model, cfg.dtype)
             self.decoder = TransformerDecoder(
                 cfg.num_decoder_layers, cfg.d_model, cfg.d_ffn, cfg.nhead,
-                cfg.activation_fn(), cfg.dtype,
+                cfg.activation_fn(), cfg.dtype, cfg.dropout,
             )
 
 
 class ASRModel(nn.Module):
-    """feats (B, T, n_mels) -> enc_out, enc_lengths, ctc_log_probs; with a
-    decoder also `decode` (teacher-forced) and the cached `decode_step`."""
+    """feats (B, T, n_mels) -> enc_out, enc_lengths, ctc_log_probs, and with
+    a decoder and tokens_bos seq_log_probs; with a decoder also `decode`
+    (teacher-forced) and the cached `decode_step`."""
 
     def __init__(self, cfg: ASRConfig):
         super().__init__()
@@ -185,8 +190,8 @@ class ASRModel(nn.Module):
         if cfg.num_decoder_layers > 0 and cfg.decoder_module != "transformer":
             raise NotImplementedError(
                 f"decoder_module={cfg.decoder_module!r}: only the Transformer "
-                "decoder is ported; the Mamba and Conformer decoders come "
-                "with ROADMAP slice 3b"
+                "decoder is ported; the Mamba decoder comes with ROADMAP slice "
+                "3b item 3, the Conformer decoder with slice 3b item 5"
             )
         if cfg.xavier_parity_init:
             raise NotImplementedError("xavier_parity_init is not ported")
@@ -251,28 +256,34 @@ class ASRModel(nn.Module):
         return self.encoder(x), enc_lengths
 
     def forward(self, feats: torch.Tensor,
-                feat_lengths: Optional[torch.Tensor] = None
+                feat_lengths: Optional[torch.Tensor] = None,
+                tokens_bos: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         enc, enc_lengths = self.encode(feats, feat_lengths)
         ctc_logits = dense(enc.float(), self.ctc_head, torch.float32)
-        return {
+        out = {
             "enc_out": enc,
             "enc_lengths": enc_lengths,
             "ctc_log_probs": F.log_softmax(ctc_logits, dim=-1),
         }
+        if tokens_bos is not None and self.has_decoder:
+            dec = self.decode(tokens_bos, enc, enc_lengths)
+            out["seq_log_probs"] = F.log_softmax(self.seq_logits(dec), dim=-1)
+        return out
 
     # -- decoder ------------------------------------------------------------
 
     def decode(self, tokens: torch.Tensor, enc_out: torch.Tensor,
                enc_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Teacher-forced: tokens (B, S) -> decoder states (B, S, d_model)
-        (eval form: no target padding mask)."""
+        """Teacher-forced: tokens (B, S) -> decoder states (B, S, d_model).
+        In train() mode the target's padding (tokens == 0) is masked too."""
         s = tokens.shape[1]
         tgt = self.tgt_embed(tokens) + self.dec_pe[:s].to(self.cfg.dtype)
+        tgt_kpm = tokens == 0 if self.training else None
         mem_kpm = (None if enc_lengths is None
                    else lengths_to_padding_mask(enc_lengths, enc_out.shape[1]))
         return self.decoder(tgt, enc_out, get_lookahead_mask(s, tokens.device),
-                            memory_key_padding_mask=mem_kpm)
+                            tgt_key_padding_mask=tgt_kpm, memory_key_padding_mask=mem_kpm)
 
     def seq_logits(self, dec: torch.Tensor) -> torch.Tensor:
         """seq_head in float32 (its logits, before any softmax)."""

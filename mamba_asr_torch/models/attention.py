@@ -18,7 +18,10 @@ Three paths:
   ancestor table (`ops/beam_attention.py`, K4 on the card).
 
 Dtypes follow the JAX package: projections and scores in the compute
-dtype, softmax in float32 and cast back (`attention.py:203-213`).
+dtype, softmax in float32 and cast back (`attention.py:203-213`). In
+train() mode `forward` drops attention weights with probability
+`dropout` after the softmax, as the JAX package does
+(`attention.py:197, 210`); `step_beam` serves the search and has none.
 
 State-dict names are SpeechBrain's: `att.in_proj_weight` and
 `att.in_proj_bias` hold q, k and v stacked, `att.out_proj` the output
@@ -35,7 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mamba_asr_torch.models.layers import dense
+from mamba_asr_torch.models.layers import dense, dropout
 from mamba_asr_torch.ops.beam_attention import beam_attention
 
 NEG_INF = -1e9
@@ -54,13 +57,15 @@ class _Att(nn.Module):
 
 
 class MultiheadAttention(nn.Module):
-    def __init__(self, d_model: int, nhead: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, d_model: int, nhead: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         if d_model % nhead:
             raise ValueError(f"d_model {d_model} is not a multiple of nhead {nhead}")
         self.att = _Att(d_model)
         self.nhead = nhead
         self.dtype = dtype
+        self.dropout = dropout
 
     def _proj(self, x: torch.Tensor, first: int, count: int) -> torch.Tensor:
         """Projections first .. first+count-1 of (q, k, v), stacked on the
@@ -108,6 +113,7 @@ class MultiheadAttention(nn.Module):
         if key_padding_mask is not None:
             scores = scores.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
         attn = torch.softmax(scores.float(), dim=-1).to(scores.dtype)
+        attn = dropout(attn, self.dropout, self.training)
         out = torch.matmul(attn, v.to(attn.dtype))  # (B, H, g*Lq, dh)
         out = out.transpose(1, 2).reshape(bq, lq, d)
         return dense(out, self.att.out_proj, self.dtype)

@@ -23,10 +23,16 @@ then a final LN. It has two ways in:
   `step(tgt_t, pos, cache, anc)` runs one position of N hypotheses
   through the ancestor table (models/attention.py:step_beam).
 
+In train() mode the decoder drops, with probability `dropout`, at the
+JAX package's four places: each sublayer's output before its residual
+add (self-attention, cross-attention, FFN; `transformer.py:322, 332,
+341`), the attention weights of both attentions, and the FFN's hidden
+activations (`layers.py:46`). eval() has none; the search steps the
+decoder in eval() mode.
+
 The JAX package's heads-major reorder cache (`beam_gather=False`) and
 the search's full-prefix re-score (`use_cache=False`) are A/B switches of
-the TPU search and are not ported. The decoder runs without dropout: the
-S2S training path comes with a later slice.
+the TPU search and are not ported.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from mamba_asr_torch.models.layers import (
     Activation,
     PositionalwiseFeedForward,
     SBLayerNorm,
+    dropout,
     layer_norm,
     swish,
 )
@@ -104,15 +111,17 @@ class TransformerDecoderLayer(nn.Module):
     keys: self_attn, multihead_attn, pos_ffn, norm1..3."""
 
     def __init__(self, d_model: int, d_ffn: int, nhead: int,
-                 activation: Activation = swish, dtype: torch.dtype = torch.float32):
+                 activation: Activation = swish, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, nhead, dtype)
-        self.multihead_attn = MultiheadAttention(d_model, nhead, dtype)
-        self.pos_ffn = PositionalwiseFeedForward(d_model, d_ffn, activation, dtype)
+        self.self_attn = MultiheadAttention(d_model, nhead, dtype, dropout)
+        self.multihead_attn = MultiheadAttention(d_model, nhead, dtype, dropout)
+        self.pos_ffn = PositionalwiseFeedForward(d_model, d_ffn, activation, dtype, dropout)
         self.norm1 = SBLayerNorm(d_model)
         self.norm2 = SBLayerNorm(d_model)
         self.norm3 = SBLayerNorm(d_model)
         self.dtype = dtype
+        self.dropout = dropout
 
     def forward(self, tgt: torch.Tensor, cross_kv,
                 tgt_mask: Optional[torch.Tensor] = None,
@@ -123,27 +132,29 @@ class TransformerDecoderLayer(nn.Module):
         """tgt (B', L, D); cross_kv: this layer's projected memory
         (`multihead_attn.precompute_kv`). With `self_cache` (and anc), tgt
         is one position of each hypothesis (N, 1, D)."""
-        dt = self.dtype
+        dt, p, train = self.dtype, self.dropout, self.training
         x = layer_norm(tgt, self.norm1.norm, dt)
         if self_cache is None:
             sa = self.self_attn(x, attn_mask=tgt_mask,
                                 key_padding_mask=tgt_key_padding_mask)
         else:
             sa = self.self_attn.step_beam(x, self_cache, pos, anc)
-        tgt = tgt + sa
+        tgt = tgt + dropout(sa, p, train)
         x = layer_norm(tgt, self.norm2.norm, dt)
-        tgt = tgt + self.multihead_attn(x, static_kv=cross_kv,
-                                        key_padding_mask=memory_key_padding_mask)
+        ca = self.multihead_attn(x, static_kv=cross_kv,
+                                 key_padding_mask=memory_key_padding_mask)
+        tgt = tgt + dropout(ca, p, train)
         x = layer_norm(tgt, self.norm3.norm, dt)
-        return tgt + self.pos_ffn(x)
+        return tgt + dropout(self.pos_ffn(x), p, train)
 
 
 class TransformerDecoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, d_ffn: int, nhead: int,
-                 activation: Activation = swish, dtype: torch.dtype = torch.float32):
+                 activation: Activation = swish, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList([
-            TransformerDecoderLayer(d_model, d_ffn, nhead, activation, dtype)
+            TransformerDecoderLayer(d_model, d_ffn, nhead, activation, dtype, dropout)
             for _ in range(num_layers)
         ])
         self.norm = SBLayerNorm(d_model)

@@ -41,11 +41,13 @@ from mamba_asr_torch.utils.device import resolve_device
 
 @torch.no_grad()
 def eval_step(model: ASRModel, frontend: FrontendConfig, normalizer: NormalizerState,
-              wav: torch.Tensor, wav_lens: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The forward of make_eval_step without a decoder, on the
-    normaliser's device (the model's): wav (B, T) float32, wav_lens (B,)
-    int -> log-mel features, normalised -> model -> ctc_log_probs,
-    enc_lengths, enc_out. The model must be in eval mode."""
+              wav: torch.Tensor, wav_lens: torch.Tensor,
+              tokens_bos: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The forward of make_eval_step, on the normaliser's device (the
+    model's): wav (B, T) float32, wav_lens (B,) int -> log-mel features,
+    normalised -> model -> ctc_log_probs, enc_lengths, enc_out; with a
+    decoder and tokens_bos (B, S) also the teacher-forced seq_log_probs
+    (no target padding mask). The model must be in eval mode."""
     dev = normalizer.mean.device
     fe = frontend
     wav_lens = wav_lens.to(dev)
@@ -54,7 +56,9 @@ def eval_step(model: ASRModel, frontend: FrontendConfig, normalizer: NormalizerS
         win_length_ms=fe.win_length_ms, hop_length_ms=fe.hop_length_ms,
     )
     flens = torch.clamp_max(wav_lens // fe.hop + 1, feats.shape[1])
-    return model(apply_normalizer(normalizer, feats), flens)
+    if tokens_bos is not None:
+        tokens_bos = tokens_bos.to(dev)
+    return model(apply_normalizer(normalizer, feats), flens, tokens_bos)
 
 
 class Recognizer:

@@ -1,21 +1,28 @@
-"""Train to floor: the port's whole CTC recipe drives test WER to ~0 on a
-learnable synthetic corpus (the port's copy of scripts/train_to_floor.py,
-CTC mode).
+"""Train to floor: the port's whole CTC or S2S recipe drives test WER to
+~0 on a learnable synthetic corpus (the port's copy of
+scripts/train_to_floor.py).
 
 Each letter of a small alphabet is a pure tone; utterances are words
 spelled from those letters with silent gaps, in LibriSpeech's layout.
 The tool builds that corpus, runs the port's CLI on it
 (`cli.run_training`: manifests, char tokenizer, bucketed loading, the
 training steps, top-k checkpoints, averaging, the CTC prefix beam
-search, the wer file) and checks the test WER against --target.
+search or the joint beam search, the wer file) and checks the test WER
+against --target.
 
-    python -m mamba_asr_torch.tools.train_to_floor [--epochs 60] [--target 2.0]
-        [--device cpu] [--workdir DIR] [--key value ...]
+    python -m mamba_asr_torch.tools.train_to_floor [--mode ctc|s2s]
+        [--epochs 60] [--target 2.0] [--s2s-config YAML] [--device cpu]
+        [--workdir DIR] [--key value ...]
 
-It runs on the CUDA card unless --device says otherwise. Unrecognised
-`--key value` pairs pass through as config overrides. Prints one
-`RESULT {...}` line and exits non-zero if the WER is above the target.
-`--mode s2s` is not ported and raises.
+Both modes share the JAX script's small fp32 model and the corpus's
+settings; S2S adds its decoder overrides (`s2s_overrides`) and trains 3x
+the epochs. The port's default S2S config is
+hparams/S2S/conmamba_small.yaml (the Transformer decoder): the JAX
+script's default, conmambamamba_small, needs the Mamba decoder, which is
+not ported: `ASRModel` refuses it (ROADMAP slice 3b item 3). It runs on the CUDA
+card unless --device says otherwise. Unrecognised `--key value` pairs
+pass through as config overrides. Prints one `RESULT {...}` line
+and exits non-zero if the WER is above the target.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from mamba_asr_torch.training.loop import Trainer
 
 REPO = Path(__file__).resolve().parents[2]
 CONFIG = "hparams/CTC/conmamba_small.yaml"
+S2S_CONFIG = "hparams/S2S/conmamba_small.yaml"
 LETTERS = "ABCDEF"
 WORDS = ["AB", "BA", "CAD", "DEC", "FAD", "BEEF", "CAFE", "DAB"]
 SR = 16000
@@ -112,15 +120,31 @@ def ctc_overrides(corpus: str, out: str, epochs: int) -> list:
     ]
 
 
+def s2s_overrides(epochs: int) -> list:
+    """The JAX script's S2S additions (scripts/train_to_floor.py:117-125):
+    a one-layer decoder of 2 heads, CTC weight 0.3, a validation search
+    at half the epochs with beam 4, and test beam 8."""
+    return [
+        "--model.nhead", "2",
+        "--model.num_decoder_layers", "1",
+        "--train.ctc_weight", "0.3",
+        "--decode.valid_search_interval", str(max(epochs // 2, 1)),
+        "--decode.valid_beam_size", "4",
+        "--decode.s2s_test_beam_size", "8",
+    ]
+
+
 def run_mode(mode: str, corpus: str, out: str, epochs: int, extra: Sequence[str] = (),
-             device: Optional[str] = None) -> Tuple[dict, Trainer]:
+             device: Optional[str] = None, s2s_config: str = S2S_CONFIG
+             ) -> Tuple[dict, Trainer]:
     """Run the port's CLI on the corpus: (the test summary as a dict, the
-    trainer that ran)."""
-    if mode != "ctc":
-        raise NotImplementedError(
-            "--mode s2s: S2S training is not ported (ROADMAP slice 3b item 2)")
-    argv = [str(REPO / CONFIG), *ctc_overrides(corpus, os.path.join(out, mode), epochs),
-            *extra]
+    trainer that ran). `epochs` is the mode's own (main triples it for
+    S2S)."""
+    overrides = ctc_overrides(corpus, os.path.join(out, mode), epochs)
+    if mode == "s2s":
+        argv = [str(REPO / s2s_config), *overrides, *s2s_overrides(epochs), *extra]
+    else:
+        argv = [str(REPO / CONFIG), *overrides, *extra]
     if device is not None:
         argv += ["--device", device]
     t0 = time.perf_counter()
@@ -143,13 +167,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--n-train", type=int, default=32)
     ap.add_argument("--n-dev", type=int, default=8)
     ap.add_argument("--n-test", type=int, default=8)
+    ap.add_argument("--s2s-config", default=S2S_CONFIG)
     args, extra = ap.parse_known_args(argv)
     work = args.workdir or tempfile.mkdtemp(prefix="train_to_floor_")
     corpus = os.path.join(work, "corpus")
     if not os.path.isdir(os.path.join(corpus, "train-clean-100")):
         build_corpus(corpus, n_train=args.n_train, n_dev=args.n_dev, n_test=args.n_test)
-    res, _ = run_mode(args.mode, corpus, os.path.join(work, "out"), args.epochs, extra,
-                      device=args.device)
+    # The joint objective needs ~3x the steps of pure CTC before the
+    # decoder's autoregressive path is reliable (the JAX script's rule).
+    epochs = args.epochs * (3 if args.mode == "s2s" else 1)
+    res, _ = run_mode(args.mode, corpus, os.path.join(work, "out"), epochs, extra,
+                      device=args.device, s2s_config=args.s2s_config)
     res["ok"] = res["test_wer"] <= args.target
     print("RESULT " + json.dumps(res), flush=True)
     return 0 if res["ok"] else 1

@@ -1,20 +1,30 @@
-"""The epoch loop of the CTC recipes (port of mamba_asr_tpu/training/
-loop.py:Trainer, CTC only, one device).
+"""The epoch loop of the recipes (port of mamba_asr_tpu/training/
+loop.py:Trainer, one device): CTC, and joint CTC/attention (S2S) when
+the config has a decoder.
 
 - Each training epoch runs the step `training.trainer.Trainer.train_step`
   over the loader's batches, with the normaliser updated while
   epoch <= train.normalizer_update_epochs. The losses stay on the device
   until the epoch ends and are read once then; steps.jsonl gets a line
   every 50 steps (that line reads the loss and grad norm).
-- Each epoch validates by greedy CTC (WER and CER), writes a train_log.txt
-  row and saves a checkpoint kept among the best by WER.
+- Each epoch validates: greedy-CTC WER and CER; for S2S also the token
+  accuracy (ACC) of the teacher-forced decoder, and every
+  `decode.valid_search_interval` epochs the joint beam search
+  (`valid_beam_size`) in place of greedy CTC for WER and CER. It writes a
+  train_log.txt row and saves a checkpoint kept among the best by WER
+  (CTC) or by ACC (S2S).
 - `init_state` resumes from the training checkpoint of the highest epoch.
 - `evaluate` averages the best checkpoints' parameters, decodes a test
-  set (with `ctc_decoder`, the CTC prefix beam search, or greedily), saves
-  the averaged model as `averaged_<split>` and writes `wer_<split>.txt`.
+  set (with `ctc_decoder`, the CTC prefix beam search; `s2s_decoder`, the
+  joint beam search at `s2s_test_beam_size`; or greedily), saves the
+  averaged model as `averaged_<split>` and writes `wer_<split>.txt`.
 
-Configurations with a decoder (S2S training) raise until ROADMAP slice
-3b item 2; `train.use_wandb` raises (no network on the card machine).
+A decoder hook takes the model it decodes with: the S2S hook builds its
+searcher at each call, so a bf16 searcher's cast copy of the decode
+weights (`decoding/s2s_beam.py:cast_decode_weights`) is always the
+current epoch's, or the averaged model's. No LM is fused (no YAML sets
+one; `cli.run_training` refuses `decode.lm_path`). `train.use_wandb`
+raises (no network on the card machine).
 """
 
 from __future__ import annotations
@@ -31,22 +41,26 @@ from mamba_asr_torch.configs.loader import ExperimentConfig
 from mamba_asr_torch.data.dataset import BucketedLoader, prefetch_iterator
 from mamba_asr_torch.decoding.ctc_beam import ctc_beam_search
 from mamba_asr_torch.decoding.ctc_greedy import ctc_greedy_decode, tokens_to_lists
+from mamba_asr_torch.decoding.s2s_beam import S2SBeamSearcher, strip_special
 from mamba_asr_torch.models.asr import ASRModel
 from mamba_asr_torch.serving.recognizer import eval_step
 from mamba_asr_torch.training.checkpoint import CheckpointManager
 from mamba_asr_torch.training.logger import FileTrainLogger, JsonlLogger
-from mamba_asr_torch.training.metrics import ErrorRateStats
+from mamba_asr_torch.training.metrics import AccuracyStats, ErrorRateStats
 from mamba_asr_torch.training.normalizer import NormalizerState
 from mamba_asr_torch.training.trainer import Trainer as StepTrainer
 
 STEP_KEYS = ("wav", "wav_lens", "tokens", "token_lens", "weight")
-Decoder = Callable[[Dict[str, np.ndarray], Dict[str, torch.Tensor]], List[List[int]]]
+S2S_KEYS = ("tokens_bos", "tokens_eos", "eos_lens")
+# decode(model, batch, eval_step's outputs) -> token ids per row
+Decoder = Callable[[ASRModel, Dict[str, np.ndarray], Dict[str, torch.Tensor]],
+                   List[List[int]]]
 
 
 class Trainer:
-    """Trains, validates, checkpoints and evaluates one CTC experiment.
+    """Trains, validates, checkpoints and evaluates one experiment.
 
-    cfg: the whole experiment config; tokenizer: the char tokenizer;
+    cfg: the whole experiment config; tokenizer: its tokenizer;
     device: None means the CUDA card (raises without one), "cpu" the plain
     versions; state_dict: initial weights in the port's names (None:
     seeded from cfg.seed, as the JAX package seeds its init).
@@ -55,9 +69,6 @@ class Trainer:
     def __init__(self, cfg: ExperimentConfig, tokenizer,
                  device: Optional[Union[str, torch.device]] = None,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None):
-        if cfg.model.num_decoder_layers > 0:
-            raise NotImplementedError(
-                "training with a decoder (S2S) is not ported (ROADMAP slice 3b item 2)")
         if cfg.train.use_wandb:
             raise NotImplementedError("train.use_wandb: the wandb logger is not ported")
         self.cfg = cfg
@@ -66,6 +77,9 @@ class Trainer:
                                 dataclasses.replace(cfg.train, seed=cfg.seed),
                                 cfg.specaug, state_dict=state_dict, device=device)
         self.device = self.step.device
+        self.is_s2s = cfg.model.num_decoder_layers > 0
+        self.metric_key = "ACC" if self.is_s2s else "WER"
+        self.step_keys = STEP_KEYS + (S2S_KEYS if self.is_s2s else ())
         out_dir = cfg.output_folder
         self.ckpt = CheckpointManager(os.path.join(out_dir, "save"),
                                       keep=cfg.train.keep_checkpoints)
@@ -127,7 +141,8 @@ class Trainer:
         losses, samples = [], 0
         for i, batch in enumerate(prefetch_iterator(loader.epoch(epoch),
                                                     size=self.cfg.data.prefetch_batches)):
-            m = self.step.train_step({k: batch[k] for k in STEP_KEYS}, update_norm=update_norm)
+            m = self.step.train_step({k: batch[k] for k in self.step_keys},
+                                     update_norm=update_norm)
             losses.append(m["loss"])
             samples += int(batch["wav_lens"][batch["weight"] > 0].sum())
             if i % 50 == 0:
@@ -147,13 +162,15 @@ class Trainer:
             train_sec = time.time() - t0
             train_stats = {"loss": float(np.mean(losses)) if losses else 0.0}
             self.loss_history.extend(losses)
-            valid_stats = self.validate(valid_loader) if valid_loader is not None else {}
+            valid_stats = self.validate(valid_loader, epoch) if valid_loader is not None else {}
             meta = {"epoch": epoch, "steps": self.micro_steps,
                     "epoch_sec": round(time.time() - t0, 1)}
             self.logger.log_stats(meta, train_stats=train_stats, valid_stats=valid_stats)
             if valid_stats:
+                rank = "max_keys" if self.is_s2s else "min_keys"
                 self.ckpt.save({**self.state(), "epoch": epoch},
-                               metrics={**valid_stats, "epoch": epoch}, min_keys=("WER",))
+                               metrics={**valid_stats, "epoch": epoch},
+                               **{rank: (self.metric_key,)})
             self.epoch_log.append({
                 **meta, "epoch_sec": time.time() - t0, "train_sec": train_sec,
                 "train_audio_s": audio_s, "train": train_stats, "valid": valid_stats})
@@ -161,40 +178,59 @@ class Trainer:
     # -- validation and test --------------------------------------------------
 
     def _decode_set(self, model: ASRModel, normalizer: NormalizerState,
-                    loader: BucketedLoader, decoder: Optional[Decoder]):
+                    loader: BucketedLoader, decoder: Optional[Decoder],
+                    accuracy: Optional[AccuracyStats] = None):
         """(WER stats, CER stats) of the model over the loader's epoch 0;
-        greedy CTC unless a decoder is given. Pad rows are left out."""
+        greedy CTC unless a decoder is given. Pad rows are left out. With
+        `accuracy`, the teacher-forced decoder's token accuracy is added
+        to it."""
         wer, cer = ErrorRateStats(), ErrorRateStats(split_tokens=True)
         was_training = model.training
         model.eval()
         for batch in prefetch_iterator(loader.epoch(0), size=self.cfg.data.prefetch_batches):
+            bos = None if accuracy is None else torch.from_numpy(batch["tokens_bos"])
             out = eval_step(model, self.cfg.frontend, normalizer,
-                            torch.from_numpy(batch["wav"]), torch.from_numpy(batch["wav_lens"]))
+                            torch.from_numpy(batch["wav"]), torch.from_numpy(batch["wav_lens"]),
+                            bos)
             real = int(batch["weight"].sum())
             if decoder is None:
                 toks, lens = ctc_greedy_decode(out["ctc_log_probs"], out["enc_lengths"])
                 hyp_ids = tokens_to_lists(toks.cpu().numpy(), lens.cpu().numpy())
             else:
-                hyp_ids = decoder(batch, out)
+                hyp_ids = decoder(model, batch, out)
             hyps = [self.tokenizer.decode(t) for t in hyp_ids][:real]
             refs = [self.tokenizer.decode(list(batch["tokens"][i, :batch["token_lens"][i]]))
                     for i in range(real)]
             wer.append(batch["ids"][:real], hyps, refs)
             cer.append(batch["ids"][:real], hyps, refs)
+            if accuracy is not None:
+                accuracy.append(out["seq_log_probs"], batch["tokens_eos"], batch["eos_lens"],
+                                batch["weight"])
         model.train(was_training)
         return wer, cer
 
-    def validate(self, loader: BucketedLoader) -> Dict[str, float]:
-        """Greedy-CTC WER and CER of the current model."""
-        wer, cer = self._decode_set(self.step.model, self.step.normalizer, loader, None)
-        return {"WER": wer.summarize()["WER"], "CER": cer.summarize()["WER"]}
+    def validate(self, loader: BucketedLoader, epoch: int = 1) -> Dict[str, float]:
+        """WER and CER of the current model by greedy CTC; for S2S also
+        ACC, and WER and CER by the joint beam search when epoch is a
+        multiple of decode.valid_search_interval."""
+        decoder, acc = None, None
+        if self.is_s2s:
+            acc = AccuracyStats()
+            if epoch % self.cfg.decode.valid_search_interval == 0:
+                decoder = self.s2s_decoder(test=False)
+        wer, cer = self._decode_set(self.step.model, self.step.normalizer, loader, decoder,
+                                    acc)
+        stats = {"WER": wer.summarize()["WER"], "CER": cer.summarize()["WER"]}
+        if acc is not None:
+            stats["ACC"] = acc.summarize()
+        return stats
 
     def ctc_decoder(self) -> Decoder:
         """The CTC recipes' test decoder: the prefix beam search with the
         decode stanza's beam (100) and pruning, on the model's device."""
         d = self.cfg.decode
 
-        def decode(batch, out):
+        def decode(model, batch, out):
             toks, lens = ctc_beam_search(
                 out["ctc_log_probs"], out["enc_lengths"], beam_size=d.test_beam_size,
                 blank_id=d.blank_index, beam_prune_logp=d.beam_prune_logp,
@@ -203,16 +239,43 @@ class Trainer:
 
         return decode
 
+    def make_s2s_searcher(self, model: ASRModel, test: bool = True) -> S2SBeamSearcher:
+        """A joint beam searcher over `model` per the decode stanza: beam
+        s2s_test_beam_size (test) or valid_beam_size (validation), CTC
+        weight ctc_weight_decode, ctc_candidates, temperature, length
+        normalization and the decode ratios; no LM. Its decode weights are
+        cast from the model's as they are now."""
+        d = self.cfg.decode
+        return S2SBeamSearcher(
+            model, beam_size=d.s2s_test_beam_size if test else d.valid_beam_size,
+            ctc_weight=d.ctc_weight_decode, ctc_candidates=d.ctc_candidates,
+            temperature=d.temperature, length_normalization=d.length_normalization,
+            max_decode_ratio=d.max_decode_ratio, min_decode_ratio=d.min_decode_ratio)
+
+    def s2s_decoder(self, test: bool = True) -> Decoder:
+        """The S2S recipes' decoder hook: the joint beam search (test or
+        validation settings), its searcher built anew at each call from the
+        model it is given; hypotheses up to eos."""
+
+        def decode(model, batch, out):
+            searcher = self.make_s2s_searcher(model, test)
+            toks, lens, _ = searcher(out["enc_out"], out["enc_lengths"], out["ctc_log_probs"])
+            return strip_special(toks.cpu().numpy(), lens.cpu().numpy(), searcher.eos_id)
+
+        return decode
+
     def evaluate(self, loader: BucketedLoader, test_name: str = "test",
                  decoder: Optional[Decoder] = None) -> Dict[str, float]:
         """Decode a test set with the average of the train.avg_checkpoints
-        best checkpoints (by WER; the current model when there is none);
+        best checkpoints (by WER, or ACC for S2S; the current model when
+        there is none);
         the optimizer and normaliser are the best checkpoint's. Saves that
         state as `averaged_<test_name>` and writes the per-utterance
         alignments to wer_<test_name>.txt."""
         model, normalizer = self.step.model, self.step.normalizer
+        rank = "max_key" if self.is_s2s else "min_key"
         restored = self.ckpt.restore_averaged(k=self.cfg.train.avg_checkpoints,
-                                              min_key="WER")
+                                              **{rank: self.metric_key})
         if restored is None:
             state = self.state()
         else:

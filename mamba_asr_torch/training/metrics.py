@@ -1,11 +1,13 @@
-"""Word and character error rates (port of mamba_asr_tpu/training/
-metrics.py: edit_distance_counts, align_tokens, ErrorRateStats).
+"""Word and character error rates and token accuracy (port of
+mamba_asr_tpu/training/metrics.py: edit_distance_counts, align_tokens,
+ErrorRateStats, AccuracyStats).
 
 The edit distance is a pure-Python DP, the JAX package's own oracle; the
 JAX package's C++ version breaks ties the same way (substitution, then
 insertion, then deletion), so the counts agree. It is host code, run
-once per utterance at validation and test. Token accuracy
-(AccuracyStats) comes with S2S training.
+once per utterance at validation and test. `AccuracyStats` (the S2S
+recipes' validation ACC) takes the argmax where the log-probs lie, so
+only (B, S) ids leave the card.
 """
 
 from __future__ import annotations
@@ -131,3 +133,30 @@ class ErrorRateStats:
             f.write(" ; ".join(ref_row) + "\n")
             f.write(" ; ".join(op_row) + "\n")
             f.write(" ; ".join(hyp_row) + "\n")
+
+
+@dataclasses.dataclass
+class AccuracyStats:
+    """Token accuracy of argmax(p_seq) against the targets over valid
+    positions."""
+
+    correct: float = 0.0
+    total: float = 0.0
+
+    def append(self, log_probs, targets: np.ndarray, lengths: Optional[np.ndarray] = None,
+               weight: Optional[np.ndarray] = None) -> None:
+        """log_probs (B, S, V), a numpy array or a tensor on any device;
+        targets (B, S); lengths (B,) valid counts; weight (B,) 0/1 rows."""
+        pred = log_probs.argmax(-1)
+        if not isinstance(pred, np.ndarray):
+            pred = pred.cpu().numpy()
+        b, s = targets.shape
+        valid = (np.arange(s)[None, :] < lengths[:, None] if lengths is not None
+                 else np.ones((b, s), bool))
+        if weight is not None:
+            valid = valid & (weight[:, None] > 0)
+        self.correct += float(((pred == targets) & valid).sum())
+        self.total += float(valid.sum())
+
+    def summarize(self) -> float:
+        return self.correct / max(self.total, 1.0)

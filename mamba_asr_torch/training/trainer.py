@@ -1,20 +1,21 @@
-"""The CTC training step (port of mamba_asr_tpu/training/trainer.py:
+"""The training step (port of mamba_asr_tpu/training/trainer.py:
 make_train_step and init_train_state, without the sequence- and
 pipeline-parallel branches).
 
-    fbank -> masked normaliser update -> normalise -> SpecAugment ->
-    model in train mode (dropout) -> CTC loss (batchmean, weights) ->
+    fbank -> masked normaliser update -> normalise -> SpecAugment (time
+    warp, time and frequency drops) -> model in train mode (dropout) ->
+    CTC loss (batchmean, weights); with a decoder also the teacher-forced
+    KL loss, joined as ctc_weight * CTC + (1 - ctc_weight) * KL ->
     backward (the scan's adjoint is K2 on the card) -> running-mean
     accumulation over k micro-steps -> clip 5.0 -> AdamW with Noam
 
 `Trainer` holds the model, the optimizer and the normaliser on its
-device; `train_step(batch)` takes one micro-step. Random bits: dropout
-draws from torch's default generator for the device, SpecAugment from
+device; `train_step(batch)` takes one micro-step (the eval form is
+`serving.recognizer.eval_step`). Random bits: dropout draws from torch's
+default generator for the device, SpecAugment (the warp's draws too) from
 the Trainer's own `torch.Generator`; both are seeded from
-`TrainConfig.seed`. They are not the JAX package's bits.
-
-The data pipeline, checkpoints, the epoch loop and the CLI wait for
-slice 2b (ROADMAP).
+`TrainConfig.seed`. They are not the JAX package's bits. The epoch loop
+(`training/loop.py`) drives it.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from mamba_asr_torch.training.normalizer import (
     init_normalizer,
     update_normalizer,
 )
+from mamba_asr_torch.training.losses import joint_ctc_attention_loss, kldiv_loss
 from mamba_asr_torch.training.optim import global_norm, make_optimizer
 from mamba_asr_torch.utils.device import resolve_device
 
@@ -41,9 +43,9 @@ from mamba_asr_torch.utils.device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class SpecAugmentConfig:
     """hparams/CTC/conmamba_large.yaml:273-320 (a copy of the JAX package's
-    SpecAugmentConfig, so every YAML loads). The port runs the time and
-    frequency drops; the warps and the Augmenter's concat/repeat modes
-    wait for the S2S slice and raise."""
+    SpecAugmentConfig, so every YAML loads). The port runs the time warps
+    and the time and frequency drops; the Augmenter's concat/repeat modes
+    are not ported and raise (ROADMAP slice 2b item 2)."""
 
     enabled: bool = True
     num_time_drops: int = 4
@@ -61,8 +63,8 @@ class SpecAugmentConfig:
 class TrainConfig:
     """A copy of the JAX package's TrainConfig. `rng_impl`, `use_wandb`
     and `wandb_project` change nothing here; `ctc_weight` and
-    `label_smoothing` act only with a decoder (not ported: ASRModel
-    raises); dynamic-chunk training is not ported and raises."""
+    `label_smoothing` act only with a decoder; dynamic-chunk training is
+    not ported and raises (ROADMAP slice 2b item 2)."""
 
     lr: float = 1e-3
     warmup_steps: int = 7500
@@ -88,13 +90,16 @@ class TrainConfig:
 
 def _refuse_unported(train: TrainConfig, specaug: SpecAugmentConfig) -> None:
     if train.dynchunk_size is not None:
-        raise NotImplementedError("dynamic-chunk training is not ported")
+        raise NotImplementedError(
+            "dynamic-chunk training is not ported (ROADMAP slice 2b item 2)")
     if specaug.enabled and (specaug.concat_original or specaug.repeat_augment > 1):
-        raise NotImplementedError("the Augmenter's concat/repeat modes are not ported")
+        raise NotImplementedError(
+            "the Augmenter's concat/repeat modes are not ported (ROADMAP slice 2b item 2)")
 
 
 class Trainer:
-    """One ConMamba CTC model in training on its device.
+    """One ConMamba model (CTC, or CTC + Transformer decoder) in training
+    on its device.
 
     cfg, frontend, train, specaug: the YAML's `model`, `frontend`, `train`
     and `specaug` stanzas (`configs.loader.load_config`). state_dict: the
@@ -130,7 +135,7 @@ class Trainer:
         else:
             self.normalizer = NormalizerState.from_arrays(*normalizer, device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(train.seed + 1)
-        self.frontend, self.specaug = frontend, specaug
+        self.frontend, self.specaug, self.train = frontend, specaug, train
 
     def rng_state(self) -> Dict[str, torch.Tensor]:
         """The random state of the dropout masks (the device's default
@@ -162,12 +167,14 @@ class Trainer:
     def train_step(self, batch: Mapping[str, object], update_norm: bool = True
                    ) -> Dict[str, torch.Tensor]:
         """One micro-step on batch = {wav (B, T) float32, wav_lens (B,),
-        tokens (B, S), token_lens (B,), weight (B,)} (arrays or tensors).
-        update_norm: merge this batch into the normaliser's statistics
-        first (the JAX loop does while epoch <= normalizer_update_epochs).
-        Returns 0-d tensors on the device: loss, loss_ctc, grad_norm (the
-        global norm of this micro-step's gradients) and updated (whether
-        the parameters changed)."""
+        tokens (B, S), token_lens (B,), weight (B,)}, with a decoder also
+        tokens_bos, tokens_eos (B, S+1) and eos_lens (B,) (arrays or
+        tensors). update_norm: merge this batch into the normaliser's
+        statistics first (the JAX loop does while epoch <=
+        normalizer_update_epochs). Returns 0-d tensors on the device:
+        loss, loss_ctc (and loss_att with a decoder), grad_norm (the global
+        norm of this micro-step's gradients) and updated (whether the
+        parameters changed)."""
         dev = self.device
         b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         weight = b["weight"].float()
@@ -191,14 +198,24 @@ class Trainer:
                     time_warp_mode=sa.time_warp_mode,
                 )
         self.model.train()
-        out = self.model(feats, flens)
+        use_decoder = self.model.has_decoder
+        out = self.model(feats, flens, b["tokens_bos"] if use_decoder else None)
         loss_ctc = ctc_loss(out["ctc_log_probs"], b["tokens"], out["enc_lengths"],
                             b["token_lens"], reduction="batchmean", weight=weight)
-        loss = loss_ctc
+        metrics = {"loss_ctc": loss_ctc}
+        if use_decoder:
+            loss_att = kldiv_loss(out["seq_log_probs"], b["tokens_eos"], b["eos_lens"],
+                                  label_smoothing=self.train.label_smoothing,
+                                  reduction="batchmean", weight=weight)
+            loss = joint_ctc_attention_loss(loss_ctc, loss_att, self.train.ctc_weight)
+            metrics["loss_att"] = loss_att
+        else:
+            loss = loss_ctc
         self.model.zero_grad(set_to_none=True)
         loss.backward()
         grad_norm = global_norm([p.grad for p in self.optimizer.params
                                  if p.grad is not None]).float()
         updated = self.optimizer.step()
-        return {"loss": loss.detach(), "loss_ctc": loss_ctc.detach(),
-                "grad_norm": grad_norm, "updated": torch.tensor(updated)}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return {"loss": loss.detach(), **metrics, "grad_norm": grad_norm,
+                "updated": torch.tensor(updated)}

@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import os
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -118,10 +119,13 @@ def test_char_tokenizer_matches_jax(tmp_path, vocab_size):
     assert jax_tok.load_tokenizer(str(tmp_path / "a.json")).id_to_tok == ours.id_to_tok
 
 
-def test_subword_tokenizer_files_are_refused(tmp_path):
+def test_subword_tokenizer_files_are_refused(tmp_path, monkeypatch):
+    """A subword tokenizer's file is refused only where the `tokenizers`
+    package does not import."""
     path = tmp_path / "tok.json"
     path.write_text('{"version": "1.0", "model": {"type": "BPE"}}')
-    with pytest.raises(NotImplementedError, match="subword"):
+    monkeypatch.setitem(sys.modules, "tokenizers", None)
+    with pytest.raises(RuntimeError, match="tokenizers"):
         tokenizer.load_tokenizer(str(path))
 
 

@@ -223,8 +223,9 @@ def test_spec_augment_draws_bounded_spans():
         assert 1 <= len(t_spans) <= 4 and sum(t_spans) <= 4 * 20
         assert 1 <= len(f_spans) <= 2 and sum(f_spans) <= 2 * 10
         assert max(f_spans) <= 2 * 10
-    with pytest.raises(NotImplementedError):
-        augment.spec_augment(feats, gen, apply_time_warp=True)
+    warped = augment.spec_augment(feats, gen, num_time_drops=0, num_freq_drops=0,
+                                  apply_time_warp=True)
+    assert warped.shape == feats.shape and not torch.equal(warped, feats)
 
 
 def test_dropout_train_and_eval():
