@@ -134,9 +134,37 @@ exits non-zero; it prints no result without a CUDA card):
              ACC and the newest); the last validation search against a
              fresh searcher on the same weights; one more epoch profiled;
              then the CLI again with one more epoch, which must resume
-  s2s_train_to_floor  mamba_asr_torch.tools.train_to_floor --mode s2s at
-             its defaults (the JAX script's S2S settings, 180 epochs):
-             test WER <= 2.0 %
+  s2s_train_to_floor  mamba_asr_torch.tools.train_to_floor --mode s2s with
+             --s2s-config hparams/S2S/conmamba_small.yaml (the Transformer
+             decoder; the JAX script's S2S settings, 180 epochs): test WER
+             <= 2.0 %
+  mamba_dec_kernels  the Mamba decoder's scans (hparams/S2S/
+             conmambamamba_small.yaml) against their plain versions: K1's
+             h_last form at the search's prime (N 528 = B8 x beam 66, L751,
+             D288, bf16), K1's training form and K2 at B32 L81 (self-Mamba)
+             and L707 (cross-Mamba over 626 memory frames and the targets,
+             dout zero over the memory; du there held on its own scale);
+             times, plain times and bounds
+  mamba_dec_parity  the full-width ConMambaMamba-Small in fp32 (TF32 and
+             cuDNN off, B2 x 4 s), card against CPU: teacher-forced seq
+             log-probs, the primed cross-Mamba states (4 K1 launches) and 8
+             decode steps through shuffled reorders; one S2S train step's
+             losses and gradients, held as in s2s_train_parity
+  mamba_dec_recognize  Recognizer(search="s2s") with the YAML's decode
+             stanza (beam 66) answers 3 requests of 3-30 s; S2S RTFx at B8
+             x 30 s (median of 5 searches), K1 and K3 launches per search,
+             one profiled search
+  mamba_dec_train  Trainer(device="cuda") with the Mamba YAML's settings
+             (bf16, dropout 0.1, bicubic warp, accumulation 8, vocab 5000)
+             on B32 x 25 s, 60 to 80 random targets: 8 checked micro-steps
+             (K1 train and K2 32 each), audio-s per s (median of 3 blocks),
+             peak memory, one profiled micro-step
+  mamba_dec_recipe  as s2s_recipe, on hparams/S2S/conmambamamba_small.yaml
+             for MAMBA_RECIPE_EPOCHS epochs (K4 must not launch)
+  mamba_dec_train_to_floor  tools.train_to_floor --mode s2s at its default
+             config (the Mamba decoder) on 160 / 16 / 16 tone utterances,
+             --epochs 50 (150, the JAX regime proof's settings): test WER
+             <= 2.0 %
 
 Each phase also prints its wall seconds. Then the kernels line, the
 card's name and power limit, and last
@@ -193,22 +221,46 @@ GRAD_NAMES = ("u", "delta", "A", "B", "C", "D", "z", "delta_bias", "h0")
 # of its largest value.
 CUDNN_FAULT_RATIO = 10.0
 CUDNN_FAULT_FRAC = 1e-3
-# The CTC recipe: its epochs at full width on the tone corpus, the best
+# The CTC recipe: its epochs at full width on the tone corpus (40 until
+# the Mamba decoder's phases joined the script; 10 keeps the whole run
+# well inside its time limit), the best
 # beam totals card vs CPU (float32 logaddexp chains over 751 frames in two
 # libraries), the speed perturbation's C++ against numpy in float64
 # (float32 output rounding) and the train-to-floor target (% WER, the JAX
 # script's --target).
-RECIPE_EPOCHS = 40
+RECIPE_EPOCHS = 10
 BEAM_TOL = 1e-3
 RESAMPLE_TOL = 2e-6
 FLOOR_TARGET = 2.0
 # The S2S recipe: the warp's fixed draws in s2s_train_parity (centre and
-# target frame of 401), the full-width recipe's epochs and validation
-# search interval, the train-to-floor tool's --epochs (S2S trains 3x).
+# target frame of 401), the full-width recipes' epochs (the Transformer
+# decoder's cut from 20 to 10 when the Mamba decoder's joined the script,
+# which runs 20) and validation search interval, the train-to-floor
+# tool's --epochs (S2S trains 3x).
 S2S_WARP_DRAWS = (200, 197)
-S2S_RECIPE_EPOCHS = 20
+S2S_RECIPE_EPOCHS = 10
+MAMBA_RECIPE_EPOCHS = 20
 S2S_SEARCH_INTERVAL = 10
 FLOOR_EPOCHS = 60
+# The Mamba decoder (ConMambaMamba-Small): the search's batch and beam
+# (K1's h_last form primes N = 8 x 66 rows), the decoder's training
+# lengths at B32 x 25 s (S 81 targets with bos; the cross-Mamba scans the
+# 626 memory frames and them), and the floor run of the JAX regime proof
+# (scripts/falsify_s2s_residual.py --part b: 160 / 16 / 16 utterances,
+# 150 epochs = 3 x 50).
+MAMBA_CONFIG = "hparams/S2S/conmambamamba_small.yaml"
+MAMBA_SEARCH = (8, 66)
+MAMBA_TRAIN_S = 81
+MAMBA_FLOOR_EPOCHS = 50
+MAMBA_FLOOR_CORPUS = (160, 16, 16)
+
+
+def scans_per_step(cfg) -> int:
+    """Selective scans of one forward (K1) or backward (K2): two per
+    bidirectional encoder layer, and with the Mamba decoder two per decoder
+    layer (self- and cross-Mamba)."""
+    mamba = cfg.num_decoder_layers if cfg.decoder_module == "mamba" else 0
+    return 2 * (cfg.num_encoder_layers + mamba)
 
 
 def emit(obj) -> None:
@@ -976,7 +1028,7 @@ def against_float64(name, exp, spec, cfg32, state, batch, runs):
         losses, grads, sides = step_grads(exp, spec, cfg32, state, batch, dev)
         if dev == "cuda":
             torch.cuda.synchronize()
-            want = (2 * cfg32.num_encoder_layers,) * 2
+            want = (scans_per_step(cfg32),) * 2
             if (kernel.LAUNCHES, kernel.BWD_LAUNCHES) != want:
                 raise AssertionError(f"{name} {label} launched K1, K2 "
                                      f"{(kernel.LAUNCHES, kernel.BWD_LAUNCHES)} times, want {want}")
@@ -1923,7 +1975,7 @@ def phase_s2s_train(s2s, state):
     return launches
 
 
-def s2s_recipe_args(corpus, out, epochs):
+def s2s_recipe_args(corpus, out, epochs, config=S2S_CONFIG):
     """The S2S CLI's arguments for the full-width recipe: the YAML's model
     with train_to_floor's data and training overrides (not its model
     ones), and the validation search every S2S_SEARCH_INTERVAL epochs."""
@@ -1931,7 +1983,7 @@ def s2s_recipe_args(corpus, out, epochs):
 
     flat = ctc_overrides(corpus, out, epochs)
     pairs = [flat[i:i + 2] for i in range(0, len(flat), 2)]
-    return [S2S_CONFIG] + [a for key, value in pairs
+    return [config] + [a for key, value in pairs
                            if not key.startswith(("--model.", "--frontend.")) for a in (key, value)] + [
         "--decode.valid_search_interval", str(S2S_SEARCH_INTERVAL)]
 
@@ -1952,6 +2004,13 @@ def s2s_launch_counters():
 
 
 def phase_s2s_recipe(work, corpus):
+    return s2s_recipe("s2s_recipe", S2S_CONFIG, S2S_RECIPE_EPOCHS, work, corpus)
+
+
+def s2s_recipe(name, config, epochs, work, corpus):
+    """The S2S recipe at full width on `config` (either decoder) for
+    `epochs` epochs: the checks and the JSON line of phases s2s_recipe and
+    mamba_dec_recipe."""
     from mamba_asr_torch import cli
     from mamba_asr_torch.decoding.s2s_beam import S2SBeamSearcher, strip_special
     from mamba_asr_torch.training import loop
@@ -1978,13 +2037,13 @@ def phase_s2s_recipe(work, corpus):
             return record
 
     reset, read = s2s_launch_counters()
-    out = os.path.join(work, "s2s_recipe")
+    out = os.path.join(work, name)
     saved = cli.Trainer
     cli.Trainer = Recording
     try:
         reset()
         t0 = time.perf_counter()
-        tr = cli.run_training(s2s_recipe_args(corpus, out, S2S_RECIPE_EPOCHS))
+        tr = cli.run_training(s2s_recipe_args(corpus, out, epochs, config))
         wall = time.perf_counter() - t0
         launches = read()
     finally:
@@ -1993,31 +2052,33 @@ def phase_s2s_recipe(work, corpus):
     if (cfg.model.d_model, cfg.model.num_encoder_layers, cfg.model.num_decoder_layers,
             cfg.model.d_ffn, cfg.model.nhead, cfg.model.compute_dtype, cfg.model.vocab_size) \
             != (144, 12, 4, 1024, 4, "bfloat16", 5000) or d.s2s_test_beam_size != 66:
-        raise AssertionError("s2s_recipe: not the YAML's full-width model and test beam")
-    if launches["K2"] != 2 * cfg.model.num_encoder_layers * tr.micro_steps or \
-            launches["K1"] <= launches["K2"] or not launches["K3"] or not launches["K4"]:
-        raise AssertionError(f"s2s_recipe: launches {launches} for {tr.micro_steps} steps")
+        raise AssertionError(f"{name}: not the YAML's full-width model and test beam")
+    # K4 runs the Transformer decoder's attention: the Mamba decoder has none.
+    k4_ok = (launches["K4"] == 0) == (cfg.model.decoder_module == "mamba")
+    if launches["K2"] != scans_per_step(cfg.model) * tr.micro_steps or \
+            launches["K1"] <= launches["K2"] or not launches["K3"] or not k4_ok:
+        raise AssertionError(f"{name}: launches {launches} for {tr.micro_steps} steps")
     rows = epoch_rows(tr)
-    if [r["epoch"] for r in rows] != list(range(1, S2S_RECIPE_EPOCHS + 1)):
-        raise AssertionError(f"s2s_recipe: epochs {[r['epoch'] for r in rows]}")
+    if [r["epoch"] for r in rows] != list(range(1, epochs + 1)):
+        raise AssertionError(f"{name}: epochs {[r['epoch'] for r in rows]}")
     if not all(np.isfinite(r["loss"]) for r in rows):
-        raise AssertionError("s2s_recipe: a non-finite training loss")
+        raise AssertionError(f"{name}: a non-finite training loss")
     accs = {e["epoch"]: e["valid"]["ACC"] for e in tr.epoch_log}
 
     # The ACC-ranked keep set: the best keep_checkpoints and the newest.
     kept = sorted(e["metrics"]["epoch"] for e in tr.ckpt._entries())
-    keep, newest = min(cfg.train.keep_checkpoints, len(accs)), S2S_RECIPE_EPOCHS
+    keep, newest = min(cfg.train.keep_checkpoints, len(accs)), epochs
     ranked = kept if len(kept) == keep else [e for e in kept if e != newest]
     if newest not in kept or len(ranked) != keep or \
             sorted(accs[e] for e in ranked) != sorted(accs.values())[-keep:]:
-        raise AssertionError(f"s2s_recipe: kept epochs {kept}, ACC {accs}")
+        raise AssertionError(f"{name}: kept epochs {kept}, ACC {accs}")
     if "averaged_test-clean" not in {e["name"] for e in tr.ckpt._entries(include_averaged=True)}:
-        raise AssertionError("s2s_recipe: no averaged_test-clean checkpoint")
+        raise AssertionError(f"{name}: no averaged_test-clean checkpoint")
 
-    # Epoch 20's validation search decoded with epoch 20's weights.
+    # The last epoch's validation search decoded with that epoch's weights.
     rec = tr.last_search
-    if rec is None or rec["epoch"] != S2S_RECIPE_EPOCHS:
-        raise AssertionError(f"s2s_recipe: last validation search {rec and rec['epoch']}")
+    if rec is None or rec["epoch"] != epochs:
+        raise AssertionError(f"{name}: last validation search {rec and rec['epoch']}")
     model = tr.step.model.eval()
     fresh = S2SBeamSearcher(
         model, beam_size=d.valid_beam_size, ctc_weight=d.ctc_weight_decode,
@@ -2027,32 +2088,32 @@ def phase_s2s_recipe(work, corpus):
     o = rec["out"]
     toks, lens, _ = fresh(o["enc_out"], o["enc_lengths"], o["ctc_log_probs"])
     if strip_special(toks.cpu().numpy(), lens.cpu().numpy()) != rec["hyps"]:
-        raise AssertionError("s2s_recipe: epoch 20's validation search is not a fresh "
-                             "searcher's on epoch 20's weights")
+        raise AssertionError(f"{name}: epoch {epochs}'s validation search is not a fresh "
+                             "searcher's on that epoch's weights")
     model.train()
 
     steps_saved = tr.micro_steps
     train_csv = os.path.join(cfg.output_folder, "manifests", cfg.data.train_csv)
     loader = cli.train_loader(cfg, train_csv, tr.tokenizer)
     wall_ms, device_ms, top = device_profile(
-        lambda: tr.train_epoch(loader, S2S_RECIPE_EPOCHS + 1), 10)
+        lambda: tr.train_epoch(loader, epochs + 1), 10)
 
     reset()
-    again = cli.run_training(s2s_recipe_args(corpus, out, S2S_RECIPE_EPOCHS + 1))
+    again = cli.run_training(s2s_recipe_args(corpus, out, epochs + 1, config))
     resume_launches = read()
-    if again.start_epoch != S2S_RECIPE_EPOCHS + 1 or \
-            [e["epoch"] for e in again.epoch_log] != [S2S_RECIPE_EPOCHS + 1]:
-        raise AssertionError(f"s2s_recipe: did not resume from epoch {S2S_RECIPE_EPOCHS}")
+    if again.start_epoch != epochs + 1 or \
+            [e["epoch"] for e in again.epoch_log] != [epochs + 1]:
+        raise AssertionError(f"{name}: did not resume from epoch {epochs}")
     if again.micro_steps <= steps_saved:
-        raise AssertionError("s2s_recipe: the resumed run trained no step")
-    emit({"phase": "s2s_recipe", "config": S2S_CONFIG, "d_model": cfg.model.d_model,
+        raise AssertionError(f"{name}: the resumed run trained no step")
+    emit({"phase": name, "config": config, "d_model": cfg.model.d_model,
           "layers": [cfg.model.num_encoder_layers, cfg.model.num_decoder_layers],
           "vocab": cfg.model.vocab_size, "compute_dtype": cfg.model.compute_dtype,
           "tokenizer": tr.tokenizer.vocab_size, "epochs": rows, "valid_acc": accs,
-          "last_valid_acc": accs[S2S_RECIPE_EPOCHS], "test": tr.test_stats["test-clean"],
+          "last_valid_acc": accs[epochs], "test": tr.test_stats["test-clean"],
           "wall_s": wall, "micro_steps": steps_saved, "kept_epochs": kept,
           "search_interval": S2S_SEARCH_INTERVAL, "valid_beam": d.valid_beam_size,
-          "test_beam": d.s2s_test_beam_size, "epoch20_search_equals_fresh": True,
+          "test_beam": d.s2s_test_beam_size, "last_search_equals_fresh": True,
           "loop_audio_s_per_s": audio_rate(rows),
           "loop_audio_s_per_s_after_epoch_1": audio_rate(rows[1:]),
           "launches": launches,
@@ -2070,14 +2131,17 @@ def phase_s2s_train_to_floor(work, corpus):
     reset, read = s2s_launch_counters()
     reset()
     epochs = 3 * FLOOR_EPOCHS  # the tool's S2S rule
-    res, tr = train_to_floor.run_mode("s2s", corpus, os.path.join(work, "floor"), epochs)
+    # The Transformer decoder: the tool's default S2S config is the Mamba
+    # decoder's (phase mamba_dec_train_to_floor).
+    res, tr = train_to_floor.run_mode("s2s", corpus, os.path.join(work, "floor"), epochs,
+                                      s2s_config=S2S_CONFIG)
     launches = read()
     if launches["K2"] != 2 * tr.cfg.model.num_encoder_layers * tr.micro_steps or \
             not launches["K3"] or not launches["K4"]:
         raise AssertionError(f"s2s_train_to_floor: launches {launches}")
     rows = epoch_rows(tr)
     result = {"phase": "s2s_train_to_floor", **res, "target": FLOOR_TARGET,
-              "config": train_to_floor.S2S_CONFIG, "test": tr.test_stats["test-clean"],
+              "config": S2S_CONFIG, "test": tr.test_stats["test-clean"],
               "launches": launches, "epoch_s": [r["epoch_s"] for r in rows],
               "valid": {e["epoch"]: e["valid"] for e in tr.epoch_log
                         if e["epoch"] % (epochs // 2) == 0 or e["epoch"] % 30 == 0},
@@ -2086,6 +2150,360 @@ def phase_s2s_train_to_floor(work, corpus):
     emit(result)
     if not res["test_wer"] <= FLOOR_TARGET:
         raise AssertionError(f"s2s_train_to_floor: test WER {res['test_wer']} > {FLOOR_TARGET}")
+
+
+# -- The Mamba decoder (ConMambaMamba-Small) ------------------------------------
+
+
+def phase_mamba_dec_kernels(mcfg, clock_hz, sms):
+    """K1's h_last form at the search's prime (N 528 L751), and K1's
+    training form + K2 at the decoder's training lengths (self-Mamba L81,
+    cross-Mamba L707 with dout zero over the 626 memory frames), each
+    against its plain version; times and bounds."""
+    from mamba_asr_torch.kernels import selective_scan as kernel
+    from mamba_asr_torch.ops.selective_scan import selective_scan_bwd_ref, selective_scan_ref
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    d_inner, n = mcfg.mamba.expand * mcfg.d_model, mcfg.mamba.d_state
+    frames = -(-(int(TRAIN_SECONDS * 100) + 1) // mcfg.downsample)  # 626
+    rows = MAMBA_SEARCH[0] * MAMBA_SEARCH[1]
+    prime = scan_inputs(rows, 751, d_inner, n, torch.bfloat16, gen)
+    out, h_last = kernel.selective_scan_fwd(**prime, delta_softplus=True,
+                                            return_last_state=True)
+    torch.cuda.synchronize()
+    ref, h_ref = selective_scan_ref(**prime, delta_softplus=True, return_last_state=True)
+    prime_bound = scan_bound_ms(dict(prime, h_last=h_last), clock_hz, sms)
+    result = {"phase": "mamba_dec_kernels", "prime": {
+        "shape": [rows, 751, d_inner, n], "dtype": "bfloat16",
+        "max_abs_err": check_close("mamba prime out", out, ref, *BF16_TOL),
+        "h_last_max_abs_err": check_close("mamba prime h_last", h_last, h_ref, *FP32_TOL),
+        "tol": {"out": BF16_TOL, "h_last": FP32_TOL},
+        "ms": cuda_ms(lambda: kernel.selective_scan_fwd(
+            **prime, delta_softplus=True, return_last_state=True), 10),
+        "plain_ms": cuda_ms(lambda: selective_scan_ref(
+            **prime, delta_softplus=True, return_last_state=True), 1),
+        "bound_ms": prime_bound[0], "bound_by": prime_bound[1],
+        "gb": sum(t.numel() * t.element_size() for t in prime.values()
+                  if t is not None) / 1e9}}
+    del prime, out, h_last, ref, h_ref
+    launch = kernel._bwd_launcher()
+    for name, length, memory in (("self", MAMBA_TRAIN_S, 0),
+                                 ("cross", frames + MAMBA_TRAIN_S, frames)):
+        inp = scan_inputs(32, length, d_inner, n, torch.bfloat16, gen)
+        dout = torch.randn(32, length, d_inner, generator=gen).cuda().bfloat16()
+        dout[:, :memory] = 0.0  # the tail slice: no cotangent over the memory
+        out_inf = kernel.selective_scan_fwd(**inp, delta_softplus=True)
+        out, _, h_chunks = kernel.selective_scan_fwd_train(**inp, delta_softplus=True)
+        got = kernel.selective_scan_bwd(**inp, delta_softplus=True, h_chunks=h_chunks,
+                                        dout=dout)
+        torch.cuda.synchronize()
+        if not torch.equal(out, out_inf):
+            raise AssertionError(f"mamba {name}: K1's training form changed out")
+        states_err = check_close(f"mamba {name} chunk states", h_chunks,
+                                 plain_chunk_states(inp, kernel.CHUNK), *FP32_TOL)
+        plain = selective_scan_bwd_ref(*(inp[k] for k in GRAD_NAMES[:8]), True, None, dout)
+        worst, worst_abs = check_grads(f"mamba {name}", got, plain, *BWD_BF16_TOL)
+        case = {"shape": [32, length, d_inner, n], "dtype": "bfloat16",
+                "max_rel_err": worst, "max_abs_err": worst_abs,
+                "chunk_states_max_abs_err": states_err, "tol": BWD_BF16_TOL}
+        if memory:
+            # du over the memory frames: the decoder's only gradient into
+            # the encoder, held on its own scale.
+            du, du_ref = got[0][:, :memory], plain[0][:, :memory]
+            scale = du_ref.float().abs().max().item()
+            if not scale > 0:
+                raise AssertionError("mamba cross: du is zero over the memory")
+            case["memory_du"] = {"max_abs": scale, "max_abs_err": check_close(
+                "mamba cross du over the memory", du, du_ref,
+                BWD_BF16_TOL[1] * scale, BWD_BF16_TOL[0])}
+        c_args, _ = kernel.bwd_launch_args(kernel.BWD_CHANNELS, **inp, delta_softplus=True,
+                                           h_chunks=h_chunks, dout=dout)
+        fwd_bound = scan_bound_ms(dict(inp, h_chunks=h_chunks), clock_hz, sms)
+        bwd_bound = scan_bwd_bound_ms(dict(inp, dout=dout, h_chunks=h_chunks), clock_hz, sms)
+        case.update({
+            "fwd_train_ms": cuda_ms(lambda: kernel.selective_scan_fwd_train(
+                **inp, delta_softplus=True), 20),
+            "fwd_train_bound_ms": fwd_bound[0], "fwd_train_bound_by": fwd_bound[1],
+            "fwd_plain_ms": cuda_ms(lambda: selective_scan_ref(**inp, delta_softplus=True), 2),
+            "bwd_ms": cuda_ms(lambda: launch(*c_args), 20),
+            "bwd_wrapper_ms": cuda_ms(lambda: kernel.selective_scan_bwd(
+                **inp, delta_softplus=True, h_chunks=h_chunks, dout=dout), 20),
+            "bwd_bound_ms": bwd_bound[0], "bwd_bound_by": bwd_bound[1],
+            "bwd_plain_ms": cuda_ms(lambda: selective_scan_bwd_ref(
+                *(inp[k] for k in GRAD_NAMES[:8]), True, None, dout), 1)})
+        result[name] = case
+    emit(result)
+    return result
+
+
+def phase_mamba_dec_parity(m, state):
+    """The full-width ConMambaMamba-Small in fp32 (TF32 and cuDNN off), B2
+    x 4 s, card against CPU: teacher-forced seq log-probs, the primed
+    states and 8 decode steps through shuffled reorders; then one S2S
+    train step's losses and gradients, as s2s_train_parity holds them."""
+    from mamba_asr_torch.kernels import selective_scan as k1
+    from mamba_asr_torch.serving.recognizer import eval_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.enabled = False
+    cfg32 = dataclasses.replace(m.model, compute_dtype="float32")
+    beam, vocab = 10, m.model.vocab_size
+    n = 2 * beam
+    recs = {dev: s2s_recognizer(cfg32, m.frontend, state, dev, 2, beam)
+            for dev in ("cuda", "cpu")}
+    wav = np.zeros((2, 64000), np.float32)
+    wav[0] = noise(4.0, 31)
+    wav[1, :49600] = noise(3.1, 32)
+    wav_t, lens = torch.from_numpy(wav), torch.tensor([64000, 49600])
+    rng = np.random.default_rng(SEED + 6)
+    bos = torch.from_numpy(rng.integers(3, vocab, (2, 21))).long()
+    bos[:, 0] = 1
+    bos[1, 15:] = 0  # a padded target: scanned, as in the JAX package
+    seq = {}
+    with torch.no_grad():
+        for dev, rec in recs.items():
+            out = eval_step(rec.model, m.frontend, rec.normalizer, wav_t, lens, bos)
+            seq[dev] = out["seq_log_probs"].cpu()
+    seq_err = check_close("mamba_dec_parity seq_log_probs", seq["cuda"], seq["cpu"],
+                          S2S_PARITY_TOL, 0.0)
+    out = recs["cpu"].eval_step(wav_t, lens)
+    enc_rep = out["enc_out"].repeat_interleave(beam, dim=0)
+    toks = rng.integers(3, vocab, (8, n))
+    reorders = rng.integers(0, beam, (8, n)) + np.repeat(np.arange(2) * beam, beam)
+
+    def chain(rec):
+        model, dev = rec.model, rec.device
+        with torch.no_grad():
+            cache = model.prime_decoder_cache(enc_rep.to(dev), model.init_decoder_cache(n))
+            primed = [x.cpu() for layer in cache for x in layer["cross"]]
+            steps = []
+            for s in range(8):
+                logits, cache = model.decode_step(torch.from_numpy(toks[s]).to(dev), s, cache)
+                steps.append(torch.log_softmax(logits, -1).cpu())
+                cache = model.decoder.reorder_cache(cache, torch.from_numpy(reorders[s]).to(dev))
+        final = [x.cpu() for layer in cache for part in ("self", "cross") for x in layer[part]]
+        return primed, torch.stack(steps), final
+
+    k1.LAUNCHES = 0
+    card = chain(recs["cuda"])
+    torch.cuda.synchronize()
+    prime_launches = k1.LAUNCHES
+    if prime_launches != m.model.num_decoder_layers:
+        raise AssertionError(f"mamba_dec_parity: the prime launched K1 {prime_launches} times")
+    cpu = chain(recs["cpu"])
+    primed_err = max(check_close(f"mamba_dec_parity primed state {i}", g, r, S2S_PARITY_TOL,
+                                 S2S_PARITY_TOL) for i, (g, r) in enumerate(zip(card[0], cpu[0])))
+    step_err = check_close("mamba_dec_parity decode_step log-probs", card[1], cpu[1],
+                           S2S_PARITY_TOL, 0.0)
+    final_err = max(check_close(f"mamba_dec_parity state {i} after 8 steps", g, r,
+                                S2S_PARITY_TOL, S2S_PARITY_TOL)
+                    for i, (g, r) in enumerate(zip(card[2], cpu[2])))
+    del recs
+
+    spec = dataclasses.replace(m.specaug, num_time_drops=0, num_freq_drops=0)
+    if not (spec.enabled and spec.apply_time_warp and spec.time_warp_mode == "bicubic"):
+        raise AssertionError("mamba_dec_parity: the YAML's SpecAugment has no bicubic warp")
+    batch = s2s_batch(char_batch(2, 4.0, 20, 3, vocab))
+    runs = (("cpu", "cpu", True, False), ("cudnn_off", "cuda", False, False),
+            ("cudnn_on", "cuda", True, False))
+    train32 = dataclasses.replace(cfg32, dropout=0.0)
+    with fixed_warp():
+        loss64, res, against64 = against_float64("mamba_dec_parity", m, spec, train32, state,
+                                                 batch, runs)
+    loss_errs, worst, worst_name = card_vs_cpu("mamba_dec_parity", res["cudnn_off"], res["cpu"])
+    torch.backends.cudnn.enabled = True
+    torch.backends.cudnn.allow_tf32 = True  # back to PyTorch's defaults
+    emit({"phase": "mamba_dec_parity", "config": MAMBA_CONFIG, "batch": 2,
+          "seconds_each": [4.0, 3.1], "tol": S2S_PARITY_TOL,
+          "seq_log_probs_max_abs_err": seq_err, "primed_state_max_abs_err": primed_err,
+          "decode_step_max_abs_err": step_err, "state_after_8_steps_max_abs_err": final_err,
+          "prime_launches": prime_launches,
+          "train": {"losses_cuda": res["cudnn_off"]["losses"],
+                    "losses_cpu": res["cpu"]["losses"], "losses_float64": loss64,
+                    "loss_rel_errs": loss_errs, "params": len(res["cpu"]["grads"]),
+                    "grad_max_rel_err": worst, "grad_worst_param": worst_name,
+                    "against_float64": against64, "warp_draws": S2S_WARP_DRAWS,
+                    "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad": TRAIN_GRAD_TOL,
+                            "fault": {"ratio": CUDNN_FAULT_RATIO,
+                                      "frac": CUDNN_FAULT_FRAC}}}})
+
+
+def phase_mamba_dec_recognize(m, state):
+    """Recognizer(search="s2s") with the YAML's decode stanza: requests of
+    3 to 30 s at batch=1, then S2S RTFx at B8 x 30 s (median of 5
+    searches) and one profiled search."""
+    from mamba_asr_torch.kernels import beam_attention as k4
+    from mamba_asr_torch.kernels import ctc_dp as k3
+    from mamba_asr_torch.kernels import selective_scan as k1
+    from mamba_asr_torch.serving.recognizer import Recognizer
+
+    cfg, dec = m.model, m.decode
+    if dec.s2s_test_beam_size != MAMBA_SEARCH[1] or dec.lm_path:
+        raise AssertionError("mamba_dec_recognize: not the YAML's decode stanza")
+    per_forward = scans_per_step(dataclasses.replace(cfg, num_decoder_layers=0))
+    layers = cfg.num_decoder_layers
+    torch.cuda.reset_peak_memory_stats()
+    rec = Recognizer(cfg, m.frontend, state, device="cuda", batch=1, decode=dec, search="s2s")
+    requests = [noise(s, 50 + i) for i, s in enumerate((3.0, 12.25, 30.0))]
+    steps, ids = [], []
+    k1.LAUNCHES = k3.LAUNCHES = k4.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for wav in requests:
+        ids += rec.transcribe([wav])
+        steps.append(rec.searcher.last_steps)
+    seconds = time.perf_counter() - t0
+    launches = {"K1": k1.LAUNCHES, "K3": k3.LAUNCHES, "K4": k4.LAUNCHES}
+    if launches != {"K1": len(requests) * (per_forward + layers), "K3": sum(steps), "K4": 0}:
+        raise AssertionError(f"mamba_dec_recognize: launches {launches} for steps {steps}")
+
+    bsz = MAMBA_SEARCH[0]
+    rec8 = Recognizer(cfg, m.frontend, state, device="cuda", batch=bsz, decode=dec,
+                      search="s2s")
+    batch = [noise(30.0, 300 + i) for i in range(bsz)]
+    wav = torch.from_numpy(np.stack(batch))
+    lens = torch.full((bsz,), 480000, dtype=torch.int32)
+    out = rec8.eval_step(wav, lens)
+    toks, tlens, scores = rec8.searcher(out["enc_out"], out["enc_lengths"],
+                                        out["ctc_log_probs"])
+    s_max = min(256, out["ctc_log_probs"].shape[1] + 1)
+    if (tuple(toks.shape) != (bsz, s_max) or not torch.isfinite(scores).all()
+            or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size):
+        raise AssertionError(f"mamba_dec_recognize: bad search {tuple(toks.shape)}")
+    blocks, per_search = [], None
+    for i in range(5):
+        k1.LAUNCHES = k3.LAUNCHES = k4.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rec8.transcribe(batch)
+        blocks.append(bsz * 30.0 / (time.perf_counter() - t0))
+        if i == 0:
+            per_search = {"K1": k1.LAUNCHES, "K3": k3.LAUNCHES, "K4": k4.LAUNCHES,
+                          "steps": rec8.searcher.last_steps}
+    st = per_search["steps"]
+    if per_search != {"K1": per_forward + layers, "K3": st, "K4": 0, "steps": st}:
+        raise AssertionError(f"mamba_dec_recognize: launches per search {per_search}")
+    rtfx = statistics.median(blocks)
+    memory_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall_ms, device_ms, top = device_profile(lambda: rec8.decode_batch(wav, lens), 15,
+                                             ("scan_fwd", "ctc_dp_kernel"))
+    emit({"phase": "mamba_dec_recognize", "config": MAMBA_CONFIG, "beam": dec.s2s_test_beam_size,
+          "requests_s": [len(r) / 16000 for r in requests], "tokens": [len(x) for x in ids],
+          "steps": steps, "seconds": seconds, "launches": launches,
+          "throughput": {"batch": bsz, "seconds_each": 30.0, "rtfx": rtfx, "blocks": blocks,
+                         "spread_pct": 100.0 * (max(blocks) - min(blocks)) / rtfx,
+                         "compute_dtype": cfg.compute_dtype, "best_lengths": tlens.tolist(),
+                         "launches_per_search": per_search},
+          "max_memory_allocated_gb": memory_gb,
+          "profile": {"wall_ms": wall_ms, "device_kernel_ms": device_ms,
+                      "idle_share": 1.0 - device_ms / wall_ms,
+                      "K1_ms": sum(r["ms"] for r in top if "scan_fwd" in r["kernel"]),
+                      "K3_ms": sum(r["ms"] for r in top if "ctc_dp_kernel" in r["kernel"]),
+                      "top": top}})
+    return per_search
+
+
+def phase_mamba_dec_train(m, state):
+    """Trainer(device="cuda") with the Mamba YAML's settings on B32 x 25 s
+    with 60 to 80 random targets: 8 checked micro-steps, audio-s per s
+    (median of 3 blocks), peak memory, one profiled micro-step."""
+    from mamba_asr_torch.kernels import selective_scan as kernel
+    from mamba_asr_torch.training.trainer import Trainer
+
+    cfg, tc = m.model, m.train
+    if (cfg.decoder_module, cfg.compute_dtype, cfg.dropout, tc.grad_accumulation_factor,
+            tc.ctc_weight, cfg.vocab_size) != ("mamba", "bfloat16", 0.1, 8, 0.3, 5000):
+        raise AssertionError("mamba_dec_train: not the Mamba YAML's settings")
+    if not (m.specaug.enabled and m.specaug.apply_time_warp):
+        raise AssertionError("mamba_dec_train: the YAML's SpecAugment has no time warp")
+    per_step = scans_per_step(cfg)
+    tr = Trainer(cfg, m.frontend, tc, m.specaug, state_dict=state, device="cuda")
+    batch = s2s_train_batch(32, TRAIN_SECONDS, cfg.vocab_size, 6)
+    k = tc.grad_accumulation_factor
+    steps = []
+    kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+    for i in range(k):
+        before = [p.detach().clone() for p in tr.model.parameters()]
+        mt = tr.train_step(batch)
+        changed = sum(not torch.equal(a, p) for a, p in zip(before, tr.model.parameters()))
+        row = {key: mt[key].item() for key in ("loss", "loss_ctc", "loss_att", "grad_norm")}
+        if not all(np.isfinite(row[key]) for key in ("loss", "loss_ctc", "loss_att")):
+            raise AssertionError(f"mamba_dec_train micro-step {i}: {row}")
+        emit_step = i == k - 1
+        if bool(mt["updated"]) != emit_step or (changed > 0) != emit_step:
+            raise AssertionError(f"mamba_dec_train micro-step {i}: {changed} parameters "
+                                 f"changed, updated={bool(mt['updated'])}")
+        steps.append({**row, "params_changed": changed})
+    launches = {"K1": kernel.LAUNCHES, "K2": kernel.BWD_LAUNCHES}
+    if launches != {"K1": per_step * k, "K2": per_step * k}:
+        raise AssertionError(f"mamba_dec_train: {launches} scan launches in {k} micro-steps")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blocks = []
+    audio = float(batch["wav_lens"].sum()) / 16000
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            tr.train_step(batch)
+        torch.cuda.synchronize()
+        blocks.append(k * audio / (time.perf_counter() - t0))
+    rate = statistics.median(blocks)
+    memory_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall_ms, device_ms, top = device_profile(lambda: tr.train_step(batch), 15,
+                                             named=("scan_fwd", "scan_bwd"))
+    emit({"phase": "mamba_dec_train", "config": MAMBA_CONFIG, "batch": 32,
+          "seconds_each": TRAIN_SECONDS, "audio_s_per_step": audio,
+          "target_tokens": batch["token_lens"].tolist(), "micro_steps": steps,
+          "accumulation": k, "compute_dtype": cfg.compute_dtype, "dropout": cfg.dropout,
+          "launches_per_micro_step": {key: v // k for key, v in launches.items()},
+          "throughput": {"audio_s_per_s": rate, "blocks": blocks,
+                         "spread_pct": 100.0 * (max(blocks) - min(blocks)) / rate,
+                         "micro_steps_per_block": k},
+          "max_memory_allocated_gb": memory_gb,
+          "profile": {"wall_ms": wall_ms, "device_kernel_ms": device_ms,
+                      "idle_share": 1.0 - device_ms / wall_ms, "top": top}})
+    return launches
+
+
+def phase_mamba_dec_recipe(work, corpus):
+    return s2s_recipe("mamba_dec_recipe", MAMBA_CONFIG, MAMBA_RECIPE_EPOCHS, work, corpus)
+
+
+def phase_mamba_dec_train_to_floor(work):
+    """tools.train_to_floor --mode s2s at its default config (the Mamba
+    decoder) on the JAX regime proof's corpus: 160 / 16 / 16 utterances,
+    --epochs 50 (150), test WER <= 2.0 %."""
+    from mamba_asr_torch.tools import train_to_floor
+
+    corpus = os.path.join(work, "corpus160")
+    n_train, n_dev, n_test = MAMBA_FLOOR_CORPUS
+    train_to_floor.build_corpus(corpus, n_train=n_train, n_dev=n_dev, n_test=n_test)
+    reset, read = s2s_launch_counters()
+    reset()
+    epochs = 3 * MAMBA_FLOOR_EPOCHS  # the tool's S2S rule
+    res, tr = train_to_floor.run_mode("s2s", corpus, os.path.join(work, "floor160"), epochs)
+    launches = read()
+    model = tr.cfg.model
+    if model.decoder_module != "mamba" or train_to_floor.S2S_CONFIG != MAMBA_CONFIG:
+        raise AssertionError("mamba_dec_train_to_floor: the tool's default is not the Mamba "
+                             "decoder")
+    if launches["K2"] != scans_per_step(model) * tr.micro_steps or not launches["K3"] \
+            or launches["K4"]:
+        raise AssertionError(f"mamba_dec_train_to_floor: launches {launches}")
+    rows = epoch_rows(tr)
+    result = {"phase": "mamba_dec_train_to_floor", **res, "target": FLOOR_TARGET,
+              "config": MAMBA_CONFIG, "corpus": list(MAMBA_FLOOR_CORPUS),
+              "test": tr.test_stats["test-clean"], "launches": launches,
+              "epoch_s": [r["epoch_s"] for r in rows],
+              "valid": {e["epoch"]: e["valid"] for e in tr.epoch_log
+                        if e["epoch"] % (epochs // 2) == 0 or e["epoch"] % 30 == 0},
+              "loss": [r["loss"] for r in rows[::10]] + [rows[-1]["loss"]],
+              "train_audio_s_per_s": audio_rate(rows)}
+    emit(result)
+    if not res["test_wer"] <= FLOOR_TARGET:
+        raise AssertionError(f"mamba_dec_train_to_floor: test WER {res['test_wer']} > "
+                             f"{FLOOR_TARGET}")
+    return launches
 
 
 def main() -> int:
@@ -2128,6 +2546,14 @@ def main() -> int:
     del rec8, s2s_batch
     timed(phase_s2s_train_parity, s2s, s2s_state)
     s2s_train_launches = timed(phase_s2s_train, s2s, s2s_state)
+    del s2s_state
+    mam = load_config(MAMBA_CONFIG)
+    mk = timed(phase_mamba_dec_kernels, mam.model, clock_hz, sms)
+    mam_state = seeded_state(mam.model)
+    timed(phase_mamba_dec_parity, mam, mam_state)
+    mam_search = timed(phase_mamba_dec_recognize, mam, mam_state)
+    mam_train_launches = timed(phase_mamba_dec_train, mam, mam_state)
+    del mam_state
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         corpus = timed(phase_data, work)
@@ -2137,6 +2563,8 @@ def main() -> int:
         timed(phase_bf16, floor)
         s2s_recipe_launches = timed(phase_s2s_recipe, work, corpus)
         timed(phase_s2s_train_to_floor, work, corpus)
+        mam_recipe_launches = timed(phase_mamba_dec_recipe, work, corpus)
+        mam_floor_launches = timed(phase_mamba_dec_train_to_floor, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2152,6 +2580,11 @@ def main() -> int:
         "bound_measured_ms": k["bound_measured_ms"],
         "recipe_launches": recipe_launches["K1"],
         "s2s_recipe_launches": s2s_recipe_launches["K1"],
+        "mamba_dec_launches_per_search": mam_search["K1"],
+        "mamba_dec_recipe_launches": mam_recipe_launches["K1"],
+        "mamba_dec_floor_launches": mam_floor_launches["K1"],
+        "mamba_dec_prime": {key: mk["prime"][key] for key in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
     }, {
         "name": "selective_scan_fwd_train", "route": "cuda",
         "source": "mamba_asr_torch/csrc/selective_scan_fwd.cu",
@@ -2161,6 +2594,12 @@ def main() -> int:
         "ms": fwd_train["kernel_ms"], "plain_ms": k["plain_ms"],
         "bound_ms": fwd_train["bound_ms"], "bound_by": fwd_train["bound_by"],
         "library_ms": None, "s2s_train_launches": s2s_train_launches["K1"],
+        "mamba_dec_train_launches": mam_train_launches["K1"],
+        "mamba_dec": {name: {"shape": mk[name]["shape"], "ms": mk[name]["fwd_train_ms"],
+                             "plain_ms": mk[name]["fwd_plain_ms"],
+                             "bound_ms": mk[name]["fwd_train_bound_ms"],
+                             "max_abs_err": mk[name]["chunk_states_max_abs_err"]}
+                      for name in ("self", "cross")},
     }, {
         "name": "selective_scan_bwd", "route": "cuda",
         "source": "mamba_asr_torch/csrc/selective_scan_bwd.cu",
@@ -2171,6 +2610,14 @@ def main() -> int:
         "recipe_launches": recipe_launches["K2"],
         "s2s_train_launches": s2s_train_launches["K2"],
         "s2s_recipe_launches": s2s_recipe_launches["K2"],
+        "mamba_dec_train_launches": mam_train_launches["K2"],
+        "mamba_dec_recipe_launches": mam_recipe_launches["K2"],
+        "mamba_dec_floor_launches": mam_floor_launches["K2"],
+        "mamba_dec": {name: {"shape": mk[name]["shape"], "ms": mk[name]["bwd_ms"],
+                             "plain_ms": mk[name]["bwd_plain_ms"],
+                             "bound_ms": mk[name]["bwd_bound_ms"],
+                             "max_abs_err": mk[name]["max_abs_err"]}
+                      for name in ("self", "cross")},
     }, {
         "name": "ctc_dp", "route": "cuda", "source": "mamba_asr_torch/csrc/ctc_dp.cu",
         "replaces": "mamba_asr_tpu/ops/pallas/log_scan.py:75",
@@ -2179,6 +2626,8 @@ def main() -> int:
         "ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": None,
         "s2s_recipe_launches": s2s_recipe_launches["K3"],
+        "mamba_dec_launches_per_search": mam_search["K3"],
+        "mamba_dec_recipe_launches": mam_recipe_launches["K3"],
     }, {
         "name": "beam_attention", "route": "cuda",
         "source": "mamba_asr_torch/csrc/beam_attention.cu",

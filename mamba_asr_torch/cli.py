@@ -7,6 +7,9 @@ joint CTC/attention (S2S) recipe when the config has a decoder.
     python -m mamba_asr_torch.train_s2s hparams/S2S/conmamba_small.yaml \\
         --data.data_folder /path/to/LibriSpeech [--device cpu] [--key value ...]
 
+The S2S recipe takes either decoder: conmamba_small.yaml (Transformer) or
+conmambamamba_small.yaml (Mamba).
+
 Prepare the manifests -> fit (or load) the tokenizer (char, or bpe /
 unigram through the `tokenizers` package) -> bucketed loaders (speed
 perturbation on the training set) -> `loop.Trainer.fit` with validation

@@ -1,6 +1,7 @@
-"""Joint CTC/attention beam search over the Transformer decoder (port of
-mamba_asr_tpu/decoding/s2s_beam.py, its path with the cached decoder and
-the ancestor table; SpeechBrain's S2STransformerBeamSearcher).
+"""Joint CTC/attention beam search over the Transformer or the Mamba
+decoder (port of mamba_asr_tpu/decoding/s2s_beam.py, its path with the
+cached decoder and, for the Transformer, the ancestor table;
+SpeechBrain's S2STransformerBeamSearcher).
 
 Each step, for N = B * beam hypotheses:
 
@@ -23,6 +24,11 @@ Each step, for N = B * beam hypotheses:
   selection the table's columns follow the chosen parents, one (S, N)
   int32 gather. The cache length is s_max + 1 rounded up to 64, as in the
   JAX package. The cross K/V are projected once per search.
+- The Mamba decoder's cache is a (conv, ssm) state per Mamba block and
+  hypothesis: every layer's cross-Mamba is primed once per search from
+  the memory repeated to N rows (K1's h_last form on the card), and
+  after each step's selection every state is gathered by `reorder`, one
+  `index_select` each (`s2s_beam.py:411-417`).
 - `stable_topk` ranks equal values lower index first, as jax.lax.top_k
   does; ties are real (a dead beam's candidates all sum to exactly
   -1e30 at step 0, finished rows give planes of NEG_INF).
@@ -30,7 +36,9 @@ Each step, for N = B * beam hypotheses:
   bf16 once, when the searcher is built, in a copy of those two
   submodules; the encoder and the float32 heads stay shared with the
   model (the JAX package's cast at `s2s_beam.py:143-173`, there once per
-  search). Build a new searcher after changing the decoder's weights.
+  search). Every floating parameter of the two is cast, the Mamba
+  decoder's A_log, D, dt bias and conv taps too, as `cast_tree` does.
+  Build a new searcher after changing the decoder's weights.
 
 The JAX search is one `lax.while_loop` on the device. Here the loop runs
 on the host: each step's kernels are launched from Python, and the early
@@ -90,7 +98,7 @@ def cast_decode_weights(model):
 
 @dataclasses.dataclass
 class S2SBeamSearcher:
-    """Beam search over an ASRModel's Transformer decoder."""
+    """Beam search over an ASRModel's Transformer or Mamba decoder."""
 
     model: object               # models.asr.ASRModel with a decoder
     beam_size: int = 10
@@ -111,10 +119,10 @@ class S2SBeamSearcher:
             raise NotImplementedError(
                 "LM shallow fusion is not ported: it comes with ROADMAP slice 3b")
         cfg = self.model.cfg
-        if cfg.num_decoder_layers <= 0 or cfg.decoder_module != "transformer":
+        if cfg.num_decoder_layers <= 0 or cfg.decoder_module not in ("transformer", "mamba"):
             raise NotImplementedError(
-                "the S2S search runs the Transformer decoder only; the Mamba "
-                "and Conformer decoders come with ROADMAP slice 3b")
+                "the S2S search runs the Transformer and Mamba decoders; the "
+                "Conformer decoder comes with ROADMAP slice 3b item 5")
         self.decode_model = cast_decode_weights(self.model)
         self.last_steps = 0  # steps the last search ran
 
@@ -132,17 +140,22 @@ class S2SBeamSearcher:
         dev = enc_out.device
         s_max = min(self.max_steps_cap, int(self.max_decode_ratio * t_enc) + 1)
         min_steps = int(self.min_decode_ratio * t_enc)
-        s_cache = -(-(s_max + 1) // ANC_CHUNK) * ANC_CHUNK
+        mamba = model.mamba_decoder
 
         scorer = state = None
         if self.ctc_weight > 0.0 and ctc_log_probs is not None:
             scorer = CTCPrefixScorer(ctc_log_probs, enc_lens, k, self.blank_id, eos)
             state = scorer.init_state()
-        cache = model.prime_decoder_cache(
-            enc_out, model.init_decoder_cache(n, s_cache), enc_lens.to(dev))
-
         rows = torch.arange(n, dtype=torch.int32, device=dev)
-        anc = rows.repeat(s_cache, 1)  # (S, N): anc[j, n] = row holding position j
+        anc = None
+        if mamba:
+            cache = model.prime_decoder_cache(enc_out.repeat_interleave(k, dim=0),
+                                              model.init_decoder_cache(n))
+        else:
+            s_cache = -(-(s_max + 1) // ANC_CHUNK) * ANC_CHUNK
+            cache = model.prime_decoder_cache(
+                enc_out, model.init_decoder_cache(n, s_cache), enc_lens.to(dev))
+            anc = rows.repeat(s_cache, 1)  # (S, N): anc[j, n] = row holding position j
         tokens = torch.zeros(n, s_max + 1, dtype=torch.long, device=dev)
         tokens[:, 0] = self.bos_id
         scores = torch.full((b, k), NEG_INF, device=dev)
@@ -157,7 +170,8 @@ class S2SBeamSearcher:
 
         s = 0
         while s < s_max and not bool(finished.all()):
-            anc[s] = rows
+            if anc is not None:
+                anc[s] = rows
             logits, cache = model.decode_step(tokens[:, s], s, cache, anc)
             total = torch.log_softmax(logits / self.temperature, dim=-1)
             aux = None
@@ -185,7 +199,10 @@ class S2SBeamSearcher:
             lengths = torch.where(was_finished, lengths[reorder], s + 1)
             if scorer is not None:
                 state = scorer.select(state, aux, tok, reorder)
-            anc = anc[:, reorder]
+            if mamba:
+                cache = model.decoder.reorder_cache(cache, reorder)
+            else:
+                anc = anc[:, reorder]
             s += 1
         self.last_steps = s
 

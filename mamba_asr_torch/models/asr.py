@@ -1,10 +1,11 @@
 """Top-level ASR model (port of mamba_asr_tpu/models/asr.py), ConMamba
-encoder with the CTC head and, for S2S configs, the Transformer decoder:
+encoder with the CTC head and, for S2S configs, the Transformer or the
+Mamba decoder (`decoder_module`):
 
     feats -> Conv2d front end -> flatten (B, T', F'*C) -> src_proj ->
     dropout -> ConMamba encoder -> ctc_head (float32) -> log_softmax
     tokens_bos -> NormalizedEmbedding + sinusoidal PE -> TransformerDecoder
-           -> seq_head (float32) -> log_softmax      (S2S configs)
+           or MambaDecoder -> seq_head (float32) -> log_softmax  (S2S configs)
 
 `forward(feats, lengths, tokens_bos)` is the JAX package's `__call__`
 (`asr.py:520-575`): with a decoder and tokens_bos it adds the teacher-
@@ -12,7 +13,9 @@ forced `seq_log_probs`. `cfg.dropout` applies in train() mode at the JAX
 package's places (models/layers.py, conmamba.py and transformer.py say
 which), and in train() mode the decoder's self-attention also masks the
 targets' padding (tokens == 0, `asr.py:419`); eval() has neither. The
-memory's padding mask applies in both.
+memory's padding mask applies in both. The Mamba decoder masks nothing
+(`asr.py:406`): it scans padded frames and targets, as the JAX package
+does.
 
 The module tree is the reference's saved ModuleList, so the state dict
 has the names that `export_asr_params` writes and `params_import`
@@ -21,19 +24,23 @@ produces: `0` the CNN front end, `1` the TransformerASR (its
 `custom_tgt_module` the embedding, `decoder` the decoder), then the
 heads: `2` the CTC head without a decoder; `2` the seq head and `3` the
 CTC head with one (`torch_export.py:296-310`). The other encoders and
-the Mamba and Conformer decoders wait for later slices.
+the Conformer decoder wait for later slices.
+
+The decode cache dispatches on the decoder: the Transformer's takes an
+s_max and an ancestor table (append-only K/V), the Mamba decoder's
+neither (a (conv, ssm) state per Mamba block, reordered by the search).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mamba_asr_torch.models.conmamba import ConmambaEncoder
+from mamba_asr_torch.models.conmamba import ConmambaEncoder, MambaDecoder
 from mamba_asr_torch.models.layers import (
     ConvolutionFrontEnd,
     SBLinear,
@@ -168,10 +175,16 @@ class _TransformerASR(nn.Module):
         )
         if cfg.num_decoder_layers > 0:
             self.custom_tgt_module = _TgtModule(cfg.vocab_size, cfg.d_model, cfg.dtype)
-            self.decoder = TransformerDecoder(
-                cfg.num_decoder_layers, cfg.d_model, cfg.d_ffn, cfg.nhead,
-                cfg.activation_fn(), cfg.dtype, cfg.dropout,
-            )
+            if cfg.decoder_module == "mamba":
+                self.decoder = MambaDecoder(
+                    cfg.num_decoder_layers, cfg.d_model, cfg.d_ffn,
+                    cfg.activation_fn(), cfg.mamba, cfg.dtype, cfg.dropout,
+                )
+            else:
+                self.decoder = TransformerDecoder(
+                    cfg.num_decoder_layers, cfg.d_model, cfg.d_ffn, cfg.nhead,
+                    cfg.activation_fn(), cfg.dtype, cfg.dropout,
+                )
 
 
 class ASRModel(nn.Module):
@@ -187,11 +200,11 @@ class ASRModel(nn.Module):
                 "encoder is ported; the others come with the slice that "
                 "ports the other encoders (ROADMAP Slice 4)"
             )
-        if cfg.num_decoder_layers > 0 and cfg.decoder_module != "transformer":
+        if cfg.num_decoder_layers > 0 and cfg.decoder_module not in ("transformer", "mamba"):
             raise NotImplementedError(
-                f"decoder_module={cfg.decoder_module!r}: only the Transformer "
-                "decoder is ported; the Mamba decoder comes with ROADMAP slice "
-                "3b item 3, the Conformer decoder with slice 3b item 5"
+                f"decoder_module={cfg.decoder_module!r}: the Transformer and "
+                "Mamba decoders are ported; the Conformer decoder comes with "
+                "ROADMAP slice 3b item 5"
             )
         if cfg.xavier_parity_init:
             raise NotImplementedError("xavier_parity_init is not ported")
@@ -239,8 +252,12 @@ class ASRModel(nn.Module):
         return self._modules["1"].custom_tgt_module.layers[0]
 
     @property
-    def decoder(self) -> TransformerDecoder:
+    def decoder(self) -> Union[TransformerDecoder, MambaDecoder]:
         return self._modules["1"].decoder
+
+    @property
+    def mamba_decoder(self) -> bool:
+        return self.has_decoder and self.cfg.decoder_module == "mamba"
 
     def encode(self, feats: torch.Tensor,
                feat_lengths: Optional[torch.Tensor] = None):
@@ -276,9 +293,13 @@ class ASRModel(nn.Module):
     def decode(self, tokens: torch.Tensor, enc_out: torch.Tensor,
                enc_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Teacher-forced: tokens (B, S) -> decoder states (B, S, d_model).
-        In train() mode the target's padding (tokens == 0) is masked too."""
+        In train() mode the Transformer decoder masks the target's padding
+        (tokens == 0) too; the Mamba decoder ignores enc_lengths and
+        padding."""
         s = tokens.shape[1]
         tgt = self.tgt_embed(tokens) + self.dec_pe[:s].to(self.cfg.dtype)
+        if self.mamba_decoder:
+            return self.decoder(tgt, enc_out)
         tgt_kpm = tokens == 0 if self.training else None
         mem_kpm = (None if enc_lengths is None
                    else lengths_to_padding_mask(enc_lengths, enc_out.shape[1]))
@@ -289,26 +310,39 @@ class ASRModel(nn.Module):
         """seq_head in float32 (its logits, before any softmax)."""
         return dense(dec.float(), self.seq_head, torch.float32)
 
-    def init_decoder_cache(self, n: int, s_max: int):
-        """Append-only self K/V buffers of length s_max for n hypotheses."""
-        return self.decoder.init_cache(n, s_max, self.cfg.d_model,
-                                       device=self.seq_head.weight.device)
+    def init_decoder_cache(self, n: int, s_max: Optional[int] = None):
+        """The decode cache of n hypotheses: for the Transformer decoder
+        append-only self K/V buffers of length s_max; for the Mamba decoder
+        zero (conv, ssm) states (no s_max)."""
+        device = self.seq_head.weight.device
+        if self.mamba_decoder:
+            return self.decoder.init_cache(n, device=device)
+        if s_max is None:
+            raise ValueError("the Transformer decoder's cache needs s_max")
+        return self.decoder.init_cache(n, s_max, self.cfg.d_model, device=device)
 
     def prime_decoder_cache(self, enc_out: torch.Tensor, cache,
                             enc_lengths: Optional[torch.Tensor] = None):
-        """Project enc_out (B, T, d_model) into every layer's cross K/V
-        once; the cache's hypotheses are the B utterances' beams, in
-        order."""
+        """Transformer: project enc_out (B, T, d_model) into every layer's
+        cross K/V once; the cache's hypotheses are the B utterances' beams,
+        in order. Mamba: scan enc_out (one row per hypothesis) into every
+        layer's cross-Mamba state; enc_lengths is not used."""
+        if self.mamba_decoder:
+            return self.decoder.prime_cache(enc_out, cache)
         mem_kpm = (None if enc_lengths is None
                    else lengths_to_padding_mask(enc_lengths, enc_out.shape[1]))
         return self.decoder.prime_cache(enc_out, cache, mem_kpm)
 
     def decode_step(self, token_t: torch.Tensor, pos: int, cache,
-                    anc: torch.Tensor):
+                    anc: Optional[torch.Tensor] = None):
         """One decode step: token_t (N,) at position `pos` -> (raw seq-head
-        logits (N, V) float32, cache)."""
+        logits (N, V) float32, cache). `anc`, the ancestor table, is the
+        Transformer decoder's alone."""
         tgt = self.tgt_embed(token_t) + self.dec_pe[pos].to(self.cfg.dtype)
-        dec, cache = self.decoder.step(tgt, pos, cache, anc)
+        if self.mamba_decoder:
+            dec, cache = self.decoder.step(tgt, cache)
+        else:
+            dec, cache = self.decoder.step(tgt, pos, cache, anc)
         return self.seq_logits(dec), cache
 
 
@@ -326,7 +360,7 @@ def init_params_(model: ASRModel, generator: torch.Generator) -> ASRModel:
     """Seeded weights with the JAX package's init rules: lecun-normal
     kernels, zero biases, unit LayerNorm scales, normal(stddev 1) token
     embeddings, and Mamba's S4D A_log, log-uniform dt bias, uniform
-    dt_proj and unit D."""
+    dt_proj and unit D (the encoder's and the Mamba decoder's blocks)."""
     for module in model.modules():
         for name, p in module.named_parameters(recurse=False):
             if isinstance(module, nn.Embedding):

@@ -10,10 +10,25 @@ hidden layer and the conv module (models/layers.py); the Mamba block has
 none (reference Conmamba.py:670). The padding mask is dropped, as the reference zeroes the conv mask.
 ConmambaEncoder: the layer stack (a ModuleList; the JAX package's
 `scan_layers` is a compile-time layout that the port does not need) and
-a final LN. The Mamba decoder waits for the S2S slice.
+a final LN.
+
+MambaDecoderLayer (reference Conmamba.py:854-934, always pre-LN and
+unidirectional), with dropout on the three residual branches in train()
+mode (and the FFN's hidden units):
+    x = x + self_mamba(LN1(x))
+    x = x + cross_mamba([memory; LN2(x)])[:, -S:]     # keep the tgt tail
+    x = x + ffn(LN3(x))
+MambaDecoder: the stack and a final LN. Neither masks anything: padded
+memory frames and padded targets are scanned, as in the JAX package, so
+a padded row's result depends on its batch. The decode cache:
+`init_cache`, `prime_cache` (every layer's cross-Mamba scans the same
+memory once), `step` (one token of every hypothesis) and
+`reorder_cache` (the search's gather).
 """
 
 from __future__ import annotations
+
+from typing import Dict, List
 
 import torch
 import torch.nn as nn
@@ -28,7 +43,7 @@ from mamba_asr_torch.models.layers import (
     make_layer_norm,
     swish,
 )
-from mamba_asr_torch.models.mamba import BiMambaBlock, MambaBlock, MambaConfig
+from mamba_asr_torch.models.mamba import BiMambaBlock, Cache, MambaBlock, MambaConfig
 
 FFN_RESIDUAL_SCALE = 0.5  # Conmamba.py ConMambaConstants.FFN_RESIDUAL_SCALE
 
@@ -93,3 +108,92 @@ class ConmambaEncoder(nn.Module):
         for layer in self.layers:
             out = layer(out)
         return layer_norm(out, self.norm.norm, self.dtype)
+
+
+LayerCache = Dict[str, Cache]  # {"self": (conv, ssm), "cross": (conv, ssm)}
+
+
+class MambaDecoderLayer(nn.Module):
+    """Reference keys: self_mamba, cross_mamba, pos_ffn, norm1..3."""
+
+    def __init__(self, d_model: int, d_ffn: int, activation: Activation = swish,
+                 mamba_cfg: MambaConfig = MambaConfig(),
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+        super().__init__()
+        self.self_mamba = MambaBlock(d_model, mamba_cfg, dtype)
+        self.cross_mamba = MambaBlock(d_model, mamba_cfg, dtype)
+        self.pos_ffn = PositionalwiseFeedForward(d_model, d_ffn, activation, dtype, dropout)
+        self.norm1 = SBLayerNorm(d_model)
+        self.norm2 = SBLayerNorm(d_model)
+        self.norm3 = SBLayerNorm(d_model)
+        self.dtype = dtype
+        self.dropout = dropout
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced: tgt (B, S, D), memory (B, T, D) -> (B, S, D)."""
+        dt, p, train = self.dtype, self.dropout, self.training
+        tgt = tgt + dropout(self.self_mamba(layer_norm(tgt, self.norm1.norm, dt)), p, train)
+        x = layer_norm(tgt, self.norm2.norm, dt)
+        cross = self.cross_mamba(torch.cat([memory, x], dim=1))[:, -x.shape[1]:]
+        tgt = tgt + dropout(cross, p, train)
+        x = layer_norm(tgt, self.norm3.norm, dt)
+        return tgt + dropout(self.pos_ffn(x), p, train)
+
+    def step(self, tgt_t: torch.Tensor, cache: LayerCache):
+        """One token: tgt_t (N, D) -> ((N, D), new cache)."""
+        dt = self.dtype
+        y, self_cache = self.self_mamba.step(layer_norm(tgt_t, self.norm1.norm, dt),
+                                             cache["self"])
+        tgt_t = tgt_t + y
+        y, cross_cache = self.cross_mamba.step(layer_norm(tgt_t, self.norm2.norm, dt),
+                                               cache["cross"])
+        tgt_t = tgt_t + y
+        tgt_t = tgt_t + self.pos_ffn(layer_norm(tgt_t, self.norm3.norm, dt))
+        return tgt_t, {"self": self_cache, "cross": cross_cache}
+
+
+class MambaDecoder(nn.Module):
+    def __init__(self, num_layers: int, d_model: int, d_ffn: int,
+                 activation: Activation = swish, mamba_cfg: MambaConfig = MambaConfig(),
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+        super().__init__()
+        self.layers = nn.ModuleList([
+            MambaDecoderLayer(d_model, d_ffn, activation, mamba_cfg, dtype, dropout)
+            for _ in range(num_layers)
+        ])
+        self.norm = SBLayerNorm(d_model)
+        self.dtype = dtype
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        out = tgt
+        for layer in self.layers:
+            out = layer(out, memory)
+        return layer_norm(out, self.norm.norm, self.dtype)
+
+    def init_cache(self, n: int, device=None) -> List[LayerCache]:
+        """Zero self and cross caches for n hypotheses, per layer."""
+        return [{"self": layer.self_mamba.init_cache(n, self.dtype, device),
+                 "cross": layer.cross_mamba.init_cache(n, self.dtype, device)}
+                for layer in self.layers]
+
+    def prime_cache(self, memory: torch.Tensor, cache: List[LayerCache]) -> List[LayerCache]:
+        """Every layer's cross-Mamba scans memory (N, T, D), one row per
+        hypothesis: its input is the memory itself, not the layer below."""
+        return [{"self": c["self"], "cross": layer.cross_mamba.prime(memory)}
+                for layer, c in zip(self.layers, cache)]
+
+    @staticmethod
+    def reorder_cache(cache: List[LayerCache], reorder: torch.Tensor) -> List[LayerCache]:
+        """Every state gathered by hypothesis: row i of the result is row
+        reorder[i] (the search's step, JAX `s2s_beam.py:411-417`)."""
+        return [{part: tuple(x.index_select(0, reorder) for x in states)
+                 for part, states in layer.items()} for layer in cache]
+
+    def step(self, tgt_t: torch.Tensor, cache: List[LayerCache]):
+        """One token of N hypotheses: tgt_t (N, D) -> ((N, D), new cache)."""
+        new = []
+        x = tgt_t
+        for layer, c in zip(self.layers, cache):
+            x, c = layer.step(x, c)
+            new.append(c)
+        return layer_norm(x, self.norm.norm, self.dtype), new

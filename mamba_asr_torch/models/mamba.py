@@ -12,22 +12,33 @@ mamba_asr_tpu/models/mamba.py).
 
 Parameter names are the reference's (`conv1d`, `x_proj`, `dt_proj`,
 `A_log`, `D`, and `conv1d_b`, `x_proj_b`, `dt_proj_b`, `A_b_log`, `D_b`).
-The O(1) `step`, `forward_chunk` and `prime` paths wait for the
-streaming and decoder slices.
+
+The decoder's cache (JAX `MambaBlock.init_cache`, `step`, `prime`):
+(conv_state (B, K, D) in the compute dtype, the last K raw inputs, newest
+last; ssm_state (B, D, N) float32). `prime` scans a context with the
+final state out (K1's h_last form on the card) and keeps its last K-1
+inputs; `step` advances one token in plain torch (`causal_conv1d_step`,
+`ssm_step`). Weights cast to bf16 (the search's decode weights) compute
+as they are: A = -exp(A_log) in A_log's dtype, as in the JAX package,
+and the scan is handed A, D and the dt bias as float32 tensors holding
+those values. `extend_prime` and `forward_chunk` wait for the streaming
+slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from mamba_asr_torch.models.layers import dense
-from mamba_asr_torch.ops.causal_conv1d import causal_conv1d
-from mamba_asr_torch.ops.selective_scan import selective_scan
+from mamba_asr_torch.ops.causal_conv1d import causal_conv1d, causal_conv1d_step
+from mamba_asr_torch.ops.selective_scan import selective_scan, ssm_step
+
+Cache = Tuple[torch.Tensor, torch.Tensor]  # (conv_state, ssm_state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,22 +114,46 @@ class _ScanHead:
     d_state: int
     dtype: torch.dtype
 
-    def __call__(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        # Taps (D, 1, K) -> the op's (K, D).
-        x = causal_conv1d(x, self.conv1d.weight[:, 0, :].t(), self.conv1d.bias)
+    @property
+    def taps(self) -> torch.Tensor:
+        """The conv's taps (D, 1, K) as the op's (K, D)."""
+        return self.conv1d.weight[:, 0, :].t()
+
+    def _dt_bc(self, x: torch.Tensor):
         dt_rank = self.dt_proj.weight.shape[1]
         x_dbl = dense(x, self.x_proj, self.dtype)
         dt, b_mat, c_mat = torch.split(
             x_dbl, [dt_rank, self.d_state, self.d_state], dim=-1
         )
-        delta = dt @ self.dt_proj.weight.t().to(dt.dtype)
+        return dt @ self.dt_proj.weight.t().to(dt.dtype), b_mat, c_mat
+
+    def _a_d_bias(self):
+        """A = -exp(A_log) in A_log's dtype, then A, D and the dt bias as
+        float32 (the values themselves when the weights are float32)."""
+        return (-torch.exp(self.A_log)).float(), self.D.float(), self.dt_proj.bias.float()
+
+    def __call__(self, x: torch.Tensor, z: torch.Tensor,
+                 return_last_state: bool = False):
+        x = causal_conv1d(x, self.taps, self.conv1d.bias)
+        delta, b_mat, c_mat = self._dt_bc(x)
+        a, d, bias = self._a_d_bias()
         # softplus(delta + dt_bias) runs inside the scan op, on the
         # compute-dtype delta (mamba_asr_tpu/models/mamba.py:191-196).
         return selective_scan(
-            x, delta, -torch.exp(self.A_log.float()), b_mat.contiguous(),
-            c_mat.contiguous(), D=self.D, z=z.contiguous(),
-            delta_bias=self.dt_proj.bias, delta_softplus=True,
+            x, delta, a, b_mat.contiguous(), c_mat.contiguous(), D=d,
+            z=z.contiguous(), delta_bias=bias, delta_softplus=True,
+            return_last_state=return_last_state,
         )
+
+    def step(self, x_t: torch.Tensor, z_t: torch.Tensor, cache: Cache):
+        """One token: x_t, z_t (B, d_inner) -> (y_t, new cache)."""
+        conv_state, ssm_state = cache
+        x_c, conv_state = causal_conv1d_step(conv_state, x_t, self.taps, self.conv1d.bias)
+        delta, b_mat, c_mat = self._dt_bc(x_c)
+        a, d, bias = self._a_d_bias()
+        y, ssm_state = ssm_step(ssm_state, x_c, delta, a, b_mat, c_mat, D=d, z=z_t,
+                                delta_bias=bias, delta_softplus=True)
+        return y, (conv_state, ssm_state)
 
 
 def _add_scan_params(block: nn.Module, d_inner: int, dt_rank: int,
@@ -158,6 +193,32 @@ class MambaBlock(nn.Module):
         """x: (B, L, d_model) -> (B, L, d_model)."""
         x_in, z = dense(x, self.in_proj, self.dtype).chunk(2, dim=-1)
         return dense(_head(self, "")(x_in, z), self.out_proj, self.dtype)
+
+    def init_cache(self, batch: int, dtype: torch.dtype = torch.float32,
+                   device=None) -> Cache:
+        """Zero (conv_state (B, K, d_inner) in dtype, ssm_state (B,
+        d_inner, N) float32)."""
+        return (torch.zeros(batch, self.cfg.d_conv, self.d_inner, dtype=dtype, device=device),
+                torch.zeros(batch, self.d_inner, self.cfg.d_state, device=device))
+
+    def step(self, x_t: torch.Tensor, cache: Cache):
+        """One token: x_t (B, d_model) -> ((B, d_model), new cache)."""
+        x_in, z = dense(x_t, self.in_proj, self.dtype).chunk(2, dim=-1)
+        y, cache = _head(self, "").step(x_in, z, cache)
+        return dense(y, self.out_proj, self.dtype), cache
+
+    def prime(self, x_seq: torch.Tensor) -> Cache:
+        """The cache after scanning x_seq (B, T, d_model): the scan's final
+        state, and the last K-1 raw inputs behind an empty oldest slot
+        (the first step rolls it off), zero-padded on the left when T <
+        K-1 (JAX `MambaBlock.prime`)."""
+        k = self.cfg.d_conv
+        x_in, z = dense(x_seq, self.in_proj, self.dtype).chunk(2, dim=-1)
+        _, h = _head(self, "")(x_in, z, return_last_state=True)
+        bsz, length = x_in.shape[:2]
+        pad = max(k - 1 - length, 0)
+        tail = x_in[:, length - (k - 1 - pad):]
+        return torch.cat([x_in.new_zeros(bsz, 1 + pad, self.d_inner), tail], dim=1), h
 
 
 class BiMambaBlock(nn.Module):

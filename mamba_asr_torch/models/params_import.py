@@ -1,7 +1,7 @@
 """Carry the JAX package's trained ASRModel params into the port.
 
-The port's own copy of the ConMamba, front-end, CTC-head and Transformer-
-decoder subset of mamba_asr_tpu/models/torch_export.py (with
+The port's own copy of the ConMamba, front-end, CTC-head, Transformer-
+decoder and Mamba-decoder subset of mamba_asr_tpu/models/torch_export.py (with
 params_convert.py's scanned -> unrolled step): a nested dict of arrays, as
 `ASRModel.init` gives it, becomes a state dict of float32 tensors under
 the reference names, which
@@ -160,6 +160,15 @@ def _decoder_layer(t: _Tree, path: str, key: str, out):
         _layer_norm(t, f"{path}/norm{i}", f"{key}.norm{i}.norm", out)
 
 
+def _mamba_decoder_layer(t: _Tree, path: str, key: str, out):
+    """torch_export.py:_mamba_decoder_layer."""
+    _mamba(t, f"{path}/self_mamba", f"{key}.self_mamba", out)
+    _mamba(t, f"{path}/cross_mamba", f"{key}.cross_mamba", out)
+    _ffn(t, f"{path}/pos_ffn", f"{key}.pos_ffn", out)
+    for i in (1, 2, 3):
+        _layer_norm(t, f"{path}/norm{i}", f"{key}.norm{i}.norm", out)
+
+
 def _frontend(t: _Tree, path: str, key: str, num_blocks: int, out):
     for i in range(num_blocks):
         blk = f"{key}.convblock_{i}.convs"
@@ -174,10 +183,11 @@ def import_asr_params(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]
     """JAX ASRModel params (unrolled or scanned layout; numpy or JAX
     arrays) -> the port's ASRModel state dict for `cfg`."""
     if cfg.encoder_module != "conmamba" or (
-            cfg.num_decoder_layers > 0 and cfg.decoder_module != "transformer"):
+            cfg.num_decoder_layers > 0 and cfg.decoder_module not in ("transformer", "mamba")):
         raise NotImplementedError(
-            "params import covers the ConMamba encoder with the CTC head "
-            "and the Transformer decoder only"
+            "params import covers the ConMamba encoder with the CTC head and "
+            "the Transformer and Mamba decoders; the Conformer decoder comes "
+            "with ROADMAP slice 3b item 5"
         )
     if "stack" in params.get("encoder", {}):
         params = _unroll_encoder(params, cfg.num_encoder_layers)
@@ -191,8 +201,9 @@ def import_asr_params(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]
     if cfg.num_decoder_layers > 0:
         out["1.custom_tgt_module.layers.0.emb.Embedding.weight"] = t.take(
             "tgt_embed/embed/embedding")
+        layer = _mamba_decoder_layer if cfg.decoder_module == "mamba" else _decoder_layer
         for i in range(cfg.num_decoder_layers):
-            _decoder_layer(t, f"decoder/layer_{i}", f"1.decoder.layers.{i}", out)
+            layer(t, f"decoder/layer_{i}", f"1.decoder.layers.{i}", out)
         _layer_norm(t, "decoder/norm", "1.decoder.norm.norm", out)
         _linear(t, "seq_head", "2.w", out)
         _linear(t, "ctc_head", "3.w", out)

@@ -5,12 +5,13 @@ The reference is the `causal_conv1d` CUDA package: a depthwise conv with
 left padding K-1 (output length == input length) followed by SiLU. Here
 it is K shifted multiply-adds in float32 (the JAX package's form for the
 model's K=4), so neither a CPU nor a TF32 convolution changes the sums.
-No kernel is owed: the JAX package leaves this op to XLA.
+`causal_conv1d_step` is the one-token form the decoder's cache steps.
+No kernel is owed: the JAX package leaves both to XLA.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,3 +39,25 @@ def causal_conv1d(
     if activation == "silu":
         out = F.silu(out)
     return out.to(x.dtype)
+
+
+def causal_conv1d_step(
+    conv_state: torch.Tensor,
+    x_t: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    activation: Optional[str] = "silu",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token of the conv for decoding (JAX `causal_conv1d_step`).
+
+    conv_state (B, K, D) holds the last K inputs in its own dtype, the
+    newest last; x_t (B, D). Rolls x_t in, dots the window with the (K, D)
+    taps in float32, adds the bias, applies SiLU. Returns (y_t in x_t's
+    dtype, the new state)."""
+    new_state = torch.cat([conv_state[:, 1:], x_t[:, None].to(conv_state.dtype)], dim=1)
+    y = torch.einsum("bkd,kd->bd", new_state.float(), weight.float())
+    if bias is not None:
+        y = y + bias.float()
+    if activation == "silu":
+        y = F.silu(y)
+    return y.to(x_t.dtype), new_state

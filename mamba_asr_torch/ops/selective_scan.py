@@ -16,6 +16,8 @@ Hopper kernels (`kernels/selective_scan.py`) or an error. Under
 `torch.no_grad()` (or when no input needs a gradient) a CUDA call is one
 inference launch of K1; with a gradient it is K1's training form, which
 keeps the per-chunk states, and K2 in the backward.
+
+`ssm_step` is one token's update, for the decoder's cache.
 """
 
 from __future__ import annotations
@@ -240,3 +242,38 @@ def selective_scan(
         t is not None and t.requires_grad for t in tensors)
     return SelectiveScanFn.apply(*tensors, delta_softplus, return_last_state,
                                  train)
+
+
+def ssm_step(
+    h: torch.Tensor,
+    u: torch.Tensor,
+    delta: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    D: Optional[torch.Tensor] = None,
+    z: Optional[torch.Tensor] = None,
+    delta_bias: Optional[torch.Tensor] = None,
+    delta_softplus: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token's state update for decoding (JAX `ssm_step`), plain torch
+    on any device: the JAX package leaves it to XLA.
+
+    h (B, D, N) float32; u, delta, z (B, D); B, C (B, N); A (D, N); D and
+    delta_bias (D,). Returns (y (B, D) in u's dtype, the new h in
+    float32)."""
+    uf = u.float()
+    dt = delta.float()
+    if delta_bias is not None:
+        dt = dt + delta_bias.float()
+    if delta_softplus:
+        dt = torch.logaddexp(dt, torch.zeros_like(dt))  # jax.nn.softplus
+    da = torch.exp(dt[..., None] * A.float())
+    db = dt[..., None] * B.float()[:, None, :]
+    h_new = h.float() * da + uf[..., None] * db
+    y = torch.einsum("bdn,bn->bd", h_new, C.float())
+    if D is not None:
+        y = y + D.float() * uf
+    if z is not None:
+        y = y * F.silu(z.float())
+    return y.to(u.dtype), h_new

@@ -70,7 +70,7 @@ class Recognizer:
     statistics (features pass through). device: None means the CUDA card
     (raises without one); "cpu" runs the plain versions. search: "ctc"
     (greedy) or "s2s" (the joint beam search, with `decode`'s settings;
-    the config needs a Transformer decoder).
+    the config needs a Transformer or Mamba decoder).
     """
 
     def __init__(

@@ -16,11 +16,10 @@ against --target.
 
 Both modes share the JAX script's small fp32 model and the corpus's
 settings; S2S adds its decoder overrides (`s2s_overrides`) and trains 3x
-the epochs. The port's default S2S config is
-hparams/S2S/conmamba_small.yaml (the Transformer decoder): the JAX
-script's default, conmambamamba_small, needs the Mamba decoder, which is
-not ported: `ASRModel` refuses it (ROADMAP slice 3b item 3). It runs on the CUDA
-card unless --device says otherwise. Unrecognised `--key value` pairs
+the epochs. The S2S config defaults to the JAX script's,
+hparams/S2S/conmambamamba_small.yaml (the Mamba decoder);
+`--s2s-config hparams/S2S/conmamba_small.yaml` runs the Transformer
+decoder. It runs on the CUDA card unless --device says otherwise. Unrecognised `--key value` pairs
 pass through as config overrides. Prints one `RESULT {...}` line
 and exits non-zero if the WER is above the target.
 """
@@ -44,7 +43,7 @@ from mamba_asr_torch.training.loop import Trainer
 
 REPO = Path(__file__).resolve().parents[2]
 CONFIG = "hparams/CTC/conmamba_small.yaml"
-S2S_CONFIG = "hparams/S2S/conmamba_small.yaml"
+S2S_CONFIG = "hparams/S2S/conmambamamba_small.yaml"
 LETTERS = "ABCDEF"
 WORDS = ["AB", "BA", "CAD", "DEC", "FAD", "BEEF", "CAFE", "DAB"]
 SR = 16000

@@ -281,13 +281,13 @@ def test_cli_refuses_what_is_not_ported(corpus, tmp_path):
     with pytest.raises(NotImplementedError, match="multi-process"):
         run_training([CONFIG, "--distributed"])
     s2s = str(REPO / "hparams" / "S2S" / "conmamba_small.yaml")
-    mamba_decoder = str(REPO / "hparams" / "S2S" / "conmambamamba_small.yaml")
-    with pytest.raises(NotImplementedError, match="slice 3b item 3"):
-        loop.Trainer(load_config(mamba_decoder, {"data.output_folder": str(tmp_path)}),
+    with pytest.raises(NotImplementedError, match="slice 3b item 5"):
+        loop.Trainer(load_config(s2s, {"data.output_folder": str(tmp_path),
+                                       "model.decoder_module": "conformer"}),
                      CharTokenizer(list("AB")), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3b item 3"):
+    with pytest.raises(NotImplementedError, match="slice 3b item 5"):
         train_to_floor.run_mode("s2s", corpus, str(tmp_path), 1, device="cpu",
-                                s2s_config="hparams/S2S/conmambamamba_small.yaml")
+                                extra=["--model.decoder_module", "conformer"])
     with pytest.raises(NotImplementedError, match="slice 3b item 4"):
         run_training([s2s, "--decode.lm_path", "lm.msgpack", "--device", "cpu",
                       "--data.output_folder", str(tmp_path / "lm")])

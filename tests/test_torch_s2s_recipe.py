@@ -164,9 +164,8 @@ def test_s2s_entry_point_refuses_without_a_card(monkeypatch, tmp_path):
 
 
 def test_train_to_floor_s2s_overrides_are_the_jax_scripts(monkeypatch):
-    """The S2S CLI arguments of `run_mode("s2s")` are the JAX script's, but
-    for the config (the port's default has the Transformer decoder); the
-    S2S mode trains 3x --epochs in both."""
+    """The S2S CLI arguments of `run_mode("s2s")` are the JAX script's,
+    config included; the S2S mode trains 3x --epochs in both."""
     script = _jax_script()
 
     class Captured(Exception):

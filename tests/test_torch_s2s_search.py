@@ -9,7 +9,7 @@ tests/test_torch_s2s_ops.py (float32).
   recognize.py --s2s (make_eval_step + the JAX searcher on each request
   unpadded): tokens equal. At batch=2 the requests are grouped and padded
   as in the CTC mode.
-- What is not ported raises: an LM, the Mamba decoder, `decode.lm_path`.
+- What is not ported raises: an LM, the Conformer decoder, `decode.lm_path`.
 """
 
 from __future__ import annotations
@@ -145,8 +145,8 @@ def test_what_is_not_ported_raises(tiny):
     _, _, _, pm = tiny
     with pytest.raises(NotImplementedError, match="slice 3b"):
         S2SBeamSearcher(pm, lm_model=object())
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        asr.ASRModel(port_cfg(s2s_cfg(decoder_module="mamba")))
+    with pytest.raises(NotImplementedError, match="slice 3b item 5"):
+        asr.ASRModel(port_cfg(s2s_cfg(decoder_module="conformer")))
     with pytest.raises(NotImplementedError, match="slice 3b"):
         Recognizer(pm.cfg, FrontendConfig(n_mels=20), pm.state_dict(), device="cpu",
                    decode=DecodeConfig(lm_path="lm.ckpt"), search="s2s")
