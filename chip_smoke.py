@@ -83,7 +83,7 @@ exits non-zero; it prints no result without a CUDA card):
   s2s_recognize  Recognizer(search="s2s") in bf16 with the decode stanza
              (beam 66, CTC 0.4, 96 candidates): 3 requests of 3-30 s at
              batch=1; then B8 x 30 s of noise at batch=8, S2S RTFx as the
-             median of 5 searches (the seeded decoder rarely emits eos, so
+             median of 3 searches (the seeded decoder rarely emits eos, so
              each search runs all 256 steps: the worst case)
   s2s_profile  one B8 x 30 s search under torch.profiler, with K3's and
              K4's device ms
@@ -152,7 +152,7 @@ exits non-zero; it prints no result without a CUDA card):
              losses and gradients, held as in s2s_train_parity
   mamba_dec_recognize  Recognizer(search="s2s") with the YAML's decode
              stanza (beam 66) answers 3 requests of 3-30 s; S2S RTFx at B8
-             x 30 s (median of 5 searches), K1 and K3 launches per search,
+             x 30 s (median of 3 searches), K1 and K3 launches per search,
              one profiled search
   mamba_dec_train  Trainer(device="cuda") with the Mamba YAML's settings
              (bf16, dropout 0.1, bicubic warp, accumulation 8, vocab 5000)
@@ -165,6 +165,31 @@ exits non-zero; it prints no result without a CUDA card):
              config (the Mamba decoder) on 160 / 16 / 16 tone utterances,
              --epochs 50 (150, the JAX regime proof's settings): test WER
              <= 2.0 %
+  lm_kernels  (after mamba_dec_train) K4 at the TransformerLM's heads (H 12,
+             dh 64, S 320, N 528, bf16, pos 255 on a random and a
+             beam-shaped table; fp32; pos 1,023 at S 1,024) against its
+             plain gather; time, bound, the gather + SDPA call
+  lm_parity  the full-width LM (the decode stanza's 12 x 768, vocab 5000,
+             seeded) in fp32 with TF32 off, card against CPU: full-pass
+             logits, 8 cached steps through two reorders (each against its
+             own full pass), rescore_nbest's scores and choice; the fused
+             joint search at beam 4 for both decoders: tokens equal, scores
+             within S2S_PARITY_TOL
+  lm_recognize  Recognizer(search="s2s") with the S2S YAML's decode stanza
+             and decode.lm_path at a seeded LM (.pt; bf16 at load): S2S+LM
+             RTFx at B8 x 30 s (median of LM_SEARCHES searches), launches
+             per search (K4 (4 + 12) per step), one profiled search;
+             s2s_recognize's no-LM RTFx and one Mamba-decoder + LM search
+             beside it
+  train_lm   (after mamba_dec_train_to_floor) mamba_asr_torch.train_lm's
+             loop at full LM width in fp32 on the 160-utterance tone
+             training transcripts, vocab 5000, LM_TRAIN settings: tokens
+             per s, ms per step, ppl per log line (the last below
+             LM_PPL_TARGET and below half the stream's unigram ppl);
+             writes lm.pt
+  lm_floor   the S2S floor run (Transformer decoder) again through the CLI
+             with --decode.lm_path <that lm.pt>: it resumes, only tests, and
+             fuses the LM; test WER <= 2.0 % beside the WER without it
 
 Each phase also prints its wall seconds. Then the kernels line, the
 card's name and power limit, and last
@@ -222,25 +247,27 @@ GRAD_NAMES = ("u", "delta", "A", "B", "C", "D", "z", "delta_bias", "h0")
 CUDNN_FAULT_RATIO = 10.0
 CUDNN_FAULT_FRAC = 1e-3
 # The CTC recipe: its epochs at full width on the tone corpus (40 until
-# the Mamba decoder's phases joined the script; 10 keeps the whole run
-# well inside its time limit), the best
+# the Mamba decoder's phases joined the script, 10 until the LM's; 5 keeps
+# the whole run inside its time limit), the best
 # beam totals card vs CPU (float32 logaddexp chains over 751 frames in two
 # libraries), the speed perturbation's C++ against numpy in float64
 # (float32 output rounding) and the train-to-floor target (% WER, the JAX
 # script's --target).
-RECIPE_EPOCHS = 10
+RECIPE_EPOCHS = 5
 BEAM_TOL = 1e-3
 RESAMPLE_TOL = 2e-6
 FLOOR_TARGET = 2.0
 # The S2S recipe: the warp's fixed draws in s2s_train_parity (centre and
-# target frame of 401), the full-width recipes' epochs (the Transformer
-# decoder's cut from 20 to 10 when the Mamba decoder's joined the script,
-# which runs 20) and validation search interval, the train-to-floor
-# tool's --epochs (S2S trains 3x).
+# target frame of 401), the full-width recipes' epochs (each decoder's 20,
+# the Transformer decoder's cut to 10 when the Mamba decoder's phases
+# joined the script, both to 6 when the LM's did: one more than
+# train_to_floor's keep_checkpoints 5, so that the ACC ranking drops an
+# epoch) and validation search interval (one search, at the last epoch),
+# the train-to-floor tool's --epochs (S2S trains 3x).
 S2S_WARP_DRAWS = (200, 197)
-S2S_RECIPE_EPOCHS = 10
-MAMBA_RECIPE_EPOCHS = 20
-S2S_SEARCH_INTERVAL = 10
+S2S_RECIPE_EPOCHS = 6
+MAMBA_RECIPE_EPOCHS = 6
+S2S_SEARCH_INTERVAL = 6
 FLOOR_EPOCHS = 60
 # The Mamba decoder (ConMambaMamba-Small): the search's batch and beam
 # (K1's h_last form primes N = 8 x 66 rows), the decoder's training
@@ -253,6 +280,23 @@ MAMBA_SEARCH = (8, 66)
 MAMBA_TRAIN_S = 81
 MAMBA_FLOOR_EPOCHS = 50
 MAMBA_FLOOR_CORPUS = (160, 16, 16)
+# Timed searches of s2s_recognize and mamba_dec_recognize (5 until the
+# LM's phases joined the script).
+S2S_SEARCHES = 3
+# The LM (slice 3b item 4): the timed fused searches at B8 x 30 s, the
+# LM's training run on the 160-utterance tone transcripts (at full width,
+# vocab 5000, fp32; the JAX script's flags but steps, batch and logging)
+# and its criterion (the char tokenizer uses 11 of the 5000 ids). The
+# warmup is the script's 4000: with 50 to 300 steps of warmup (peak lr
+# 1e-3 or 1e-4) the 12 post-LN layers stayed at the unigram ppl ~8.8 for
+# 300 steps on an H100, with 4000 they reached ppl ~3. 900 steps bring the
+# tone floor run's held-out transcripts to ppl ~1.2 (300: ~2.8, an LM that
+# still turned one test word of that run from AB into FAB).
+LM_SEARCHES = 3
+LM_TRAIN = dict(steps=900, batch_size=16, seq_len=128, lr=1e-3, warmup=4000,
+                log_every=100, save_every=900)
+LM_PPL_TARGET = 10.0
+LM_PPL_OF_UNIGRAM = 0.5  # and below half the stream's unigram ppl
 
 
 def scans_per_step(cfg) -> int:
@@ -1527,7 +1571,7 @@ def phase_s2s_recognize(s2s_cfg, frontend, state):
             or int(toks.min()) < 0 or int(toks.max()) >= s2s_cfg.vocab_size):
         raise AssertionError(f"bad search result {tuple(toks.shape)} {scores.tolist()}")
     blocks, per_search = [], None
-    for i in range(5):
+    for i in range(S2S_SEARCHES):
         k1.LAUNCHES = k3.LAUNCHES = k4.LAUNCHES = 0
         t0 = time.perf_counter()
         rec8.transcribe(batch)
@@ -1540,15 +1584,15 @@ def phase_s2s_recognize(s2s_cfg, frontend, state):
                       "steps": st}:
         raise AssertionError(f"launches per search {per_search}")
     rtfx = statistics.median(blocks)
+    throughput = {"batch": 8, "seconds_each": 30.0, "rtfx": rtfx, "blocks": blocks,
+                  "spread_pct": 100.0 * (max(blocks) - min(blocks)) / rtfx,
+                  "searches_per_block": 1, "compute_dtype": s2s_cfg.compute_dtype,
+                  "best_lengths": tlens.tolist(), "launches_per_search": per_search}
     emit({"phase": "s2s_recognize", "beam": beam, "requests_s": [len(r) / 16000 for r in requests],
           "tokens": [len(x) for x in ids], "steps": steps, "seconds": seconds,
-          "launches": {"K3": sum(steps), "K4": layers * sum(steps)},
-          "throughput": {"batch": 8, "seconds_each": 30.0, "rtfx": rtfx, "blocks": blocks,
-                         "spread_pct": 100.0 * (max(blocks) - min(blocks)) / rtfx,
-                         "searches_per_block": 1, "compute_dtype": s2s_cfg.compute_dtype,
-                         "best_lengths": tlens.tolist(), "launches_per_search": per_search},
+          "launches": {"K3": sum(steps), "K4": layers * sum(steps)}, "throughput": throughput,
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return per_search, rec8, batch
+    return throughput, rec8, batch
 
 
 def phase_s2s_profile(rec8, batch):
@@ -2066,8 +2110,11 @@ def s2s_recipe(name, config, epochs, work, corpus):
     accs = {e["epoch"]: e["valid"]["ACC"] for e in tr.epoch_log}
 
     # The ACC-ranked keep set: the best keep_checkpoints and the newest.
+    if epochs <= cfg.train.keep_checkpoints:
+        raise AssertionError(f"{name}: {epochs} epochs keep every one of them "
+                             f"(keep_checkpoints {cfg.train.keep_checkpoints})")
     kept = sorted(e["metrics"]["epoch"] for e in tr.ckpt._entries())
-    keep, newest = min(cfg.train.keep_checkpoints, len(accs)), epochs
+    keep, newest = cfg.train.keep_checkpoints, epochs
     ranked = kept if len(kept) == keep else [e for e in kept if e != newest]
     if newest not in kept or len(ranked) != keep or \
             sorted(accs[e] for e in ranked) != sorted(accs.values())[-keep:]:
@@ -2150,6 +2197,7 @@ def phase_s2s_train_to_floor(work, corpus):
     emit(result)
     if not res["test_wer"] <= FLOOR_TARGET:
         raise AssertionError(f"s2s_train_to_floor: test WER {res['test_wer']} > {FLOOR_TARGET}")
+    return {**res, "vocab": tr.cfg.model.vocab_size}
 
 
 # -- The Mamba decoder (ConMambaMamba-Small) ------------------------------------
@@ -2331,8 +2379,8 @@ def phase_mamba_dec_parity(m, state):
 
 def phase_mamba_dec_recognize(m, state):
     """Recognizer(search="s2s") with the YAML's decode stanza: requests of
-    3 to 30 s at batch=1, then S2S RTFx at B8 x 30 s (median of 5
-    searches) and one profiled search."""
+    3 to 30 s at batch=1, then S2S RTFx at B8 x 30 s (median of
+    S2S_SEARCHES searches) and one profiled search."""
     from mamba_asr_torch.kernels import beam_attention as k4
     from mamba_asr_torch.kernels import ctc_dp as k3
     from mamba_asr_torch.kernels import selective_scan as k1
@@ -2371,7 +2419,7 @@ def phase_mamba_dec_recognize(m, state):
             or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size):
         raise AssertionError(f"mamba_dec_recognize: bad search {tuple(toks.shape)}")
     blocks, per_search = [], None
-    for i in range(5):
+    for i in range(S2S_SEARCHES):
         k1.LAUNCHES = k3.LAUNCHES = k4.LAUNCHES = 0
         t0 = time.perf_counter()
         rec8.transcribe(batch)
@@ -2506,6 +2554,334 @@ def phase_mamba_dec_train_to_floor(work):
     return launches
 
 
+# -- The Transformer LM and shallow fusion ------------------------------------------
+
+
+def seeded_lm(decode, vocab, seed=SEED):
+    """The decode stanza's TransformerLM at full width, float32 weights
+    from models.lm.init_params_ (seeded), on the CPU, in eval mode."""
+    from mamba_asr_torch.models.lm import TransformerLM, init_params_
+
+    lm = TransformerLM(vocab, decode.lm_d_model, decode.lm_nhead, decode.lm_layers,
+                       decode.lm_d_ffn)
+    return init_params_(lm, torch.Generator().manual_seed(seed)).eval()
+
+
+def phase_lm_kernels(decode, clock_hz, sms):
+    """K4 at the LM's shape: H 12, dh 64, S 320, N 528 (B8 x beam 66), bf16,
+    pos 255 on a random and a beam-shaped table, and at pos 1,023 (S
+    1,024); fp32 at pos 255. Times, bounds and the gather + SDPA call."""
+    from mamba_asr_torch.kernels import beam_attention as k4
+    from mamba_asr_torch.ops.beam_attention import beam_attention_ref
+
+    h, dh = decode.lm_nhead, decode.lm_d_model // decode.lm_nhead
+    n, s = 528, 320
+    rng = np.random.default_rng(SEED + 10)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    cases, timing = [], {}
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, (2e-5, 2e-5))):
+        q, kv = beam_attn_inputs(gen, n, h, s, dh, dtype)
+        tables = {"random": anc_table(s, n, 255, rng), "beam": beam_table(s, n, 255, rng)}
+        for table, anc in tables.items():
+            got = k4.beam_attention_fwd(q, *kv, anc, 255)
+            torch.cuda.synchronize()
+            ref = beam_attention_ref(q, *kv, anc, 255)
+            name = f"h{h}_dh{dh}_n{n}_pos255_{table}_{str(dtype)[6:]}"
+            cases.append({"case": name, "max_abs_err": check_close(
+                f"lm_kernels {name}", got, ref, *tol), "tol": tol})
+            if dtype != torch.bfloat16:
+                continue
+            bound_ms, bound_by, sector_ms, distinct = beam_attn_bound_ms(
+                h, dh, anc, 255, 2, clock_hz, sms)
+            timing[table] = {
+                "kernel_ms": cuda_ms(lambda: k4.beam_attention_fwd(q, *kv, anc, 255), 50),
+                "plain_ms": cuda_ms(lambda: beam_attention_ref(q, *kv, anc, 255), 5),
+                "library_ms": cuda_ms(lambda: sdpa_on_gathered(q, *kv, anc, 255), 20),
+                "bound_ms": bound_ms, "bound_by": bound_by, "bound_sector_ms": sector_ms,
+                "distinct_rows": distinct, "split_rule": k4.split_rule(n, h, 255, sms)}
+        del q, kv
+    q, kv = beam_attn_inputs(gen, n, h, 1024, dh, torch.bfloat16)
+    anc = anc_table(1024, n, 1023, rng)
+    got = k4.beam_attention_fwd(q, *kv, anc, 1023)
+    torch.cuda.synchronize()
+    name = f"h{h}_dh{dh}_n{n}_pos1023_s1024_bfloat16"
+    cases.append({"case": name, "max_abs_err": check_close(
+        f"lm_kernels {name}", got, beam_attention_ref(q, *kv, anc, 1023), *BF16_TOL),
+        "tol": BF16_TOL})
+    del q, kv
+    result = {"phase": "lm_kernels", "name": "beam_attention", "shape": [h, s, n, dh],
+              "cases": cases, "timing": timing, **timing["random"]}
+    emit(result)
+    return result
+
+
+@torch.no_grad()
+def phase_lm_parity(s2s, s2s_state, mam, mam_state):
+    """The full-width LM (decode stanza's widths, vocab 5000, seeded) in
+    fp32 with TF32 off, card against CPU: full-pass logits; 8 cached steps
+    through two reorders, each against its own full pass; the n-best
+    scores and choice of rescore_nbest. Then the fused joint search at beam
+    4 on a 2 s request for both decoders: tokens equal, scores within
+    S2S_PARITY_TOL."""
+    from mamba_asr_torch.decoding.rescore import lm_nbest_scores, rescore_nbest
+    from mamba_asr_torch.decoding.s2s_beam import S2SBeamSearcher
+    from mamba_asr_torch.kernels import beam_attention as k4
+    from mamba_asr_torch.serving.recognizer import Recognizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d, vocab = s2s.decode, s2s.model.vocab_size
+    lms = {"cpu": seeded_lm(d, vocab)}
+    lms["cuda"] = seeded_lm(d, vocab).to("cuda").eval()
+    rng = np.random.default_rng(SEED + 11)
+    toks = torch.from_numpy(rng.integers(3, vocab, (4, 32)))
+    full = {dev: lm(toks.to(dev)).cpu() for dev, lm in lms.items()}
+    full_err = check_close("lm_parity full pass", full["cuda"], full["cpu"],
+                           S2S_PARITY_TOL, 0.0)
+
+    n, steps, beam = 8, 8, 4
+    step_toks = rng.integers(3, vocab, (steps, n))
+    reorders = {2: rng.integers(0, beam, n) + np.repeat(np.arange(2) * beam, beam),
+                5: rng.integers(0, beam, n) + np.repeat(np.arange(2) * beam, beam)}
+
+    def chain(dev):
+        lm, hist = lms[dev], np.zeros((n, 0), np.int64)
+        cache = lm.init_cache(n, 64, dev)
+        anc = np.tile(np.arange(n, dtype=np.int32), (64, 1))
+        outs, errs = [], []
+        for s in range(steps):
+            anc[s] = np.arange(n)
+            hist = np.concatenate([hist, step_toks[s][:, None]], 1)
+            got = lm.step(torch.from_numpy(step_toks[s]).to(dev), s, cache,
+                          torch.from_numpy(anc).to(dev)).cpu()
+            ref = lm(torch.from_numpy(hist).to(dev))[:, s].cpu()
+            errs.append(check_close(f"lm_parity {dev} step {s} vs full pass", got, ref,
+                                    S2S_PARITY_TOL, 0.0))
+            outs.append(got)
+            if s in reorders:
+                anc = np.ascontiguousarray(anc[:, reorders[s]])
+                hist = hist[reorders[s]]
+        return torch.stack(outs), max(errs)
+
+    k4.LAUNCHES = 0
+    stepped = {dev: chain(dev) for dev in lms}
+    if k4.LAUNCHES != steps * d.lm_layers:
+        raise AssertionError(f"lm_parity: K4 launches {k4.LAUNCHES}")
+    step_err = check_close("lm_parity steps card vs CPU", stepped["cuda"][0],
+                           stepped["cpu"][0], S2S_PARITY_TOL, 0.0)
+
+    nb_toks = torch.from_numpy(rng.integers(3, vocab, (2, 6, 12)))
+    nb_lens = torch.from_numpy(rng.integers(0, 13, (2, 6)))
+    ctc = torch.from_numpy(rng.normal(-20.0, 2.0, (2, 6)).astype(np.float32))
+    nbest = {dev: (lm_nbest_scores(lm, nb_toks.to(dev), nb_lens.to(dev), d.temperature_lm).cpu(),
+                   rescore_nbest(nb_toks.to(dev), nb_lens.to(dev), ctc.to(dev), lm,
+                                 d.lm_weight, d.temperature_lm)[0].cpu())
+             for dev, lm in lms.items()}
+    nbest_err = check_close("lm_parity n-best scores", nbest["cuda"][0], nbest["cpu"][0],
+                            S2S_PARITY_TOL, 0.0)
+    if not torch.equal(nbest["cuda"][1], nbest["cpu"][1]):
+        raise AssertionError("lm_parity: rescore_nbest chose other hypotheses on the card")
+
+    search, wav = {}, torch.from_numpy(noise(2.0, 23))[None]
+    for name, exp, state in (("transformer", s2s, s2s_state), ("mamba", mam, mam_state)):
+        cfg32 = dataclasses.replace(exp.model, compute_dtype="float32")
+        found = {}
+        for dev, lm in lms.items():
+            rec = Recognizer(cfg32, exp.frontend, state, device=dev)
+            out = rec.eval_step(wav, torch.tensor([wav.shape[1]], dtype=torch.int32))
+            searcher = S2SBeamSearcher(
+                rec.model, beam_size=beam, ctc_weight=d.ctc_weight_decode,
+                ctc_candidates=d.ctc_candidates, lm_weight=d.lm_weight,
+                temperature=d.temperature, temperature_lm=d.temperature_lm, lm_model=lm)
+            found[dev] = [x.cpu() for x in searcher(out["enc_out"], out["enc_lengths"],
+                                                    out["ctc_log_probs"])]
+            found[dev].append(searcher.last_steps)
+        if not torch.equal(found["cuda"][0], found["cpu"][0]):
+            raise AssertionError(f"lm_parity {name}: fused search tokens differ, first at "
+                                 f"{first_difference(found['cuda'][0][0], found['cpu'][0][0])}")
+        search[name] = {"score_max_abs_err": check_close(
+            f"lm_parity {name} fused search scores", found["cuda"][2], found["cpu"][2],
+            S2S_PARITY_TOL, 0.0), "scores": found["cuda"][2].tolist(),
+            "lengths": found["cuda"][1].tolist(), "steps": found["cuda"][3]}
+    torch.backends.cudnn.allow_tf32 = True  # back to PyTorch's defaults
+    emit({"phase": "lm_parity", "lm": [d.lm_layers, d.lm_d_model, d.lm_nhead, d.lm_d_ffn, vocab],
+          "full_pass_max_abs_err": full_err, "steps": steps, "reorders_after": list(reorders),
+          "step_vs_full_max_abs_err": {dev: v[1] for dev, v in stepped.items()},
+          "steps_max_abs_err": step_err, "nbest_max_abs_err": nbest_err,
+          "fused_search": search, "tol": S2S_PARITY_TOL})
+
+
+@torch.no_grad()
+def phase_lm_recognize(s2s, s2s_state, mam, mam_state, work, no_lm):
+    """Recognizer(search="s2s") with the S2S YAML's decode stanza and
+    decode.lm_path pointing at a seeded full-width LM (.pt, bf16 at load):
+    S2S+LM RTFx at B8 x 30 s (median of LM_SEARCHES searches), launches
+    per search, one profiled search; beside it s2s_recognize's no-LM
+    throughput (`no_lm`, this run's) and one Mamba-decoder + LM search."""
+    from mamba_asr_torch.kernels import beam_attention as k4
+    from mamba_asr_torch.kernels import ctc_dp as k3
+    from mamba_asr_torch.kernels import selective_scan as k1
+    from mamba_asr_torch.serving.recognizer import Recognizer
+
+    d = s2s.decode
+    path = os.path.join(work, "seeded_lm.pt")
+    torch.save(seeded_lm(d, s2s.model.vocab_size, SEED + 12).state_dict(), path)
+    dec = dataclasses.replace(d, lm_path=path)
+    if (dec.s2s_test_beam_size, dec.ctc_weight_decode, dec.ctc_candidates, dec.lm_weight,
+            dec.temperature_lm, dec.lm_dtype) != (66, 0.4, 96, 0.6, 1.15, "bfloat16"):
+        raise AssertionError(f"lm_recognize: not the YAML's decode stanza {dec}")
+    bsz = 8
+    batch = [noise(30.0, 400 + i) for i in range(bsz)]
+    wav = torch.from_numpy(np.stack(batch))
+    lens = torch.full((bsz,), 480000, dtype=torch.int32)
+
+    def timed_searches(rec, count):
+        rec.transcribe(batch)  # warm
+        blocks, per_search = [], []
+        for _ in range(count):
+            k1.LAUNCHES = k3.LAUNCHES = k4.LAUNCHES = 0
+            t0 = time.perf_counter()
+            rec.transcribe(batch)
+            blocks.append(bsz * 30.0 / (time.perf_counter() - t0))
+            per_search.append({"K1": k1.LAUNCHES, "K3": k3.LAUNCHES, "K4": k4.LAUNCHES,
+                               "steps": rec.searcher.last_steps})
+        rtfx = statistics.median(blocks)
+        return {"rtfx": rtfx, "blocks": blocks,
+                "spread_pct": 100.0 * (max(blocks) - min(blocks)) / rtfx,
+                "launches_per_search": per_search[0]}, per_search
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = Recognizer(s2s.model, s2s.frontend, s2s_state, device="cuda", batch=bsz, decode=dec,
+                     search="s2s")
+    lm_layers, dec_layers = d.lm_layers, s2s.model.num_decoder_layers
+    if rec.searcher.decode_lm.encoder.layers[0].self_att.att.in_proj_weight.dtype \
+            != torch.bfloat16 or rec.searcher.decode_lm.output_proj.w.weight.dtype \
+            != torch.float32:
+        raise AssertionError("lm_recognize: the LM's decode weights are not bf16 with a "
+                             "float32 head")
+    fused, runs = timed_searches(rec, LM_SEARCHES)
+    for run in runs:
+        st = run["steps"]
+        if run != {"K1": 2 * s2s.model.num_encoder_layers, "K3": st,
+                   "K4": (dec_layers + lm_layers) * st, "steps": st}:
+            raise AssertionError(f"lm_recognize: launches per search {run}")
+    memory_gb = torch.cuda.max_memory_allocated() / 1e9
+    out = rec.eval_step(wav, lens)
+    toks, tlens, scores = rec.searcher(out["enc_out"], out["enc_lengths"], out["ctc_log_probs"])
+    if not torch.isfinite(scores).all() or int(toks.max()) >= s2s.model.vocab_size:
+        raise AssertionError(f"lm_recognize: bad search result {scores.tolist()}")
+    wall_ms, device_ms, top = device_profile(lambda: rec.decode_batch(wav, lens), 15,
+                                             ("beam_attention_kernel", "ctc_dp_kernel"))
+    del rec
+
+    mrec = Recognizer(mam.model, mam.frontend, mam_state, device="cuda", batch=bsz,
+                      decode=dataclasses.replace(mam.decode, lm_path=path), search="s2s")
+    mamba, runs = timed_searches(mrec, 1)
+    st = runs[0]["steps"]
+    per_forward = scans_per_step(dataclasses.replace(mam.model, num_decoder_layers=0))
+    if runs[0] != {"K1": per_forward + mam.model.num_decoder_layers, "K3": st,
+                   "K4": lm_layers * st, "steps": st}:
+        raise AssertionError(f"lm_recognize: Mamba-decoder launches per search {runs[0]}")
+    del mrec
+    result = {"phase": "lm_recognize", "beam": dec.s2s_test_beam_size,
+              "ctc": [dec.ctc_weight_decode, dec.ctc_candidates],
+              "lm": [dec.lm_weight, dec.temperature_lm, dec.lm_dtype, lm_layers, dec.lm_d_model],
+              "batch": bsz, "seconds_each": 30.0, "fused": fused, "no_lm": no_lm,
+              "mamba_decoder_fused": mamba, "best_lengths": tlens.tolist(),
+              "max_memory_allocated_gb": memory_gb,
+              "profile": {"wall_ms": wall_ms, "device_kernel_ms": device_ms,
+                          "idle_share": 1.0 - device_ms / wall_ms,
+                          "K4_ms": sum(r["ms"] for r in top
+                                       if "beam_attention_kernel" in r["kernel"]),
+                          "K3_ms": sum(r["ms"] for r in top if "ctc_dp_kernel" in r["kernel"]),
+                          "top": top}}
+    emit(result)
+    return result
+
+
+def phase_train_lm(work, floor):
+    """mamba_asr_torch.train_lm's loop at full LM width in fp32 on the
+    transcripts of the 160-utterance tone training split (encoded with the
+    S2S floor run's char tokenizer), at the decode model's vocabulary
+    (5000): LM_TRAIN settings; writes lm.pt. The last logged ppl must be
+    below LM_PPL_TARGET and below LM_PPL_OF_UNIGRAM times the perplexity
+    of the stream's unigram frequencies."""
+    from mamba_asr_torch.data.tokenizer import load_tokenizer
+    from mamba_asr_torch.models.lm import TransformerLM, init_params_
+    from mamba_asr_torch.train_lm import corpus_stream, train_lm
+
+    trans = os.path.join(work, "corpus160", "train-clean-100", "1", "2", "1-2.trans.txt")
+    corpus = os.path.join(work, "lm_corpus.txt")
+    with open(trans) as f, open(corpus, "w") as g:
+        g.writelines(line.split(" ", 1)[1] for line in f if line.strip())
+    tok = load_tokenizer(os.path.join(floor["exp_dir"], "tokenizer_char.json"))
+    stream = corpus_stream(corpus, tok)
+    vocab = floor["vocab"]
+    # The perplexity of the stream's own token frequencies: an LM that
+    # learned only them ends near it.
+    counts = np.bincount(stream)
+    freq = counts[counts > 0] / len(stream)
+    unigram_ppl = float(np.exp(-(freq * np.log(freq)).sum()))
+    lm = TransformerLM(vocab, dropout=0.1)  # the script's --dropout and --seed
+    init_params_(lm, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train_lm(stream, lm, os.path.join(work, "lm"), device="cuda", **LM_TRAIN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps, log = LM_TRAIN["steps"], res["log"]
+    # The first log line holds the first steps' warm-up (allocator, cuBLAS).
+    steady = statistics.median(r["ms_per_step"] for r in log[1:])
+    if not all(np.isfinite(res["losses"])) or not os.path.isfile(res["path"]):
+        raise AssertionError("train_lm: a non-finite loss or no lm.pt")
+    sd = torch.load(res["path"], weights_only=True)
+    TransformerLM(vocab).load_state_dict(sd, strict=True)
+    result = {"phase": "train_lm", "settings": LM_TRAIN, "vocab": vocab,
+              "tokenizer_vocab": tok.vocab_size, "corpus_tokens": len(stream),
+              "corpus_lines": sum(1 for _ in open(corpus)), "wall_s": wall,
+              "ms_per_step": steady,
+              "tokens_per_s": LM_TRAIN["batch_size"] * LM_TRAIN["seq_len"] / steady * 1e3,
+              "log": log, "first_ppl": log[0]["ppl"], "last_ppl": log[-1]["ppl"],
+              "target_ppl": LM_PPL_TARGET, "unigram_ppl": unigram_ppl,
+              "target_ppl_of_unigram": LM_PPL_OF_UNIGRAM, "path": res["path"]}
+    emit(result)
+    target = min(LM_PPL_TARGET, LM_PPL_OF_UNIGRAM * unigram_ppl)
+    if not log[-1]["ppl"] < target or len(res["losses"]) != steps:
+        raise AssertionError(f"train_lm: last ppl {log[-1]['ppl']} >= {target} (unigram "
+                             f"{unigram_ppl})")
+    return res["path"]
+
+
+def phase_lm_floor(work, corpus, floor, lm_path):
+    """The S2S train-to-floor run (the Transformer decoder) again through
+    the CLI with --decode.lm_path: its epochs are done, so it resumes and
+    only tests, the joint search fusing the trained LM. Test WER <=
+    FLOOR_TARGET, beside the WER without the LM."""
+    from mamba_asr_torch.tools import train_to_floor
+
+    reset, read = s2s_launch_counters()
+    reset()
+    res, tr = train_to_floor.run_mode("s2s", corpus, os.path.join(work, "floor"),
+                                      floor["epochs"], s2s_config=S2S_CONFIG,
+                                      extra=["--decode.lm_path", lm_path])
+    launches = read()
+    d = tr.cfg.decode
+    if tr.start_epoch != floor["epochs"] + 1 or tr.epoch_log or tr.lm is None:
+        raise AssertionError(f"lm_floor: trained again (start {tr.start_epoch}) or no LM")
+    per_step = tr.cfg.model.num_decoder_layers + d.lm_layers
+    if launches["K2"] or not launches["K3"] or launches["K4"] != per_step * launches["K3"]:
+        raise AssertionError(f"lm_floor: launches {launches}")
+    result = {"phase": "lm_floor", "config": S2S_CONFIG, "test_wer": res["test_wer"],
+              "test_wer_without_lm": floor["test_wer"], "target": FLOOR_TARGET,
+              "test": tr.test_stats["test-clean"], "wer_header": res["wer_header"],
+              "lm": [d.lm_weight, d.temperature_lm, d.lm_dtype], "test_beam": d.s2s_test_beam_size,
+              "wall_s": res["wall_s"], "launches": launches}
+    emit(result)
+    if not res["test_wer"] <= FLOOR_TARGET:
+        raise AssertionError(f"lm_floor: test WER {res['test_wer']} > {FLOOR_TARGET}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2540,31 +2916,37 @@ def main() -> int:
     k4 = timed(phase_kernel_beam_attn, s2s.model, clock_hz, sms)
     s2s_state = seeded_state(s2s.model)
     timed(phase_s2s_parity, s2s.model, s2s.frontend, s2s_state)
-    per_search, rec8, s2s_batch = timed(phase_s2s_recognize, s2s.model, s2s.frontend,
+    s2s_search, rec8, s2s_batch = timed(phase_s2s_recognize, s2s.model, s2s.frontend,
                                         s2s_state)
+    per_search = s2s_search["launches_per_search"]
     timed(phase_s2s_profile, rec8, s2s_batch)
     del rec8, s2s_batch
     timed(phase_s2s_train_parity, s2s, s2s_state)
     s2s_train_launches = timed(phase_s2s_train, s2s, s2s_state)
-    del s2s_state
     mam = load_config(MAMBA_CONFIG)
     mk = timed(phase_mamba_dec_kernels, mam.model, clock_hz, sms)
     mam_state = seeded_state(mam.model)
     timed(phase_mamba_dec_parity, mam, mam_state)
     mam_search = timed(phase_mamba_dec_recognize, mam, mam_state)
     mam_train_launches = timed(phase_mamba_dec_train, mam, mam_state)
-    del mam_state
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        lmk = timed(phase_lm_kernels, s2s.decode, clock_hz, sms)
+        timed(phase_lm_parity, s2s, s2s_state, mam, mam_state)
+        lm_search = timed(phase_lm_recognize, s2s, s2s_state, mam, mam_state, work,
+                          s2s_search)
+        del s2s_state, mam_state
         corpus = timed(phase_data, work)
         timed(phase_ctc_beam, exp)
         recipe_launches = timed(phase_recipe, work, corpus)
         floor = timed(phase_train_to_floor, work, corpus)
         timed(phase_bf16, floor)
         s2s_recipe_launches = timed(phase_s2s_recipe, work, corpus)
-        timed(phase_s2s_train_to_floor, work, corpus)
+        s2s_floor = timed(phase_s2s_train_to_floor, work, corpus)
         mam_recipe_launches = timed(phase_mamba_dec_recipe, work, corpus)
         mam_floor_launches = timed(phase_mamba_dec_train_to_floor, work)
+        lm_path = timed(phase_train_lm, work, s2s_floor)
+        lm_floor_launches = timed(phase_lm_floor, work, corpus, s2s_floor, lm_path)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2637,6 +3019,16 @@ def main() -> int:
         "ms": k4["kernel_ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
         "s2s_recipe_launches": s2s_recipe_launches["K4"],
+        "lm_launches_per_search": lm_search["fused"]["launches_per_search"]["K4"],
+        "mamba_dec_lm_launches_per_search":
+            lm_search["mamba_decoder_fused"]["launches_per_search"]["K4"],
+        "lm_floor_launches": lm_floor_launches["K4"],
+        "lm_shape": lmk["shape"], "lm_shape_max_abs_err": max(c["max_abs_err"]
+                                                              for c in lmk["cases"]),
+        "lm_shape_ms": lmk["kernel_ms"], "lm_shape_plain_ms": lmk["plain_ms"],
+        "lm_shape_bound_ms": lmk["bound_ms"], "lm_shape_bound_by": lmk["bound_by"],
+        "lm_shape_library_ms": lmk["library_ms"],
+        "lm_shape_beam_table_ms": lmk["timing"]["beam"]["kernel_ms"],
     }] + [{
         "name": f"scan_variants_{part}", "route": "cuda",
         "source": "mamba_asr_torch/csrc/scan_variants.cu",

@@ -15,10 +15,10 @@ unigram through the `tokenizers` package) -> bucketed loaders (speed
 perturbation on the training set) -> `loop.Trainer.fit` with validation
 and top-k checkpoints -> each test split decoded with averaged
 checkpoints and the CTC prefix beam search (CTC) or the joint beam
-search (S2S), writing wer_<split>.txt. It runs on the CUDA card unless
-`--device cpu` (or another torch device) is given, and refuses to start
-without a card. `--distributed` (multi-process training) and
-`decode.lm_path` (LM fusion) are not ported and raise.
+search (S2S, fusing the LM of `decode.lm_path` at test, when set),
+writing wer_<split>.txt. It runs on the CUDA card unless `--device cpu`
+(or another torch device) is given, and refuses to start without a card.
+`--distributed` (multi-process training) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from mamba_asr_torch.configs.loader import ExperimentConfig, load_config, parse_
 from mamba_asr_torch.data.dataset import ASRDataset, BucketedLoader
 from mamba_asr_torch.data.librispeech import create_lexicon, load_manifest, prepare_librispeech
 from mamba_asr_torch.data.tokenizer import CharTokenizer, SubwordTokenizer, load_tokenizer
+from mamba_asr_torch.models import lm as lm_module
 from mamba_asr_torch.training.loop import Trainer
 from mamba_asr_torch.utils.device import resolve_device
 
@@ -50,6 +51,15 @@ def build_tokenizer(cfg: ExperimentConfig, train_csv: str):
     os.makedirs(cfg.output_folder, exist_ok=True)
     tok.save(tok_path)
     return tok
+
+
+def load_lm(cfg: ExperimentConfig, device=None):
+    """The decode-time TransformerLM of `cfg.decode` (JAX `cli.py:58-108`):
+    None when `decode.lm_path` is empty; else the LM at `lm_*` widths and
+    the model's vocabulary, its `.pt` / `.ckpt` / `.pth` state dict loaded
+    with strict=True, on `device` (None: the card). A flax msgpack path
+    raises (models/lm.py:load_lm)."""
+    return lm_module.load_lm(cfg.decode, cfg.model.vocab_size, device)
 
 
 def _pop_device(argv: List[str]) -> Tuple[List[str], Optional[str]]:
@@ -98,10 +108,7 @@ def run_training(argv: Optional[List[str]] = None) -> Trainer:
     argv, device = _pop_device(argv)
     device = resolve_device(device)
     cfg = load_config(argv[0], parse_overrides(argv[1:]))
-    if cfg.decode.lm_path:
-        raise NotImplementedError(
-            "decode.lm_path: LM loading and shallow fusion are not ported "
-            "(ROADMAP slice 3b item 4)")
+    lm = load_lm(cfg, device)
     os.makedirs(cfg.output_folder, exist_ok=True)
 
     manifest_dir = os.path.join(cfg.output_folder, "manifests")
@@ -114,7 +121,7 @@ def run_training(argv: Optional[List[str]] = None) -> Trainer:
     if cfg.data.create_lexicon:
         create_lexicon(manifest_dir, [cfg.data.train_csv])
     tokenizer = build_tokenizer(cfg, train_csv)
-    trainer = Trainer(cfg, tokenizer, device=device)
+    trainer = Trainer(cfg, tokenizer, device=device, lm=lm)
 
     valid_loader = None
     if cfg.data.dev_splits:

@@ -1,29 +1,35 @@
 """Joint CTC/attention beam search over the Transformer or the Mamba
-decoder (port of mamba_asr_tpu/decoding/s2s_beam.py, its path with the
-cached decoder and, for the Transformer, the ancestor table;
-SpeechBrain's S2STransformerBeamSearcher).
+decoder, with optional LM shallow fusion (port of
+mamba_asr_tpu/decoding/s2s_beam.py, its path with the cached decoder and
+the ancestor table; SpeechBrain's S2STransformerBeamSearcher with its
+ScorerBuilder).
 
 Each step, for N = B * beam hypotheses:
 
     total  = log_softmax(seq_head(decoder step) / temperature)
+             + lm_weight * log_softmax(LM step / temperature_lm)   (an LM)
              + ctc_weight * CTC prefix score        (ctc_weight > 0)
     scores = top beam of (score + total) over (beam * vocab) per utterance
 
-- CTC prefix scores (`ctc_prefix_scorer.py`) are kept for the top
-  ctc_candidates - 1 tokens by the decoder's score plus eos; a token
-  whose CTC score is NEG_INF is banned.
+- The LM term enters before the CTC candidates are picked (`s2s_beam.py:
+  317-347`): CTC prefix scores (`ctc_prefix_scorer.py`) are kept for the
+  top ctc_candidates - 1 tokens by the decoder's (+ LM's) score plus eos;
+  a token whose CTC score is NEG_INF is banned.
 - eos is banned before min_decode_ratio * T frames' worth of steps; a
   finished hypothesis extends only by eos at no cost. The search stops
   after min(max_steps_cap, max_decode_ratio * T + 1) steps, or earlier
   when every hypothesis has finished; unfinished ones count the full
   length. With length normalization the final score is divided by the
   length (eos included), and the best hypothesis of each utterance wins.
-- The decoder's self-attention K/V are append-only buffers read through
-  the ancestor table anc (S, N) (`models/attention.py:step_beam`, K4 on
-  the card): row s is reset to the identity before step s, and after the
-  selection the table's columns follow the chosen parents, one (S, N)
-  int32 gather. The cache length is s_max + 1 rounded up to 64, as in the
-  JAX package. The cross K/V are projected once per search.
+- The Transformer decoder's and the LM's self-attention K/V are
+  append-only buffers read through the ancestor table anc (S, N)
+  (`models/attention.py:step_beam`, K4 on the card): row s is reset to
+  the identity before step s, and after the selection the table's
+  columns follow the chosen parents, one (S, N) int32 gather. The table
+  exists whenever an LM is present or the decoder is the Transformer
+  (`s2s_beam.py:128-132`). The cache length is s_max + 1 rounded up to
+  64, as in the JAX package. The cross K/V are projected once per search;
+  the LM's K/V (12 layers of (H, S, N, dh)) are allocated once per search.
 - The Mamba decoder's cache is a (conv, ssm) state per Mamba block and
   hypothesis: every layer's cross-Mamba is primed once per search from
   the memory repeated to N rows (K1's h_last form on the card), and
@@ -38,13 +44,14 @@ Each step, for N = B * beam hypotheses:
   model (the JAX package's cast at `s2s_beam.py:143-173`, there once per
   search). Every floating parameter of the two is cast, the Mamba
   decoder's A_log, D, dt bias and conv taps too, as `cast_tree` does.
-  Build a new searcher after changing the decoder's weights.
+  A bf16 LM's weights are cast likewise, all but `output_proj`
+  (`models/lm.py:cast_lm_weights`; an LM already cast is used as given).
+  Build a new searcher after changing the decoder's or the LM's weights.
 
 The JAX search is one `lax.while_loop` on the device. Here the loop runs
 on the host: each step's kernels are launched from Python, and the early
 exit reads `finished.all()` once per step (one device-to-host sync per
-step). LM shallow fusion raises `NotImplementedError`: it comes with
-ROADMAP slice 3b (no YAML configures an LM).
+step).
 """
 
 from __future__ import annotations
@@ -57,6 +64,8 @@ import numpy as np
 import torch
 
 from mamba_asr_torch.decoding.ctc_prefix_scorer import CTCPrefixScorer
+from mamba_asr_torch.models.layers import cast_copy
+from mamba_asr_torch.models.lm import cast_lm_weights
 
 NEG_INF = -1e30
 ANC_CHUNK = 64  # cache length granularity (ops/pallas/beam_attention.py J_CHUNK)
@@ -69,15 +78,6 @@ def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _shallow(module):
-    """A new module object holding the same submodules, parameters and
-    buffers as `module`; replacing one of its submodules leaves `module`
-    as it was."""
-    out = copy.copy(module)
-    out._modules = dict(module._modules)
-    return out
-
-
 def cast_decode_weights(model):
     """`model` with its decode weights (token embedding and decoder) in its
     compute dtype; the model itself if that is float32. Only those two
@@ -85,20 +85,17 @@ def cast_decode_weights(model):
     heads stay the model's own."""
     if model.cfg.dtype == torch.float32:
         return model
-    out, inner = _shallow(model), _shallow(model._modules["1"])
-    out._modules["1"] = inner
-    with torch.no_grad():
-        for key in ("custom_tgt_module", "decoder"):
-            sub = copy.deepcopy(inner._modules[key])
-            for p in sub.parameters():
-                p.data = p.data.to(model.cfg.dtype)
-            inner._modules[key] = sub
+    out = copy.copy(model)
+    out._modules = dict(model._modules)
+    out._modules["1"] = cast_copy(model._modules["1"], ("custom_tgt_module", "decoder"),
+                                   model.cfg.dtype)
     return out
 
 
 @dataclasses.dataclass
 class S2SBeamSearcher:
-    """Beam search over an ASRModel's Transformer or Mamba decoder."""
+    """Beam search over an ASRModel's Transformer or Mamba decoder, with an
+    optional TransformerLM fused at lm_weight."""
 
     model: object               # models.asr.ASRModel with a decoder
     beam_size: int = 10
@@ -108,22 +105,22 @@ class S2SBeamSearcher:
     min_decode_ratio: float = 0.0
     max_decode_ratio: float = 1.0
     ctc_weight: float = 0.0
+    lm_weight: float = 0.0
     temperature: float = 1.0
+    temperature_lm: float = 1.0
     length_normalization: bool = True
-    lm_model: Optional[object] = None  # not ported: raises
+    lm_model: Optional[object] = None  # models.lm.TransformerLM, on the model's device
     max_steps_cap: int = 256
     ctc_candidates: int = 0     # 0: CTC-score the full vocabulary
 
     def __post_init__(self):
-        if self.lm_model is not None:
-            raise NotImplementedError(
-                "LM shallow fusion is not ported: it comes with ROADMAP slice 3b")
         cfg = self.model.cfg
         if cfg.num_decoder_layers <= 0 or cfg.decoder_module not in ("transformer", "mamba"):
             raise NotImplementedError(
                 "the S2S search runs the Transformer and Mamba decoders; the "
                 "Conformer decoder comes with ROADMAP slice 3b item 5")
         self.decode_model = cast_decode_weights(self.model)
+        self.decode_lm = None if self.lm_model is None else cast_lm_weights(self.lm_model)
         self.last_steps = 0  # steps the last search ran
 
     @torch.no_grad()
@@ -140,22 +137,25 @@ class S2SBeamSearcher:
         dev = enc_out.device
         s_max = min(self.max_steps_cap, int(self.max_decode_ratio * t_enc) + 1)
         min_steps = int(self.min_decode_ratio * t_enc)
-        mamba = model.mamba_decoder
+        mamba, lm = model.mamba_decoder, self.decode_lm
 
         scorer = state = None
         if self.ctc_weight > 0.0 and ctc_log_probs is not None:
             scorer = CTCPrefixScorer(ctc_log_probs, enc_lens, k, self.blank_id, eos)
             state = scorer.init_state()
         rows = torch.arange(n, dtype=torch.int32, device=dev)
-        anc = None
+        anc = lm_cache = None
+        s_cache = -(-(s_max + 1) // ANC_CHUNK) * ANC_CHUNK
+        if lm is not None or not mamba:
+            anc = rows.repeat(s_cache, 1)  # (S, N): anc[j, n] = row holding position j
         if mamba:
             cache = model.prime_decoder_cache(enc_out.repeat_interleave(k, dim=0),
                                               model.init_decoder_cache(n))
         else:
-            s_cache = -(-(s_max + 1) // ANC_CHUNK) * ANC_CHUNK
             cache = model.prime_decoder_cache(
                 enc_out, model.init_decoder_cache(n, s_cache), enc_lens.to(dev))
-            anc = rows.repeat(s_cache, 1)  # (S, N): anc[j, n] = row holding position j
+        if lm is not None:
+            lm_cache = lm.init_cache(n, s_cache, dev)
         tokens = torch.zeros(n, s_max + 1, dtype=torch.long, device=dev)
         tokens[:, 0] = self.bos_id
         scores = torch.full((b, k), NEG_INF, device=dev)
@@ -172,8 +172,13 @@ class S2SBeamSearcher:
         while s < s_max and not bool(finished.all()):
             if anc is not None:
                 anc[s] = rows
-            logits, cache = model.decode_step(tokens[:, s], s, cache, anc)
+            logits, cache = model.decode_step(tokens[:, s], s, cache,
+                                              None if mamba else anc)
             total = torch.log_softmax(logits / self.temperature, dim=-1)
+            if lm is not None:
+                lm_logits = lm.step(tokens[:, s], s, lm_cache, anc)
+                total = total + self.lm_weight * torch.log_softmax(
+                    lm_logits / self.temperature_lm, dim=-1)
             aux = None
             if scorer is not None:
                 cand = None
@@ -201,7 +206,7 @@ class S2SBeamSearcher:
                 state = scorer.select(state, aux, tok, reorder)
             if mamba:
                 cache = model.decoder.reorder_cache(cache, reorder)
-            else:
+            if anc is not None:
                 anc = anc[:, reorder]
             s += 1
         self.last_steps = s

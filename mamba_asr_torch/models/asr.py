@@ -46,6 +46,7 @@ from mamba_asr_torch.models.layers import (
     SBLinear,
     dense,
     dropout,
+    flax_init_,
     swish,
 )
 from mamba_asr_torch.models.transformer import (
@@ -346,15 +347,6 @@ class ASRModel(nn.Module):
         return self.seq_logits(dec), cache
 
 
-def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
-    """flax's default kernel init: truncated normal, variance 1/fan_in
-    (fan_in of the torch layout, which equals flax's for every layer
-    here)."""
-    fan_in = w[0].numel()
-    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
-
-
 @torch.no_grad()
 def init_params_(model: ASRModel, generator: torch.Generator) -> ASRModel:
     """Seeded weights with the JAX package's init rules: lecun-normal
@@ -363,18 +355,12 @@ def init_params_(model: ASRModel, generator: torch.Generator) -> ASRModel:
     dt_proj and unit D (the encoder's and the Mamba decoder's blocks)."""
     for module in model.modules():
         for name, p in module.named_parameters(recurse=False):
-            if isinstance(module, nn.Embedding):
-                p.normal_(0.0, 1.0, generator=generator)
-            elif isinstance(module, nn.LayerNorm):
-                p.fill_(1.0 if name == "weight" else 0.0)
-            elif name in ("A_log", "A_b_log"):
+            if name in ("A_log", "A_b_log"):
                 init_a_log_(p)
             elif name in ("D", "D_b"):
                 p.fill_(1.0)
-            elif p.dim() >= 2:
-                _lecun_normal_(p, generator)
             else:
-                p.zero_()
+                flax_init_(module, name, p, generator)
     mcfg = model.cfg.mamba
     for module in model.modules():
         if isinstance(module, (MambaBlock, BiMambaBlock)):

@@ -19,6 +19,7 @@ Trainer seeds it). It adds no parameters, so the state dict is unchanged.
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Sequence
 
 import torch
@@ -52,6 +53,38 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.T
     y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
                      ln.bias.float(), ln.eps)
     return y.to(dtype)
+
+
+def cast_copy(module, keys, dtype):
+    """A new module object holding `module`'s submodules, those named in
+    `keys` replaced by copies with every parameter in `dtype`; `module`
+    stays as it was."""
+    out = copy.copy(module)
+    out._modules = dict(module._modules)
+    with torch.no_grad():
+        for key in keys:
+            sub = copy.deepcopy(module._modules[key])
+            for p in sub.parameters():
+                p.data = p.data.to(dtype)
+            out._modules[key] = sub
+    return out
+
+
+def flax_init_(module: nn.Module, name: str, p: torch.Tensor,
+               generator: torch.Generator) -> None:
+    """The JAX package's init of `module`'s parameter `name`: normal(stddev
+    1) token embeddings, unit LayerNorm scales, zero biases, and flax's
+    default kernel init, a truncated normal of variance 1/fan_in (fan_in of
+    the torch layout, which equals flax's for every layer of the port)."""
+    if isinstance(module, nn.Embedding):
+        p.normal_(0.0, 1.0, generator=generator)
+    elif isinstance(module, nn.LayerNorm):
+        p.fill_(1.0 if name == "weight" else 0.0)
+    elif p.dim() >= 2:
+        std = (1.0 / p[0].numel()) ** 0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=generator)
+    else:
+        p.zero_()
 
 
 def make_layer_norm(d: int) -> nn.LayerNorm:

@@ -1,11 +1,13 @@
-"""Carry the JAX package's trained ASRModel params into the port.
+"""Carry the JAX package's trained ASRModel and TransformerLM params into
+the port.
 
 The port's own copy of the ConMamba, front-end, CTC-head, Transformer-
-decoder and Mamba-decoder subset of mamba_asr_tpu/models/torch_export.py (with
-params_convert.py's scanned -> unrolled step): a nested dict of arrays, as
-`ASRModel.init` gives it, becomes a state dict of float32 tensors under
-the reference names, which
-`mamba_asr_torch.models.asr.ASRModel.load_state_dict(strict=True)` takes.
+decoder, Mamba-decoder and TransformerLM subset of
+mamba_asr_tpu/models/torch_export.py (with params_convert.py's scanned
+-> unrolled step): a nested dict of arrays, as `ASRModel.init` or
+`TransformerLM.init` gives it, becomes a state dict of float32 tensors
+under the reference names, which the port's `ASRModel` and
+`models.lm.TransformerLM` take with `load_state_dict(strict=True)`.
 
 Orientations: Dense kernels (in, out) -> Linear (out, in); attention's
 q, k, v Dense kernels -> one stacked in_proj_weight (3D, D); depthwise taps
@@ -169,6 +171,14 @@ def _mamba_decoder_layer(t: _Tree, path: str, key: str, out):
         _layer_norm(t, f"{path}/norm{i}", f"{key}.norm{i}.norm", out)
 
 
+def _transformer_encoder_layer(t: _Tree, path: str, key: str, out):
+    """torch_export.py:_transformer_encoder_layer."""
+    _mha(t, f"{path}/self_att", f"{key}.self_att", out)
+    _ffn(t, f"{path}/ffn", f"{key}.pos_ffn", out)
+    for i in (1, 2):
+        _layer_norm(t, f"{path}/norm{i}", f"{key}.norm{i}.norm", out)
+
+
 def _frontend(t: _Tree, path: str, key: str, num_blocks: int, out):
     for i in range(num_blocks):
         blk = f"{key}.convblock_{i}.convs"
@@ -209,5 +219,20 @@ def import_asr_params(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]
         _linear(t, "ctc_head", "3.w", out)
     else:
         _linear(t, "ctc_head", "2.w", out)
+    t.finish()
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def import_lm_params(params: Mapping[str, Any], num_layers: int = 12
+                     ) -> Dict[str, torch.Tensor]:
+    """JAX TransformerLM params -> the port's TransformerLM state dict, in
+    SpeechBrain's flat names (torch_export.py:export_lm_params)."""
+    t = _Tree(params)
+    out: Dict[str, np.ndarray] = {
+        "custom_src_module.emb.Embedding.weight": t.take("embed/embed/embedding")}
+    for i in range(num_layers):
+        _transformer_encoder_layer(t, f"encoder/layer_{i}", f"encoder.layers.{i}", out)
+    _layer_norm(t, "encoder/norm", "encoder.norm.norm", out)
+    _linear(t, "out", "output_proj.w", out)
     t.finish()
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}

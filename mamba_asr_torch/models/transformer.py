@@ -1,7 +1,8 @@
-"""Transformer pieces of the S2S path (port of
+"""Transformer pieces of the S2S path and the LM (port of
 mamba_asr_tpu/models/transformer.py): the sinusoidal position table, the
-normalized token embedding, the mask helpers, and the pre-LN Transformer
-decoder with its decode cache.
+normalized token embedding, the mask helpers, the pre-LN Transformer
+decoder with its decode cache, and the encoder stack the TransformerLM
+(models/lm.py) is built from.
 
 Masks are boolean, True = disallowed or padded.
 
@@ -30,6 +31,21 @@ add (self-attention, cross-attention, FFN; `transformer.py:322, 332,
 activations (`layers.py:46`). eval() has none; the search steps the
 decoder in eval() mode.
 
+TransformerEncoder (reference Transformer.py:1197-1344; JAX
+`transformer.py:111-267`), regularMHA and regularFFN only: per layer
+
+    pre-LN  (normalize_before):  x = x + att(LN1(x));  x = x + ffn(LN2(x))
+    post-LN:                     x = LN1(x + att(x));  x = LN2(x + ffn(x))
+
+then the stack's final LN in both modes (`transformer.py:266`). Dropout
+sits at the decoder's places (each sublayer's output, the attention
+weights, the FFN's hidden activations). `forward` is the full pass (the
+caller's look-ahead and key padding masks); `init_cache` / `step` are
+the decoder's append-only K/V and ancestor table, without cross
+attention. Layerdrop, the 1-D CNN FFN, RelPosMHAXL and hypermixing
+raise: they come with the Transformer and Conformer ASR encoders
+(ROADMAP slice 4 item 1).
+
 The JAX package's heads-major reorder cache (`beam_gather=False`) and
 the search's full-prefix re-score (`use_cache=False`) are A/B switches of
 the TPU search and are not ported.
@@ -43,7 +59,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn as nn
 
-from mamba_asr_torch.models.attention import MultiheadAttention
+from mamba_asr_torch.models.attention import KV, MultiheadAttention
 from mamba_asr_torch.models.layers import (
     Activation,
     PositionalwiseFeedForward,
@@ -104,6 +120,15 @@ def lengths_to_padding_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor
 def get_lookahead_mask(length: int, device=None) -> torch.Tensor:
     """(L, L) causal mask, True above the diagonal (disallowed)."""
     return torch.ones(length, length, dtype=torch.bool, device=device).triu(1)
+
+
+def zero_kv(nhead: int, s_max: int, n: int, d_model: int, dtype: torch.dtype,
+            device=None) -> KV:
+    """One layer's append-only self K/V of n hypotheses: zero-filled
+    (H, s_max, n, dh) buffers."""
+    shape = (nhead, s_max, n, d_model // nhead)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -178,14 +203,9 @@ class TransformerDecoder(nn.Module):
     def init_cache(self, n: int, s_max: int, d_model: int,
                    device=None) -> Cache:
         """Zero-filled append-only self K/V (H, s_max, n, dh) per layer."""
-        dh = d_model // self.nhead
-
-        def zeros():
-            return torch.zeros(self.nhead, s_max, n, dh, dtype=self.dtype,
-                               device=device)
-
         layers: List[Dict[str, Any]] = [
-            {"self": (zeros(), zeros()), "cross": None} for _ in self.layers
+            {"self": zero_kv(self.nhead, s_max, n, d_model, self.dtype, device),
+             "cross": None} for _ in self.layers
         ]
         return {"layers": layers, "mem_mask": None}
 
@@ -209,3 +229,83 @@ class TransformerDecoder(nn.Module):
             x = layer(x, c["cross"], memory_key_padding_mask=cache["mem_mask"],
                       self_cache=c["self"], pos=pos, anc=anc)
         return layer_norm(x, self.norm.norm, self.dtype)[:, 0], cache
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Self-attention + FFN, pre- or post-LN. Reference keys: self_att,
+    pos_ffn, norm1, norm2."""
+
+    def __init__(self, d_model: int, d_ffn: int, nhead: int,
+                 activation: Activation = torch.relu, normalize_before: bool = False,
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+        super().__init__()
+        self.self_att = MultiheadAttention(d_model, nhead, dtype, dropout)
+        self.pos_ffn = PositionalwiseFeedForward(d_model, d_ffn, activation, dtype, dropout)
+        self.norm1 = SBLayerNorm(d_model)
+        self.norm2 = SBLayerNorm(d_model)
+        self.normalize_before = normalize_before
+        self.dtype = dtype
+        self.dropout = dropout
+
+    def forward(self, src: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
+                src_key_padding_mask: Optional[torch.Tensor] = None,
+                cache=None, pos: int = 0, anc: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """src (B, L, D); with `cache` (and anc) one position of each
+        hypothesis (N, 1, D) through `MultiheadAttention.step_beam`."""
+        dt, p, train, pre = self.dtype, self.dropout, self.training, self.normalize_before
+        x = layer_norm(src, self.norm1.norm, dt) if pre else src
+        if cache is None:
+            att = self.self_att(x, attn_mask=src_mask, key_padding_mask=src_key_padding_mask)
+        else:
+            att = self.self_att.step_beam(x, cache, pos, anc)
+        src = src + dropout(att, p, train)
+        if not pre:
+            src = layer_norm(src, self.norm1.norm, dt)
+        x = layer_norm(src, self.norm2.norm, dt) if pre else src
+        src = src + dropout(self.pos_ffn(x), p, train)
+        return src if pre else layer_norm(src, self.norm2.norm, dt)
+
+
+class TransformerEncoder(nn.Module):
+    def __init__(self, num_layers: int, d_model: int, d_ffn: int, nhead: int,
+                 activation: Activation = torch.relu, normalize_before: bool = False,
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 layerdrop: float = 0.0, attention_type: str = "regularMHA",
+                 ffn_type: str = "regularFFN"):
+        super().__init__()
+        if layerdrop > 0.0 or attention_type != "regularMHA" or ffn_type != "regularFFN":
+            raise NotImplementedError(
+                f"TransformerEncoder with layerdrop {layerdrop}, {attention_type}, "
+                f"{ffn_type}: only regularMHA and regularFFN without layerdrop are "
+                "ported; the rest comes with ROADMAP slice 4 item 1")
+        self.layers = nn.ModuleList([
+            TransformerEncoderLayer(d_model, d_ffn, nhead, activation, normalize_before,
+                                    dtype, dropout)
+            for _ in range(num_layers)
+        ])
+        self.norm = SBLayerNorm(d_model)
+        self.nhead = nhead
+        self.dtype = dtype
+
+    def forward(self, src: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
+                src_key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full pass: src (B, L, D) -> (B, L, D)."""
+        out = src
+        for layer in self.layers:
+            out = layer(out, src_mask, src_key_padding_mask)
+        return layer_norm(out, self.norm.norm, self.dtype)
+
+    def init_cache(self, n: int, s_max: int, d_model: int, device=None) -> List[KV]:
+        """Zero-filled append-only self K/V (H, s_max, n, dh) per layer."""
+        return [zero_kv(self.nhead, s_max, n, d_model, self.dtype, device)
+                for _ in self.layers]
+
+    def step(self, x: torch.Tensor, pos: int, cache: List[KV],
+             anc: torch.Tensor) -> torch.Tensor:
+        """One position of N hypotheses: x (N, D) at `pos` -> (N, D). The
+        K/V buffers are written in place."""
+        out = x[:, None]
+        for layer, kv in zip(self.layers, cache):
+            out = layer(out, cache=kv, pos=pos, anc=anc)
+        return layer_norm(out, self.norm.norm, self.dtype)[:, 0]

@@ -11,9 +11,11 @@ recognize.py, with training/trainer.py's make_eval_step).
 The S2S search takes its settings from the `decode` stanza
 (configs/loader.py:DecodeConfig): beam s2s_test_beam_size, CTC weight
 ctc_weight_decode, ctc_candidates, temperature, length normalization and
-the decode ratios, with at most 256 steps. No YAML configures an LM
-(`lm_path` is empty) and LM fusion is not ported: a non-empty `lm_path`
-raises.
+the decode ratios, with at most 256 steps. With `lm_path` set it fuses
+the TransformerLM that `models.lm.load_lm` builds from the stanza's
+`lm_*` fields at the model's vocabulary (recognize.py:101-124):
+lm_weight, temperature_lm. The CTC mode ignores the LM, as
+recognize.py's does.
 
 `transcribe` groups requests as recognize.py --batch does: sorted by
 duration (stable), `batch` at a time, each group padded to a multiple
@@ -34,6 +36,7 @@ from mamba_asr_torch.configs.loader import DecodeConfig, FrontendConfig
 from mamba_asr_torch.decoding.ctc_greedy import ctc_greedy_decode, tokens_to_lists
 from mamba_asr_torch.decoding.s2s_beam import S2SBeamSearcher, strip_special
 from mamba_asr_torch.models.asr import ASRConfig, ASRModel
+from mamba_asr_torch.models.lm import load_lm
 from mamba_asr_torch.ops.fbank import log_mel_spectrogram
 from mamba_asr_torch.training.normalizer import NormalizerState, apply_normalizer
 from mamba_asr_torch.utils.device import resolve_device
@@ -69,8 +72,9 @@ class Recognizer:
     mean, m2) of the JAX package's NormalizerState, or None for no
     statistics (features pass through). device: None means the CUDA card
     (raises without one); "cpu" runs the plain versions. search: "ctc"
-    (greedy) or "s2s" (the joint beam search, with `decode`'s settings;
-    the config needs a Transformer or Mamba decoder).
+    (greedy) or "s2s" (the joint beam search, with `decode`'s settings
+    and its LM when `decode.lm_path` is set; the config needs a
+    Transformer or Mamba decoder).
     """
 
     def __init__(
@@ -100,14 +104,15 @@ class Recognizer:
         self.search = search
         self.searcher = None
         if search == "s2s":
-            if decode.lm_path:
-                raise NotImplementedError(
-                    "decode.lm_path is set: LM fusion is not ported (ROADMAP slice 3b)")
+            lm = load_lm(decode, cfg.vocab_size, self.device)
             self.searcher = S2SBeamSearcher(
                 self.model, beam_size=decode.s2s_test_beam_size,
                 ctc_weight=decode.ctc_weight_decode,
                 ctc_candidates=decode.ctc_candidates,
+                lm_weight=decode.lm_weight if lm is not None else 0.0,
                 temperature=decode.temperature,
+                temperature_lm=decode.temperature_lm,
+                lm_model=lm,
                 length_normalization=decode.length_normalization,
                 max_decode_ratio=decode.max_decode_ratio,
                 min_decode_ratio=decode.min_decode_ratio,

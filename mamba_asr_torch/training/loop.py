@@ -22,9 +22,12 @@ the config has a decoder.
 A decoder hook takes the model it decodes with: the S2S hook builds its
 searcher at each call, so a bf16 searcher's cast copy of the decode
 weights (`decoding/s2s_beam.py:cast_decode_weights`) is always the
-current epoch's, or the averaged model's. No LM is fused (no YAML sets
-one; `cli.run_training` refuses `decode.lm_path`). `train.use_wandb`
-raises (no network on the card machine).
+current epoch's, or the averaged model's. An LM given to the Trainer
+(`cli.load_lm`, from `decode.lm_path`) is fused into the test search
+only, at lm_weight and temperature_lm; the validation search has none
+(JAX `loop.py:121-127, 189`). Its bf16 copy is made once per Trainer:
+the LM does not change during training. `train.use_wandb` raises (no
+network on the card machine).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from mamba_asr_torch.decoding.ctc_beam import ctc_beam_search
 from mamba_asr_torch.decoding.ctc_greedy import ctc_greedy_decode, tokens_to_lists
 from mamba_asr_torch.decoding.s2s_beam import S2SBeamSearcher, strip_special
 from mamba_asr_torch.models.asr import ASRModel
+from mamba_asr_torch.models.lm import TransformerLM, cast_lm_weights
 from mamba_asr_torch.serving.recognizer import eval_step
 from mamba_asr_torch.training.checkpoint import CheckpointManager
 from mamba_asr_torch.training.logger import FileTrainLogger, JsonlLogger
@@ -63,12 +67,14 @@ class Trainer:
     cfg: the whole experiment config; tokenizer: its tokenizer;
     device: None means the CUDA card (raises without one), "cpu" the plain
     versions; state_dict: initial weights in the port's names (None:
-    seeded from cfg.seed, as the JAX package seeds its init).
+    seeded from cfg.seed, as the JAX package seeds its init); lm: the
+    TransformerLM the test search fuses (on the same device), or None.
     """
 
     def __init__(self, cfg: ExperimentConfig, tokenizer,
                  device: Optional[Union[str, torch.device]] = None,
-                 state_dict: Optional[Dict[str, torch.Tensor]] = None):
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 lm: Optional[TransformerLM] = None):
         if cfg.train.use_wandb:
             raise NotImplementedError("train.use_wandb: the wandb logger is not ported")
         self.cfg = cfg
@@ -78,6 +84,7 @@ class Trainer:
                                 cfg.specaug, state_dict=state_dict, device=device)
         self.device = self.step.device
         self.is_s2s = cfg.model.num_decoder_layers > 0
+        self.lm = None if lm is None else cast_lm_weights(lm)
         self.metric_key = "ACC" if self.is_s2s else "WER"
         self.step_keys = STEP_KEYS + (S2S_KEYS if self.is_s2s else ())
         out_dir = cfg.output_folder
@@ -243,14 +250,19 @@ class Trainer:
         """A joint beam searcher over `model` per the decode stanza: beam
         s2s_test_beam_size (test) or valid_beam_size (validation), CTC
         weight ctc_weight_decode, ctc_candidates, temperature, length
-        normalization and the decode ratios; no LM. Its decode weights are
-        cast from the model's as they are now."""
+        normalization and the decode ratios; the test search fuses the
+        Trainer's LM, if any. Its decode weights are cast from the model's
+        as they are now."""
         d = self.cfg.decode
+        lm = self.lm if test else None
         return S2SBeamSearcher(
             model, beam_size=d.s2s_test_beam_size if test else d.valid_beam_size,
             ctc_weight=d.ctc_weight_decode, ctc_candidates=d.ctc_candidates,
-            temperature=d.temperature, length_normalization=d.length_normalization,
-            max_decode_ratio=d.max_decode_ratio, min_decode_ratio=d.min_decode_ratio)
+            lm_weight=d.lm_weight if lm is not None else 0.0,
+            temperature=d.temperature, temperature_lm=d.temperature_lm,
+            length_normalization=d.length_normalization,
+            max_decode_ratio=d.max_decode_ratio, min_decode_ratio=d.min_decode_ratio,
+            lm_model=lm)
 
     def s2s_decoder(self, test: bool = True) -> Decoder:
         """The S2S recipes' decoder hook: the joint beam search (test or

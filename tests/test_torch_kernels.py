@@ -348,6 +348,39 @@ def test_beam_attention_kernel_matches_plain_on_card(dtype, dh, pos, s, n, split
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [255, 1023])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_beam_attention_kernel_at_the_lm_shape_on_card(dtype, pos):
+    """K4 at the TransformerLM's heads, H 12 of dh 64, N 528 (B8 x beam 66),
+    S 320 (the search's cache) at pos 255 and S 1,024 at pos 1,023, on a
+    random ancestor table with row pos the identity, rows past pos NaN:
+    float32 within 2e-5, bf16 within
+    1e-2 + 1e-2 relative. At H 12 the split rule's head blocks (up to 16 /
+    splits heads) need not divide the heads: the kernel guards the last
+    block."""
+    _card()
+    from mamba_asr_torch.kernels import beam_attention as k4
+    from mamba_asr_torch.ops import beam_attention as ba
+
+    dt = getattr(torch, dtype)
+    h, dh, n = 12, 64, 528
+    s = {255: 320, 1023: 1024}[pos]
+    gen = torch.Generator(device="cuda").manual_seed(pos)
+    q = torch.randn(n, h, dh, device="cuda", generator=gen).to(dt)
+    k, v = (torch.randn(h, s, n, dh, device="cuda", generator=gen).to(dt) for _ in range(2))
+    anc = torch.randint(0, n, (s, n), device="cuda", generator=gen, dtype=torch.int32)
+    anc[pos] = torch.arange(n, device="cuda", dtype=torch.int32)
+    ref = ba.beam_attention_ref(q, k, v, anc, pos)
+    k[:, pos + 1:], v[:, pos + 1:] = float("nan"), float("nan")
+    before = k4.LAUNCHES
+    got = ba.beam_attention(q, k, v, anc, pos)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == before + 1 and got.dtype == dt
+    tol = 1e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
 # -- P1, the scan-attribution variants; the redesigned K1 at B1 -------------
 
 

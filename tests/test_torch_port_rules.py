@@ -22,8 +22,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from mamba_asr_torch.cli import run_training
-from mamba_asr_torch.configs.loader import ExperimentConfig, FrontendConfig
+from mamba_asr_torch import train_lm
+from mamba_asr_torch.cli import load_lm, run_training
+from mamba_asr_torch.configs.loader import DecodeConfig, ExperimentConfig, FrontendConfig
 from mamba_asr_torch.data.tokenizer import CharTokenizer
 from mamba_asr_torch.models.asr import ASRConfig
 from mamba_asr_torch.serving.recognizer import Recognizer
@@ -93,7 +94,12 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_to_floor.main(["--workdir", str(tmp_path / "ttf"), "--n-train", "1",
                              "--n-dev", "1", "--n-test", "1"])
-    assert not (tmp_path / "out").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_lm(dataclasses.replace(exp, decode=DecodeConfig(lm_path="lm.pt")))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_lm.main(["--corpus", "c.txt", "--tokenizer", "t.json", "--output",
+                       str(tmp_path / "lm")])
+    assert not (tmp_path / "out").exists() and not (tmp_path / "lm").exists()
     assert resolve_device("cpu") == torch.device("cpu")
 
 

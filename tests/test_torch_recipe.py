@@ -288,9 +288,10 @@ def test_cli_refuses_what_is_not_ported(corpus, tmp_path):
     with pytest.raises(NotImplementedError, match="slice 3b item 5"):
         train_to_floor.run_mode("s2s", corpus, str(tmp_path), 1, device="cpu",
                                 extra=["--model.decoder_module", "conformer"])
-    with pytest.raises(NotImplementedError, match="slice 3b item 4"):
+    with pytest.raises(ValueError, match="save_torch_lm"):  # a flax msgpack LM
         run_training([s2s, "--decode.lm_path", "lm.msgpack", "--device", "cpu",
                       "--data.output_folder", str(tmp_path / "lm")])
+    assert not (tmp_path / "lm").exists()
     with pytest.raises(NotImplementedError, match="concat/repeat"):
         loop.Trainer(load_config(s2s, {"data.output_folder": str(tmp_path),
                                        "specaug.repeat_augment": 2}),
