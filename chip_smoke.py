@@ -83,7 +83,7 @@ exits non-zero; it prints no result without a CUDA card):
   s2s_recognize  Recognizer(search="s2s") in bf16 with the decode stanza
              (beam 66, CTC 0.4, 96 candidates): 3 requests of 3-30 s at
              batch=1; then B8 x 30 s of noise at batch=8, S2S RTFx as the
-             median of 3 searches (the seeded decoder rarely emits eos, so
+             median of S2S_SEARCHES searches (the seeded decoder rarely emits eos, so
              each search runs all 256 steps: the worst case)
   s2s_profile  one B8 x 30 s search under torch.profiler, with K3's and
              K4's device ms
@@ -152,7 +152,7 @@ exits non-zero; it prints no result without a CUDA card):
              losses and gradients, held as in s2s_train_parity
   mamba_dec_recognize  Recognizer(search="s2s") with the YAML's decode
              stanza (beam 66) answers 3 requests of 3-30 s; S2S RTFx at B8
-             x 30 s (median of 3 searches), K1 and K3 launches per search,
+             x 30 s (median of S2S_SEARCHES searches), K1 and K3 launches per search,
              one profiled search
   mamba_dec_train  Trainer(device="cuda") with the Mamba YAML's settings
              (bf16, dropout 0.1, bicubic warp, accumulation 8, vocab 5000)
@@ -190,6 +190,24 @@ exits non-zero; it prints no result without a CUDA card):
   lm_floor   the S2S floor run (Transformer decoder) again through the CLI
              with --decode.lm_path <that lm.pt>: it resumes, only tests, and
              fuses the LM; test WER <= 2.0 % beside the WER without it
+  conformer_kernels  (after lm_recognize) K4 at the Conformer-Large
+             decoder's heads (hparams/S2S/conformer_large.yaml: H 8, dh 64,
+             S 320, N 528, bf16 and fp32 at pos 255 on a random and a
+             beam-shaped table; bf16 at pos 1,023 on both) against its
+             plain gather; time, bound, the gather + SDPA call
+  conformer_parity  fp32 with TF32 and cuDNN off, seeded weights, full
+             width and depth, B2 x 4 s with row 1 at 3.1 s: CTC log-probs
+             of CTC/conformer_large, conformer_large_hypermixing and
+             branchformer_large and of S2S/conformer_small, card against
+             CPU; for S2S/conformer_small 8 decode steps through shuffled
+             ancestor tables and the joint search at beam 4 (tokens equal)
+  conformer_recognize  bf16 through Recognizer: CTC RTFx of Conformer-Large
+             at B32 x 30 s (5 blocks of 10 calls; one profiled call), one
+             block each for the hypermixing and Branchformer YAMLs; S2S
+             RTFx of Conformer-Small at B8 x 30 s with its decode stanza
+             (beam 66, median of S2S_SEARCHES searches, K3 256 and K4 1,024
+             per search, one profiled search) and one Conformer-Large
+             search (K4 1,536)
 
 Each phase also prints its wall seconds. Then the kernels line, the
 card's name and power limit, and last
@@ -280,9 +298,10 @@ MAMBA_SEARCH = (8, 66)
 MAMBA_TRAIN_S = 81
 MAMBA_FLOOR_EPOCHS = 50
 MAMBA_FLOOR_CORPUS = (160, 16, 16)
-# Timed searches of s2s_recognize and mamba_dec_recognize (5 until the
-# LM's phases joined the script).
-S2S_SEARCHES = 3
+# Timed searches of s2s_recognize, mamba_dec_recognize and
+# conformer_recognize (5 until the LM's phases joined the script, 3 until
+# the other encoders' did).
+S2S_SEARCHES = 2
 # The LM (slice 3b item 4): the timed fused searches at B8 x 30 s, the
 # LM's training run on the 160-utterance tone transcripts (at full width,
 # vocab 5000, fp32; the JAX script's flags but steps, batch and logging)
@@ -292,11 +311,20 @@ S2S_SEARCHES = 3
 # 300 steps on an H100, with 4000 they reached ppl ~3. 900 steps bring the
 # tone floor run's held-out transcripts to ppl ~1.2 (300: ~2.8, an LM that
 # still turned one test word of that run from AB into FAB).
-LM_SEARCHES = 3
+LM_SEARCHES = 2  # 3 until the other encoders' phases joined the script
 LM_TRAIN = dict(steps=900, batch_size=16, seq_len=128, lr=1e-3, warmup=4000,
                 log_every=100, save_every=900)
 LM_PPL_TARGET = 10.0
 LM_PPL_OF_UNIGRAM = 0.5  # and below half the stream's unigram ppl
+# The other encoders (slice 4 item 1): the CTC YAMLs (Conformer-Large with
+# RelPosMHAXL and with hypermixing, Branchformer-Large) and the Conformer
+# S2S YAMLs (Small and Large, the Transformer decoder). The CTC RTFx
+# blocks: the recognize phase's 5 of 10 calls for Conformer-Large, one
+# block each for the others.
+CONFORMER_CTC = ("hparams/CTC/conformer_large.yaml",
+                 "hparams/CTC/conformer_large_hypermixing.yaml",
+                 "hparams/CTC/branchformer_large.yaml")
+CONFORMER_S2S = ("hparams/S2S/conformer_small.yaml", "hparams/S2S/conformer_large.yaml")
 
 
 def scans_per_step(cfg) -> int:
@@ -1455,6 +1483,26 @@ def first_difference(a, b) -> int:
     return -1 if len(diff) == 0 else int(diff[0])
 
 
+def decode_steps(rec, enc, enc_lens, toks, perms):
+    """Cached decode steps of the Transformer decoder of `rec`'s model over
+    the memory enc (B, T, D): row s of toks (steps, n) is step s's tokens,
+    and after it the ancestor table's columns are shuffled by perms[s].
+    The steps' log-probs (steps, n, V) on the CPU."""
+    model, dev = rec.model, rec.device
+    n = toks.shape[1]
+    cache = model.prime_decoder_cache(enc.to(dev), model.init_decoder_cache(n, 64),
+                                      enc_lens.to(dev))
+    anc = np.tile(np.arange(n, dtype=np.int32), (64, 1))
+    outs = []
+    for s in range(len(toks)):
+        anc[s] = np.arange(n)
+        logits, cache = model.decode_step(torch.from_numpy(toks[s]).to(dev), s,
+                                          cache, torch.from_numpy(anc).to(dev))
+        outs.append(torch.log_softmax(logits, -1).cpu())
+        anc = np.ascontiguousarray(anc[:, perms[s]])
+    return torch.stack(outs)
+
+
 def phase_s2s_parity(s2s_cfg, frontend, state):
     from mamba_asr_torch.decoding.ctc_prefix_scorer import CTCPrefixScorer
     from mamba_asr_torch.kernels import beam_attention as k4
@@ -1480,20 +1528,6 @@ def phase_s2s_parity(s2s_cfg, frontend, state):
     sel_toks[1:, 1::5] = sel_toks[:-1, 1::5]  # the same token again
     reorders = rng.integers(0, beam, (4, n)) + np.repeat(np.arange(2) * beam, beam)
 
-    def decode_chain(rec):
-        model, dev = rec.model, rec.device
-        cache = model.prime_decoder_cache(enc.to(dev), model.init_decoder_cache(n, 64),
-                                          enc_lens.to(dev))
-        anc = np.tile(np.arange(n, dtype=np.int32), (64, 1))
-        outs = []
-        for s in range(8):
-            anc[s] = np.arange(n)
-            logits, cache = model.decode_step(torch.from_numpy(dec_toks[s]).to(dev), s,
-                                              cache, torch.from_numpy(anc).to(dev))
-            outs.append(torch.log_softmax(logits, -1).cpu())
-            anc = np.ascontiguousarray(anc[:, perms[s]])
-        return torch.stack(outs)
-
     def scorer_chain(rec):
         dev = rec.device
         sc = CTCPrefixScorer(lp.to(dev), enc_lens.to(dev), beam)
@@ -1507,7 +1541,7 @@ def phase_s2s_parity(s2s_cfg, frontend, state):
         return outs
 
     k3.LAUNCHES = k4.LAUNCHES = 0
-    dec = {name: decode_chain(rec) for name, rec in recs.items()}
+    dec = {name: decode_steps(rec, enc, enc_lens, dec_toks, perms) for name, rec in recs.items()}
     chain = {name: scorer_chain(rec) for name, rec in recs.items()}
     launches = {"K3": k3.LAUNCHES, "K4": k4.LAUNCHES}
     if launches != {"K3": 4, "K4": 8 * cfg32.num_decoder_layers}:
@@ -2567,28 +2601,31 @@ def seeded_lm(decode, vocab, seed=SEED):
     return init_params_(lm, torch.Generator().manual_seed(seed)).eval()
 
 
-def phase_lm_kernels(decode, clock_hz, sms):
-    """K4 at the LM's shape: H 12, dh 64, S 320, N 528 (B8 x beam 66), bf16,
-    pos 255 on a random and a beam-shaped table, and at pos 1,023 (S
-    1,024); fp32 at pos 255. Times, bounds and the gather + SDPA call."""
+def k4_at_shape(phase, h, dh, seed, clock_hz, sms):
+    """K4 at H heads of dh, S 320, N 528 (B8 x beam 66) against its plain
+    gather: bf16 and fp32 at pos 255 on a random and a beam-shaped table,
+    bf16 at pos 1,023 (S 1,024) on both. Times, bounds and the gather +
+    SDPA call at pos 255 in bf16."""
     from mamba_asr_torch.kernels import beam_attention as k4
     from mamba_asr_torch.ops.beam_attention import beam_attention_ref
 
-    h, dh = decode.lm_nhead, decode.lm_d_model // decode.lm_nhead
     n, s = 528, 320
-    rng = np.random.default_rng(SEED + 10)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     cases, timing = [], {}
+
+    def check(q, kv, anc, pos, name, tol):
+        got = k4.beam_attention_fwd(q, *kv, anc, pos)
+        torch.cuda.synchronize()
+        ref = beam_attention_ref(q, *kv, anc, pos)
+        cases.append({"case": name, "max_abs_err": check_close(
+            f"{phase} {name}", got, ref, *tol), "tol": tol})
+
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, (2e-5, 2e-5))):
         q, kv = beam_attn_inputs(gen, n, h, s, dh, dtype)
         tables = {"random": anc_table(s, n, 255, rng), "beam": beam_table(s, n, 255, rng)}
         for table, anc in tables.items():
-            got = k4.beam_attention_fwd(q, *kv, anc, 255)
-            torch.cuda.synchronize()
-            ref = beam_attention_ref(q, *kv, anc, 255)
-            name = f"h{h}_dh{dh}_n{n}_pos255_{table}_{str(dtype)[6:]}"
-            cases.append({"case": name, "max_abs_err": check_close(
-                f"lm_kernels {name}", got, ref, *tol), "tol": tol})
+            check(q, kv, anc, 255, f"h{h}_dh{dh}_n{n}_pos255_{table}_{str(dtype)[6:]}", tol)
             if dtype != torch.bfloat16:
                 continue
             bound_ms, bound_by, sector_ms, distinct = beam_attn_bound_ms(
@@ -2601,18 +2638,20 @@ def phase_lm_kernels(decode, clock_hz, sms):
                 "distinct_rows": distinct, "split_rule": k4.split_rule(n, h, 255, sms)}
         del q, kv
     q, kv = beam_attn_inputs(gen, n, h, 1024, dh, torch.bfloat16)
-    anc = anc_table(1024, n, 1023, rng)
-    got = k4.beam_attention_fwd(q, *kv, anc, 1023)
-    torch.cuda.synchronize()
-    name = f"h{h}_dh{dh}_n{n}_pos1023_s1024_bfloat16"
-    cases.append({"case": name, "max_abs_err": check_close(
-        f"lm_kernels {name}", got, beam_attention_ref(q, *kv, anc, 1023), *BF16_TOL),
-        "tol": BF16_TOL})
+    for table, make in (("random", anc_table), ("beam", beam_table)):
+        check(q, kv, make(1024, n, 1023, rng), 1023,
+              f"h{h}_dh{dh}_n{n}_pos1023_s1024_{table}_bfloat16", BF16_TOL)
     del q, kv
-    result = {"phase": "lm_kernels", "name": "beam_attention", "shape": [h, s, n, dh],
+    result = {"phase": phase, "name": "beam_attention", "shape": [h, s, n, dh],
               "cases": cases, "timing": timing, **timing["random"]}
     emit(result)
     return result
+
+
+def phase_lm_kernels(decode, clock_hz, sms):
+    """K4 at the LM's shape: H 12, dh 64 (`k4_at_shape`)."""
+    return k4_at_shape("lm_kernels", decode.lm_nhead, decode.lm_d_model // decode.lm_nhead,
+                       SEED + 10, clock_hz, sms)
 
 
 @torch.no_grad()
@@ -2799,6 +2838,181 @@ def phase_lm_recognize(s2s, s2s_state, mam, mam_state, work, no_lm):
     return result
 
 
+# -- the other encoders: Conformer, HyperMixing, Branchformer (slice 4 item 1) ----------
+
+
+def phase_conformer_kernels(large, clock_hz, sms):
+    """K4 at the Conformer-Large decoder's shape: H 8, dh 64 (`k4_at_shape`)."""
+    return k4_at_shape("conformer_kernels", large.nhead, large.d_model // large.nhead,
+                       SEED + 13, clock_hz, sms)
+
+
+def yaml_name(path):
+    return path[len("hparams/"):-len(".yaml")]
+
+
+@torch.no_grad()
+def phase_conformer_parity(exps, states):
+    """Full width and depth, fp32 with TF32 and cuDNN off, B2 x 4 s with
+    row 1 at 3.1 s: the card against the CPU. CTC log-probs of the three
+    CTC YAMLs and of S2S/conformer_small within PARITY_TOL; for that S2S
+    model 8 cached decode steps through shuffled ancestor tables (on the
+    CPU's encoder output) within S2S_PARITY_TOL, and the joint search at
+    beam 4 with the YAML's stanza on each device's own forward: tokens
+    equal, scores within S2S_PARITY_TOL."""
+    from mamba_asr_torch.decoding.s2s_beam import S2SBeamSearcher
+    from mamba_asr_torch.kernels import beam_attention as k4
+    from mamba_asr_torch.kernels import ctc_dp as k3
+    from mamba_asr_torch.serving.recognizer import Recognizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.enabled = False
+    wav = np.zeros((2, 64000), np.float32)
+    wav[0] = noise(4.0, 31)
+    wav[1, :49600] = noise(3.1, 32)
+    lens = torch.tensor([64000, 49600], dtype=torch.int32)
+    result, small = {"phase": "conformer_parity", "tol": PARITY_TOL}, CONFORMER_S2S[0]
+    for path in CONFORMER_CTC + (small,):
+        exp = exps[path]
+        cfg32 = dataclasses.replace(exp.model, compute_dtype="float32")
+        recs = {dev: Recognizer(cfg32, exp.frontend, states[path], device=dev, batch=2)
+                for dev in ("cuda", "cpu")}
+        outs = {dev: rec.eval_step(torch.from_numpy(wav), lens) for dev, rec in recs.items()}
+        lp = {dev: o["ctc_log_probs"].cpu() for dev, o in outs.items()}
+        result[yaml_name(path)] = {"shape": list(lp["cpu"].shape), "max_abs_err": check_close(
+            f"conformer_parity {path} ctc_log_probs", lp["cuda"], lp["cpu"], PARITY_TOL, 0.0)}
+    exp, cpu = exps[small], outs["cpu"]
+    rng = np.random.default_rng(SEED + 14)
+    n, vocab, d = 8, exp.model.vocab_size, exp.decode
+    toks, perms = rng.integers(3, vocab, (8, n)), rng.integers(0, n, (8, n))
+    k4.LAUNCHES = 0
+    steps = {dev: decode_steps(rec, cpu["enc_out"][:1], cpu["enc_lengths"][:1], toks, perms)
+             for dev, rec in recs.items()}
+    if k4.LAUNCHES != 8 * exp.model.num_decoder_layers:
+        raise AssertionError(f"conformer_parity: K4 launches {k4.LAUNCHES} in 8 steps")
+    found = {}
+    for dev, rec in recs.items():
+        o = outs[dev]
+        searcher = S2SBeamSearcher(rec.model, beam_size=4, ctc_weight=d.ctc_weight_decode,
+                                   ctc_candidates=d.ctc_candidates, temperature=d.temperature)
+        k3.LAUNCHES = k4.LAUNCHES = 0
+        found[dev] = [x.cpu() for x in searcher(o["enc_out"], o["enc_lengths"],
+                                                o["ctc_log_probs"])]
+        found[dev].append((searcher.last_steps, k3.LAUNCHES, k4.LAUNCHES))
+    st, l3, l4 = found["cuda"][3]
+    if (l3, l4) != (st, exp.model.num_decoder_layers * st):
+        raise AssertionError(f"conformer_parity: search launches K3 {l3}, K4 {l4}, steps {st}")
+    if not torch.equal(found["cuda"][0], found["cpu"][0]):
+        raise AssertionError("conformer_parity: search tokens differ, first at "
+                             f"{first_difference(found['cuda'][0][0], found['cpu'][0][0])}")
+    torch.backends.cudnn.enabled = True
+    torch.backends.cudnn.allow_tf32 = True  # back to PyTorch's defaults
+    result["s2s"] = {
+        "decode_step_max_abs_err": check_close("conformer_parity decode steps", steps["cuda"],
+                                               steps["cpu"], S2S_PARITY_TOL, 0.0),
+        "search_score_max_abs_err": check_close(
+            "conformer_parity search scores", found["cuda"][2], found["cpu"][2],
+            S2S_PARITY_TOL, 0.0),
+        "search": {"beam": 4, "scores": found["cuda"][2].tolist(),
+                   "lengths": found["cuda"][1].tolist(), "steps": st, "tokens_equal": True}}
+    emit(result)
+
+
+@torch.no_grad()
+def phase_conformer_recognize(exps, states):
+    """bf16 through Recognizer. CTC RTFx at B32 x 30 s of noise: the
+    recognize phase's 5 blocks of 10 calls for Conformer-Large, one block
+    for the hypermixing and Branchformer YAMLs, and one profiled
+    Conformer-Large call. S2S RTFx of Conformer-Small
+    at B8 x 30 s with its YAML's decode stanza (beam 66, CTC 0.4, 96
+    candidates; median of S2S_SEARCHES searches) and one timed
+    Conformer-Large search, each holding K3 at one launch per step and K4
+    at one per decoder layer and step over all 256 steps; one profiled
+    Conformer-Small search."""
+    from mamba_asr_torch.kernels import beam_attention as k4
+    from mamba_asr_torch.kernels import ctc_dp as k3
+    from mamba_asr_torch.kernels import selective_scan as k1
+    from mamba_asr_torch.serving.recognizer import Recognizer
+
+    torch.cuda.reset_peak_memory_stats()
+    result = {"phase": "conformer_recognize", "ctc": {}, "s2s": {}}
+    batch = [noise(30.0, 500 + i) for i in range(32)]
+    iters = 10
+    for path, count in zip(CONFORMER_CTC, (5, 1, 1)):
+        exp = exps[path]
+        rec = Recognizer(exp.model, exp.frontend, states[path], device="cuda", batch=32)
+        lp = rec.eval_step(torch.from_numpy(np.stack(batch)),
+                           torch.full((32,), 480000, dtype=torch.int32))["ctc_log_probs"]
+        if tuple(lp.shape) != (32, 751, exp.model.vocab_size) or not torch.isfinite(lp).all():
+            raise AssertionError(f"conformer_recognize {path}: bad log-probs {tuple(lp.shape)}")
+        rec.transcribe(batch)  # warm-up
+        k1.LAUNCHES, blocks = 0, []
+        for _ in range(count):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                rec.transcribe(batch)
+            blocks.append(32 * 30.0 * iters / (time.perf_counter() - t0))
+        if k1.LAUNCHES:
+            raise AssertionError(f"conformer_recognize {path}: {k1.LAUNCHES} scan launches")
+        rtfx = statistics.median(blocks)
+        result["ctc"][yaml_name(path)] = {
+            "batch": 32, "seconds_each": 30.0, "iters_per_block": iters, "rtfx": rtfx,
+            "blocks": blocks, "spread_pct": 100.0 * (max(blocks) - min(blocks)) / rtfx}
+        if path == CONFORMER_CTC[0]:
+            wall_ms, device_ms, top = device_profile(lambda: rec.transcribe(batch), 12)
+            result["ctc"][yaml_name(path)]["profile"] = {
+                "wall_ms": wall_ms, "device_kernel_ms": device_ms,
+                "idle_share": 1.0 - device_ms / wall_ms, "top": top}
+        del rec
+    bsz, s2s_batch = 8, [noise(30.0, 600 + i) for i in range(8)]
+    wav = torch.from_numpy(np.stack(s2s_batch))
+    lens = torch.full((bsz,), 480000, dtype=torch.int32)
+    for path, count in zip(CONFORMER_S2S, (S2S_SEARCHES, 1)):
+        exp = exps[path]
+        layers = exp.model.num_decoder_layers
+        rec = Recognizer(exp.model, exp.frontend, states[path], device="cuda", batch=bsz,
+                         decode=exp.decode, search="s2s")
+        if (rec.searcher.beam_size, exp.decode.ctc_weight_decode, exp.decode.ctc_candidates,
+                exp.decode.lm_path) != (66, 0.4, 96, ""):
+            raise AssertionError(f"conformer_recognize {path}: not the YAML's stanza")
+        out = rec.eval_step(wav, lens)
+        toks, tlens, scores = rec.searcher(out["enc_out"], out["enc_lengths"],
+                                           out["ctc_log_probs"])
+        if (tuple(toks.shape) != (bsz, 256) or not torch.isfinite(scores).all()
+                or int(toks.min()) < 0 or int(toks.max()) >= exp.model.vocab_size):
+            raise AssertionError(f"conformer_recognize {path}: bad search result "
+                                 f"{tuple(toks.shape)} {scores.tolist()}")
+        blocks = []
+        for _ in range(count):
+            k1.LAUNCHES = k3.LAUNCHES = k4.LAUNCHES = 0
+            t0 = time.perf_counter()
+            rec.transcribe(s2s_batch)
+            blocks.append(bsz * 30.0 / (time.perf_counter() - t0))
+            per_search = {"K1": k1.LAUNCHES, "K3": k3.LAUNCHES, "K4": k4.LAUNCHES,
+                          "steps": rec.searcher.last_steps}
+            if per_search != {"K1": 0, "K3": 256, "K4": 256 * layers, "steps": 256}:
+                raise AssertionError(f"conformer_recognize {path}: per search {per_search}")
+        rtfx = statistics.median(blocks)
+        entry = {"batch": bsz, "seconds_each": 30.0, "rtfx": rtfx, "blocks": blocks,
+                 "spread_pct": 100.0 * (max(blocks) - min(blocks)) / rtfx,
+                 "launches_per_search": per_search, "best_lengths": tlens.tolist()}
+        if path == CONFORMER_S2S[0]:
+            wall_ms, device_ms, top = device_profile(
+                lambda: rec.decode_batch(wav, lens), 15, ("ctc_dp_kernel", "beam_attention_kernel"))
+            entry["profile"] = {
+                "wall_ms": wall_ms, "device_kernel_ms": device_ms,
+                "idle_share": 1.0 - device_ms / wall_ms,
+                "K3_ms": sum(r["ms"] for r in top if "ctc_dp_kernel" in r["kernel"]),
+                "K4_ms": sum(r["ms"] for r in top if "beam_attention_kernel" in r["kernel"]),
+                "top": top}
+        result["s2s"][yaml_name(path)] = entry
+        del rec
+    result["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit(result)
+    return result
+
+
 def phase_train_lm(work, floor):
     """mamba_asr_torch.train_lm's loop at full LM width in fp32 on the
     transcripts of the 160-utterance tone training split (encoded with the
@@ -2936,6 +3150,12 @@ def main() -> int:
         lm_search = timed(phase_lm_recognize, s2s, s2s_state, mam, mam_state, work,
                           s2s_search)
         del s2s_state, mam_state
+        conf = {path: load_config(path) for path in CONFORMER_CTC + CONFORMER_S2S}
+        ck = timed(phase_conformer_kernels, conf[CONFORMER_S2S[1]].model, clock_hz, sms)
+        conf_states = {path: seeded_state(exp.model) for path, exp in conf.items()}
+        timed(phase_conformer_parity, conf, conf_states)
+        conf_search = timed(phase_conformer_recognize, conf, conf_states)
+        del conf_states
         corpus = timed(phase_data, work)
         timed(phase_ctc_beam, exp)
         recipe_launches = timed(phase_recipe, work, corpus)
@@ -3010,6 +3230,8 @@ def main() -> int:
         "s2s_recipe_launches": s2s_recipe_launches["K3"],
         "mamba_dec_launches_per_search": mam_search["K3"],
         "mamba_dec_recipe_launches": mam_recipe_launches["K3"],
+        "conformer_launches_per_search": {
+            name: e["launches_per_search"]["K3"] for name, e in conf_search["s2s"].items()},
     }, {
         "name": "beam_attention", "route": "cuda",
         "source": "mamba_asr_torch/csrc/beam_attention.cu",
@@ -3029,6 +3251,16 @@ def main() -> int:
         "lm_shape_bound_ms": lmk["bound_ms"], "lm_shape_bound_by": lmk["bound_by"],
         "lm_shape_library_ms": lmk["library_ms"],
         "lm_shape_beam_table_ms": lmk["timing"]["beam"]["kernel_ms"],
+        "conformer_launches_per_search": {
+            name: e["launches_per_search"]["K4"] for name, e in conf_search["s2s"].items()},
+        "conformer_large_shape": ck["shape"],
+        "conformer_large_shape_max_abs_err": max(c["max_abs_err"] for c in ck["cases"]),
+        "conformer_large_shape_ms": ck["kernel_ms"],
+        "conformer_large_shape_plain_ms": ck["plain_ms"],
+        "conformer_large_shape_bound_ms": ck["bound_ms"],
+        "conformer_large_shape_bound_by": ck["bound_by"],
+        "conformer_large_shape_library_ms": ck["library_ms"],
+        "conformer_large_shape_beam_table_ms": ck["timing"]["beam"]["kernel_ms"],
     }] + [{
         "name": f"scan_variants_{part}", "route": "cuda",
         "source": "mamba_asr_torch/csrc/scan_variants.cu",

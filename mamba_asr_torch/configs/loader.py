@@ -68,9 +68,10 @@ class DataConfig:
 class DecodeConfig:
     """Decoding settings, every field and default of the JAX package's
     DecodeConfig. The port reads the CTC beam's fields (`training.loop.
-    Trainer.ctc_decoder`) and the S2S joint search's
-    (`serving.recognizer.Recognizer(search="s2s")`); the LM's wait for
-    their slice."""
+    Trainer.ctc_decoder`), the S2S joint search's
+    (`serving.recognizer.Recognizer(search="s2s")`) and the LM's
+    (`models.lm.load_lm`: lm_path, lm_dtype and the lm_* widths; the
+    search's lm_weight and temperature_lm)."""
 
     # CTC beam search (hparams/CTC/conmamba_large.yaml:168-172, 232-237).
     valid_greedy: bool = True

@@ -1,11 +1,20 @@
-"""Top-level ASR model (port of mamba_asr_tpu/models/asr.py), ConMamba
-encoder with the CTC head and, for S2S configs, the Transformer or the
-Mamba decoder (`decoder_module`):
+"""Top-level ASR model (port of mamba_asr_tpu/models/asr.py): an encoder
+(`encoder_module`) with the CTC head and, for S2S configs, the
+Transformer or the Mamba decoder (`decoder_module`):
 
     feats -> Conv2d front end -> flatten (B, T', F'*C) -> src_proj ->
-    dropout -> ConMamba encoder -> ctc_head (float32) -> log_softmax
+    dropout -> encoder -> ctc_head (float32) -> log_softmax
     tokens_bos -> NormalizedEmbedding + sinusoidal PE -> TransformerDecoder
            or MambaDecoder -> seq_head (float32) -> log_softmax  (S2S configs)
+
+The encoders (JAX `asr.py:345-388`): ConMamba (no mask: padded frames
+are scanned, as in JAX), and the Conformer, the Branchformer and the
+pre-LN Transformer, which take the key padding mask of `enc_lengths`
+and, by `attention_type`, the relative offsets' sine table in the
+compute dtype (RelPosMHAXL), nothing (hypermixing, which adds its own
+PE), or (regularMHA) the absolute sine PE added to the input, except
+the Conformer's regularMHA, which JAX gives no PE at all. A causal model
+with hypermixing is refused (ROADMAP Departures).
 
 `forward(feats, lengths, tokens_bos)` is the JAX package's `__call__`
 (`asr.py:520-575`): with a decoder and tokens_bos it adds the teacher-
@@ -20,11 +29,11 @@ does.
 The module tree is the reference's saved ModuleList, so the state dict
 has the names that `export_asr_params` writes and `params_import`
 produces: `0` the CNN front end, `1` the TransformerASR (its
-`custom_src_module` holds src_proj, `encoder` the ConMamba stack,
+`custom_src_module` holds src_proj, `encoder` the encoder stack,
 `custom_tgt_module` the embedding, `decoder` the decoder), then the
 heads: `2` the CTC head without a decoder; `2` the seq head and `3` the
-CTC head with one (`torch_export.py:296-310`). The other encoders and
-the Conformer decoder wait for later slices.
+CTC head with one (`torch_export.py:296-310`). The Conformer decoder
+waits for ROADMAP slice 3b item 5.
 
 The decode cache dispatches on the decoder: the Transformer's takes an
 s_max and an ancestor table (append-only K/V), the Mamba decoder's
@@ -40,6 +49,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mamba_asr_torch.models.attention import rel_pos_encoding
+from mamba_asr_torch.models.branchformer import BranchformerEncoder
+from mamba_asr_torch.models.conformer import ConformerEncoder
 from mamba_asr_torch.models.conmamba import ConmambaEncoder, MambaDecoder
 from mamba_asr_torch.models.layers import (
     ConvolutionFrontEnd,
@@ -52,6 +64,7 @@ from mamba_asr_torch.models.layers import (
 from mamba_asr_torch.models.transformer import (
     NormalizedEmbedding,
     TransformerDecoder,
+    TransformerEncoder,
     get_lookahead_mask,
     lengths_to_padding_mask,
     sinusoidal_position_encoding,
@@ -160,6 +173,36 @@ class _TgtModule(nn.Module):
         self.layers = nn.ModuleList([NormalizedEmbedding(vocab_size, d_model, dtype)])
 
 
+def build_encoder(cfg: ASRConfig) -> nn.Module:
+    """The encoder of `cfg.encoder_module` (JAX `asr.py:175-236`)."""
+    act, dt = cfg.activation_fn(), cfg.dtype
+    mod = cfg.encoder_module
+    if mod == "conmamba":
+        return ConmambaEncoder(
+            num_layers=cfg.num_encoder_layers, d_model=cfg.d_model,
+            d_ffn=cfg.d_ffn, kernel_size=cfg.kernel_size,
+            activation=act, bias=cfg.bias, causal=cfg.causal,
+            mamba_cfg=cfg.mamba, bidirectional=cfg.bidirectional,
+            dtype=dt, dropout=cfg.dropout,
+        )
+    if mod == "conformer":
+        return ConformerEncoder(
+            cfg.num_encoder_layers, cfg.d_model, cfg.d_ffn, cfg.nhead, cfg.kernel_size,
+            act, cfg.bias, cfg.causal, cfg.attention_type, dt, cfg.dropout)
+    if mod == "branchformer":
+        return BranchformerEncoder(
+            cfg.num_encoder_layers, cfg.d_model, cfg.nhead, cfg.kernel_size,
+            cfg.csgu_linear_units, cfg.use_linear_after_conv, cfg.gate_activation, act,
+            cfg.causal, cfg.attention_type, dt, cfg.dropout)
+    if mod == "transformer":
+        # JAX passes neither causal, layerdrop nor the FFN type (asr.py:223-234).
+        return TransformerEncoder(
+            cfg.num_encoder_layers, cfg.d_model, cfg.d_ffn, cfg.nhead, act,
+            normalize_before=True, dtype=dt, dropout=cfg.dropout,
+            attention_type=cfg.attention_type)
+    raise ValueError(f"unknown encoder_module {mod!r}")
+
+
 class _TransformerASR(nn.Module):
     """Entry `1` of the reference ModuleList: src_proj and the encoder,
     and with a decoder the target embedding and the decoder."""
@@ -167,13 +210,7 @@ class _TransformerASR(nn.Module):
     def __init__(self, cfg: ASRConfig):
         super().__init__()
         self.custom_src_module = _SrcModule(cfg.frontend_output_dim, cfg.d_model)
-        self.encoder = ConmambaEncoder(
-            num_layers=cfg.num_encoder_layers, d_model=cfg.d_model,
-            d_ffn=cfg.d_ffn, kernel_size=cfg.kernel_size,
-            activation=cfg.activation_fn(), bias=cfg.bias, causal=cfg.causal,
-            mamba_cfg=cfg.mamba, bidirectional=cfg.bidirectional,
-            dtype=cfg.dtype, dropout=cfg.dropout,
-        )
+        self.encoder = build_encoder(cfg)
         if cfg.num_decoder_layers > 0:
             self.custom_tgt_module = _TgtModule(cfg.vocab_size, cfg.d_model, cfg.dtype)
             if cfg.decoder_module == "mamba":
@@ -195,12 +232,11 @@ class ASRModel(nn.Module):
 
     def __init__(self, cfg: ASRConfig):
         super().__init__()
-        if cfg.encoder_module != "conmamba":
-            raise NotImplementedError(
-                f"encoder_module={cfg.encoder_module!r}: only the ConMamba "
-                "encoder is ported; the others come with the slice that "
-                "ports the other encoders (ROADMAP Slice 4)"
-            )
+        if cfg.attention_type == "hypermixing" and cfg.causal \
+                and cfg.encoder_module != "conmamba":
+            raise ValueError(
+                "attention_type=hypermixing mixes every frame: a causal model cannot "
+                "take it (the JAX package mixes the future without a word)")
         if cfg.num_decoder_layers > 0 and cfg.decoder_module not in ("transformer", "mamba"):
             raise NotImplementedError(
                 f"decoder_module={cfg.decoder_module!r}: the Transformer and "
@@ -233,7 +269,7 @@ class ASRModel(nn.Module):
         return self._modules["1"].custom_src_module.layers[0].w
 
     @property
-    def encoder(self) -> ConmambaEncoder:
+    def encoder(self) -> nn.Module:
         return self._modules["1"].encoder
 
     @property
@@ -271,7 +307,16 @@ class ASRModel(nn.Module):
             enc_lengths = -(-feat_lengths // self.cfg.downsample)  # ceil div
         else:
             enc_lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
-        return self.encoder(x), enc_lengths
+        cfg = self.cfg
+        if cfg.encoder_module == "conmamba":
+            return self.encoder(x), enc_lengths
+        pos = None
+        if cfg.attention_type == "RelPosMHAXL":
+            pos = rel_pos_encoding(t, cfg.d_model, x.dtype, x.device)
+        elif cfg.attention_type != "hypermixing" and cfg.encoder_module != "conformer":
+            x = x + sinusoidal_position_encoding(t, cfg.d_model, x.dtype, x.device)
+        pad_mask = lengths_to_padding_mask(enc_lengths, t)
+        return self.encoder(x, src_key_padding_mask=pad_mask, pos_embs=pos), enc_lengths
 
     def forward(self, feats: torch.Tensor,
                 feat_lengths: Optional[torch.Tensor] = None,
@@ -352,7 +397,9 @@ def init_params_(model: ASRModel, generator: torch.Generator) -> ASRModel:
     """Seeded weights with the JAX package's init rules: lecun-normal
     kernels, zero biases, unit LayerNorm scales, normal(stddev 1) token
     embeddings, and Mamba's S4D A_log, log-uniform dt bias, uniform
-    dt_proj and unit D (the encoder's and the Mamba decoder's blocks)."""
+    dt_proj and unit D (the encoder's and the Mamba decoder's blocks);
+    a module with its own rules (RelPosMHAXL's zero u and v, HyperMixing's
+    MLPs, the CSGU's near-identity gate) applies them last."""
     for module in model.modules():
         for name, p in module.named_parameters(recurse=False):
             if name in ("A_log", "A_b_log"):
@@ -361,6 +408,9 @@ def init_params_(model: ASRModel, generator: torch.Generator) -> ASRModel:
                 p.fill_(1.0)
             else:
                 flax_init_(module, name, p, generator)
+    for module in model.modules():
+        if hasattr(module, "init_params_"):  # RelPosMHAXL, HyperMixing, the CSGU
+            module.init_params_(generator)
     mcfg = model.cfg.mamba
     for module in model.modules():
         if isinstance(module, (MambaBlock, BiMambaBlock)):

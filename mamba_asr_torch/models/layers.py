@@ -1,6 +1,6 @@
 """Shared model layers (port of mamba_asr_tpu/models/layers.py): the
-positionwise FFN, the Conformer convolution module (full-sequence path)
-and the Conv2d front end.
+positionwise FFN, its 1-D CNN form, the Conformer convolution module
+(full-sequence path) and the Conv2d front end.
 
 Parameters keep the reference PyTorch names that
 `mamba_asr_tpu.models.torch_export.export_asr_params` writes (SpeechBrain's
@@ -20,7 +20,7 @@ Trainer seeds it). It adds no parameters, so the state dict is unchanged.
 from __future__ import annotations
 
 import copy
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -128,11 +128,53 @@ class PositionalwiseFeedForward(nn.Module):
         return dense(h, self.ffn["3"], self.dtype)
 
 
+class _SBConv1d(nn.Module):
+    """SpeechBrain's Conv1d wrapper: the layer sits under `.conv`."""
+
+    def __init__(self, cin: int, cout: int, k: int):
+        super().__init__()
+        self.conv = nn.Conv1d(cin, cout, k)
+
+
+def conv_pads(k: int, causal: bool) -> tuple:
+    """(left, right) padding of a stride-1 conv of k taps: flax's "CAUSAL"
+    (k-1, 0) or "SAME" ((k-1)//2, k-1-(k-1)//2)."""
+    return (k - 1, 0) if causal else ((k - 1) // 2, k - 1 - (k - 1) // 2)
+
+
+class CNNFeedForward(nn.Module):
+    """The 1-D CNN FFN of the Transformer encoder layer (`ffn_type: 1dcnn`,
+    JAX `layers.py:CNNFeedForward`): Conv1d(d_ffn, k0) -> ReLU ->
+    Conv1d(d_model, k1), SAME or (causal) left padding, no dropout inside.
+    Keys `0.conv` and `2.conv`: the reference's Sequential(Conv1d, ReLU,
+    Conv1d) of SpeechBrain Conv1d wrappers."""
+
+    def __init__(self, d_model: int, d_ffn: int, kernel_sizes=(3, 3),
+                 causal: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.add_module("0", _SBConv1d(d_model, d_ffn, kernel_sizes[0]))
+        self.add_module("2", _SBConv1d(d_ffn, d_model, kernel_sizes[1]))
+        self.causal = causal
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.transpose(1, 2).to(self.dtype)
+        for i, key in enumerate(("0", "2")):
+            conv = self._modules[key].conv
+            h = F.conv1d(F.pad(h, conv_pads(conv.kernel_size[0], self.causal)),
+                         conv.weight.to(self.dtype), conv.bias.to(self.dtype))
+            if i == 0:
+                h = F.relu(h)
+        return h.transpose(1, 2)
+
+
 class ConvolutionModule(nn.Module):
-    """Conformer convolution module, full sequence, no mask:
+    """Conformer convolution module, full sequence:
     LN -> pointwise 2x expansion + GLU -> depthwise conv -> LN ->
-    activation -> pointwise Dense -> dropout. Non-causal pads (K-1)//2 on
-    both sides, causal pads K-1 on the left."""
+    activation -> pointwise Dense -> dropout, then zero at the padded
+    frames of `mask` (B, L, 1), True = padded (JAX `layers.py:155-162`;
+    the Conformer passes its key padding mask, ConMamba none). Non-causal
+    pads (K-1)//2 on both sides, causal pads K-1 on the left."""
 
     def __init__(self, d_model: int, kernel_size: int = 31, bias: bool = True,
                  activation: Activation = swish, causal: bool = False,
@@ -160,7 +202,7 @@ class ConvolutionModule(nn.Module):
         k = self.kernel_size
         return k - 1 if self.causal else (k - 1) // 2
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         dt = self.dtype
         out = layer_norm(x, self.layer_norm, dt)
         pw = self.bottleneck["0"]
@@ -176,7 +218,8 @@ class ConvolutionModule(nn.Module):
                        groups=out.shape[1])
         out = layer_norm(out.transpose(1, 2), self.after_conv["0"], dt)
         out = dense(self.activation(out), self.after_conv["2"], dt)
-        return dropout(out, self.dropout, self.training)
+        out = dropout(out, self.dropout, self.training)
+        return out if mask is None else out.masked_fill(mask, 0.0)
 
 
 def same_padding(n: int, k: int, s: int) -> tuple:

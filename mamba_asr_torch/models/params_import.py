@@ -1,13 +1,18 @@
 """Carry the JAX package's trained ASRModel and TransformerLM params into
 the port.
 
-The port's own copy of the ConMamba, front-end, CTC-head, Transformer-
-decoder, Mamba-decoder and TransformerLM subset of
-mamba_asr_tpu/models/torch_export.py (with params_convert.py's scanned
--> unrolled step): a nested dict of arrays, as `ASRModel.init` or
+The port's own copy of mamba_asr_tpu/models/torch_export.py for every
+encoder (ConMamba, Conformer, Transformer, Branchformer; RelPosMHAXL,
+regularMHA or hypermixing), the front end, the heads, the Transformer and
+Mamba decoders and the TransformerLM (with params_convert.py's scanned ->
+unrolled step): a nested dict of arrays, as `ASRModel.init` or
 `TransformerLM.init` gives it, becomes a state dict of float32 tensors
 under the reference names, which the port's `ASRModel` and
 `models.lm.TransformerLM` take with `load_state_dict(strict=True)`.
+HyperMixing, the Branchformer and the 1-D CNN FFN have no reference
+layout (`export_asr_params` refuses them); they map to the port's own
+names (models/hypermixing.py, models/branchformer.py,
+models/layers.py:CNNFeedForward).
 
 Orientations: Dense kernels (in, out) -> Linear (out, in); attention's
 q, k, v Dense kernels -> one stacked in_proj_weight (3D, D); depthwise taps
@@ -154,6 +159,62 @@ def _mha(t: _Tree, path: str, key: str, out):
     _linear(t, f"{path}/out", f"{key}.att.out_proj", out)
 
 
+def _relpos_mha(t: _Tree, path: str, key: str, out):
+    """torch_export.py:_relpos_mha: no-bias q, k, v stacked, `out`, the
+    position projection and the (H, dh) biases u and v."""
+    out[f"{key}.in_proj_weight"] = np.concatenate(
+        [t.take(f"{path}/{n}/kernel").T for n in ("q", "k", "v")], axis=0)
+    _linear(t, f"{path}/out", f"{key}.out_proj", out)
+    out[f"{key}.linear_pos.weight"] = t.take(f"{path}/pos/kernel").T
+    for name in ("pos_bias_u", "pos_bias_v"):
+        out[f"{key}.{name}"] = t.take(f"{path}/{name}")
+
+
+def _hypermixing(t: _Tree, path: str, key: str, out):
+    for gen in ("hyper_w1_gen", "hyper_w2_gen"):
+        for name in ("fc1_weights", "fc1_biases", "fc2_weights", "fc2_biases"):
+            out[f"{key}.{gen}.{name}"] = t.take(f"{path}/{gen}/{name}")
+    _layer_norm(t, f"{path}/layer_norm", f"{key}.layer_norm", out)
+
+
+def _attention(attention_type: str):
+    """The mapper of an encoder layer's self-attention."""
+    return {"RelPosMHAXL": _relpos_mha, "hypermixing": _hypermixing}.get(
+        attention_type, _mha)
+
+
+def _conformer_layer(t: _Tree, path: str, key: str, attention_type: str, out):
+    """torch_export.py:_conformer_encoder_layer."""
+    _layer_norm(t, f"{path}/ffn1_norm", f"{key}.ffn_module1.0", out)
+    _ffn(t, f"{path}/ffn1", f"{key}.ffn_module1.1", out)
+    _attention(attention_type)(t, f"{path}/mha", f"{key}.mha_layer", out)
+    _conv_module(t, f"{path}/conv", f"{key}.convolution_module", out)
+    _layer_norm(t, f"{path}/ffn2_norm", f"{key}.ffn_module2.0", out)
+    _ffn(t, f"{path}/ffn2", f"{key}.ffn_module2.1", out)
+    _layer_norm(t, f"{path}/norm1", f"{key}.norm1.norm", out)
+    _layer_norm(t, f"{path}/norm2", f"{key}.norm2.norm", out)
+
+
+def _branchformer_layer(t: _Tree, path: str, key: str, attention_type: str, out):
+    """The JAX tree onto the port's own names (models/branchformer.py)."""
+    _layer_norm(t, f"{path}/norm_mha", f"{key}.norm_mha", out)
+    _layer_norm(t, f"{path}/norm_mlp", f"{key}.norm_mlp", out)
+    _attention(attention_type)(t, f"{path}/mha", f"{key}.mha_layer", out)
+    mlp = f"{path}/cgmlp"
+    _linear(t, f"{mlp}/channel_proj1", f"{key}.cgmlp.channel_proj1", out)
+    _csgu(t, f"{mlp}/csgu", f"{key}.cgmlp.csgu", out)
+    _linear(t, f"{mlp}/channel_proj2", f"{key}.cgmlp.channel_proj2", out)
+    _linear(t, f"{path}/merge_proj", f"{key}.merge_proj", out)
+
+
+def _csgu(t: _Tree, path: str, key: str, out):
+    _layer_norm(t, f"{path}/norm", f"{key}.norm", out)
+    out[f"{key}.conv.weight"] = t.take(f"{path}/dw_kernel").T[:, None, :]
+    out[f"{key}.conv.bias"] = t.take(f"{path}/dw_bias")
+    if t.has(f"{path}/linear_after_conv"):
+        _linear(t, f"{path}/linear_after_conv", f"{key}.linear_after_conv", out)
+
+
 def _decoder_layer(t: _Tree, path: str, key: str, out):
     _mha(t, f"{path}/self_attn", f"{key}.self_attn", out)
     _mha(t, f"{path}/cross_attn", f"{key}.multihead_attn", out)
@@ -171,12 +232,36 @@ def _mamba_decoder_layer(t: _Tree, path: str, key: str, out):
         _layer_norm(t, f"{path}/norm{i}", f"{key}.norm{i}.norm", out)
 
 
-def _transformer_encoder_layer(t: _Tree, path: str, key: str, out):
-    """torch_export.py:_transformer_encoder_layer."""
-    _mha(t, f"{path}/self_att", f"{key}.self_att", out)
-    _ffn(t, f"{path}/ffn", f"{key}.pos_ffn", out)
+def _transformer_encoder_layer(t: _Tree, path: str, key: str, out,
+                               attention_type: str = "regularMHA"):
+    """torch_export.py:_transformer_encoder_layer, with RelPosMHAXL or
+    hypermixing as `self_att`, and the 1-D CNN FFN (flax Conv (k, in,
+    out) -> Conv1d (out, in, k)) where the tree has one."""
+    _attention(attention_type)(t, f"{path}/self_att", f"{key}.self_att", out)
+    if t.has(f"{path}/ffn/conv1"):
+        for i, conv in ((0, "conv1"), (2, "conv2")):
+            out[f"{key}.pos_ffn.{i}.conv.weight"] = (
+                t.take(f"{path}/ffn/{conv}/kernel").transpose(2, 1, 0))
+            out[f"{key}.pos_ffn.{i}.conv.bias"] = t.take(f"{path}/ffn/{conv}/bias")
+    else:
+        _ffn(t, f"{path}/ffn", f"{key}.pos_ffn", out)
     for i in (1, 2):
         _layer_norm(t, f"{path}/norm{i}", f"{key}.norm{i}.norm", out)
+
+
+def _encoder_layer_mapper(cfg):
+    """The mapper (t, path, key, out) of one layer of cfg's encoder."""
+    att = cfg.attention_type
+    mappers = {
+        "conmamba": _encoder_layer,
+        "conformer": lambda t, path, key, out: _conformer_layer(t, path, key, att, out),
+        "branchformer": lambda t, path, key, out: _branchformer_layer(t, path, key, att, out),
+        "transformer": lambda t, path, key, out: _transformer_encoder_layer(
+            t, path, key, out, att),
+    }
+    if cfg.encoder_module not in mappers:
+        raise ValueError(f"unknown encoder_module {cfg.encoder_module!r}")
+    return mappers[cfg.encoder_module]
 
 
 def _frontend(t: _Tree, path: str, key: str, num_blocks: int, out):
@@ -192,12 +277,10 @@ def _frontend(t: _Tree, path: str, key: str, num_blocks: int, out):
 def import_asr_params(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
     """JAX ASRModel params (unrolled or scanned layout; numpy or JAX
     arrays) -> the port's ASRModel state dict for `cfg`."""
-    if cfg.encoder_module != "conmamba" or (
-            cfg.num_decoder_layers > 0 and cfg.decoder_module not in ("transformer", "mamba")):
+    if cfg.num_decoder_layers > 0 and cfg.decoder_module not in ("transformer", "mamba"):
         raise NotImplementedError(
-            "params import covers the ConMamba encoder with the CTC head and "
-            "the Transformer and Mamba decoders; the Conformer decoder comes "
-            "with ROADMAP slice 3b item 5"
+            "params import covers the Transformer and Mamba decoders; the "
+            "Conformer decoder comes with ROADMAP slice 3b item 5"
         )
     if "stack" in params.get("encoder", {}):
         params = _unroll_encoder(params, cfg.num_encoder_layers)
@@ -205,8 +288,9 @@ def import_asr_params(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]
     out: Dict[str, np.ndarray] = {}
     _frontend(t, "frontend", "0", len(cfg.frontend_channels), out)
     _linear(t, "src_proj", "1.custom_src_module.layers.0.w", out)
+    layer = _encoder_layer_mapper(cfg)
     for i in range(cfg.num_encoder_layers):
-        _encoder_layer(t, f"encoder/layer_{i}", f"1.encoder.layers.{i}", out)
+        layer(t, f"encoder/layer_{i}", f"1.encoder.layers.{i}", out)
     _layer_norm(t, "encoder/norm", "1.encoder.norm.norm", out)
     if cfg.num_decoder_layers > 0:
         out["1.custom_tgt_module.layers.0.emb.Embedding.weight"] = t.take(

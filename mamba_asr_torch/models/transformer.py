@@ -32,19 +32,23 @@ activations (`layers.py:46`). eval() has none; the search steps the
 decoder in eval() mode.
 
 TransformerEncoder (reference Transformer.py:1197-1344; JAX
-`transformer.py:111-267`), regularMHA and regularFFN only: per layer
+`transformer.py:111-267`), the LM's stack and an ASR encoder: per layer
 
     pre-LN  (normalize_before):  x = x + att(LN1(x));  x = x + ffn(LN2(x))
     post-LN:                     x = LN1(x + att(x));  x = LN2(x + ffn(x))
 
-then the stack's final LN in both modes (`transformer.py:266`). Dropout
-sits at the decoder's places (each sublayer's output, the attention
-weights, the FFN's hidden activations). `forward` is the full pass (the
+then the stack's final LN in both modes (`transformer.py:266`). The
+attention is regularMHA, RelPosMHAXL (taking the caller's `pos_embs`) or
+hypermixing (`attention.py:self_attention`); the FFN is the positionwise
+one or the 1-D CNN (`ffn_type: 1dcnn`, left-padded when `causal`).
+Dropout sits at the decoder's places (each sublayer's output, the
+attention weights, the FFN's hidden activations). In train() mode
+`layerdrop` skips each layer with that probability, one Bernoulli per
+layer from the `generator` the caller passes (JAX draws them from its
+dropout key, `transformer.py:229-233`). `forward` is the full pass (the
 caller's look-ahead and key padding masks); `init_cache` / `step` are
 the decoder's append-only K/V and ancestor table, without cross
-attention. Layerdrop, the 1-D CNN FFN, RelPosMHAXL and hypermixing
-raise: they come with the Transformer and Conformer ASR encoders
-(ROADMAP slice 4 item 1).
+attention (regularMHA only, as in JAX).
 
 The JAX package's heads-major reorder cache (`beam_gather=False`) and
 the search's full-prefix re-score (`use_cache=False`) are A/B switches of
@@ -59,9 +63,10 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn as nn
 
-from mamba_asr_torch.models.attention import KV, MultiheadAttention
+from mamba_asr_torch.models.attention import KV, MultiheadAttention, self_attention
 from mamba_asr_torch.models.layers import (
     Activation,
+    CNNFeedForward,
     PositionalwiseFeedForward,
     SBLayerNorm,
     dropout,
@@ -73,12 +78,13 @@ Cache = Dict[str, Any]
 
 
 def sinusoidal_position_encoding(length: int, d_model: int,
-                                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                                 dtype: torch.dtype = torch.float32,
+                                 device=None) -> torch.Tensor:
     """Absolute sinusoidal position table (length, d_model)."""
-    pos = torch.arange(length, dtype=torch.float32)[:, None]
-    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32)
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
                     * (-math.log(10000.0) / d_model))
-    pe = torch.zeros(length, d_model)
+    pe = torch.zeros(length, d_model, device=device)
     pe[:, 0::2] = torch.sin(pos * div)
     pe[:, 1::2] = torch.cos(pos * div)
     return pe.to(dtype)
@@ -237,10 +243,19 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, d_model: int, d_ffn: int, nhead: int,
                  activation: Activation = torch.relu, normalize_before: bool = False,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 attention_type: str = "regularMHA", ffn_type: str = "regularFFN",
+                 ffn_cnn_kernel_sizes=(3, 3), causal: bool = False):
         super().__init__()
-        self.self_att = MultiheadAttention(d_model, nhead, dtype, dropout)
-        self.pos_ffn = PositionalwiseFeedForward(d_model, d_ffn, activation, dtype, dropout)
+        # hypermixing: d_ffn hidden units (the reference's construction).
+        self.self_att = self_attention(attention_type, d_model, nhead, d_ffn, dtype, dropout)
+        if ffn_type == "1dcnn":
+            self.pos_ffn = CNNFeedForward(d_model, d_ffn, ffn_cnn_kernel_sizes, causal, dtype)
+        elif ffn_type == "regularFFN":
+            self.pos_ffn = PositionalwiseFeedForward(d_model, d_ffn, activation, dtype,
+                                                     dropout)
+        else:
+            raise ValueError(f"unknown ffn_type {ffn_type!r}")
         self.norm1 = SBLayerNorm(d_model)
         self.norm2 = SBLayerNorm(d_model)
         self.normalize_before = normalize_before
@@ -249,14 +264,15 @@ class TransformerEncoderLayer(nn.Module):
 
     def forward(self, src: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
                 src_key_padding_mask: Optional[torch.Tensor] = None,
-                cache=None, pos: int = 0, anc: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                cache=None, pos: int = 0, anc: Optional[torch.Tensor] = None,
+                pos_embs: Optional[torch.Tensor] = None) -> torch.Tensor:
         """src (B, L, D); with `cache` (and anc) one position of each
         hypothesis (N, 1, D) through `MultiheadAttention.step_beam`."""
         dt, p, train, pre = self.dtype, self.dropout, self.training, self.normalize_before
         x = layer_norm(src, self.norm1.norm, dt) if pre else src
         if cache is None:
-            att = self.self_att(x, attn_mask=src_mask, key_padding_mask=src_key_padding_mask)
+            att = self.self_att(x, attn_mask=src_mask, key_padding_mask=src_key_padding_mask,
+                                pos_embs=pos_embs)
         else:
             att = self.self_att.step_beam(x, cache, pos, anc)
         src = src + dropout(att, p, train)
@@ -272,28 +288,38 @@ class TransformerEncoder(nn.Module):
                  activation: Activation = torch.relu, normalize_before: bool = False,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
                  layerdrop: float = 0.0, attention_type: str = "regularMHA",
-                 ffn_type: str = "regularFFN"):
+                 ffn_type: str = "regularFFN", ffn_cnn_kernel_sizes=(3, 3),
+                 causal: bool = False):
         super().__init__()
-        if layerdrop > 0.0 or attention_type != "regularMHA" or ffn_type != "regularFFN":
-            raise NotImplementedError(
-                f"TransformerEncoder with layerdrop {layerdrop}, {attention_type}, "
-                f"{ffn_type}: only regularMHA and regularFFN without layerdrop are "
-                "ported; the rest comes with ROADMAP slice 4 item 1")
+        if attention_type == "hypermixing" and causal:
+            raise ValueError("hypermixing mixes every frame: a causal encoder cannot "
+                             "take it (the JAX package mixes the future without a word)")
         self.layers = nn.ModuleList([
             TransformerEncoderLayer(d_model, d_ffn, nhead, activation, normalize_before,
-                                    dtype, dropout)
+                                    dtype, dropout, attention_type, ffn_type,
+                                    ffn_cnn_kernel_sizes, causal)
             for _ in range(num_layers)
         ])
         self.norm = SBLayerNorm(d_model)
         self.nhead = nhead
         self.dtype = dtype
+        self.layerdrop = layerdrop
 
     def forward(self, src: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
-                src_key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Full pass: src (B, L, D) -> (B, L, D)."""
+                src_key_padding_mask: Optional[torch.Tensor] = None,
+                pos_embs: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Full pass: src (B, L, D) -> (B, L, D). In train() mode with
+        layerdrop, a layer drawn to drop leaves its input unchanged."""
+        dropped = [False] * len(self.layers)
+        if self.training and self.layerdrop > 0.0:
+            dev = src.device if generator is None else generator.device
+            draws = torch.rand(len(self.layers), generator=generator, device=dev)
+            dropped = (draws < self.layerdrop).tolist()
         out = src
-        for layer in self.layers:
-            out = layer(out, src_mask, src_key_padding_mask)
+        for layer, drop in zip(self.layers, dropped):
+            if not drop:
+                out = layer(out, src_mask, src_key_padding_mask, pos_embs=pos_embs)
         return layer_norm(out, self.norm.norm, self.dtype)
 
     def init_cache(self, n: int, s_max: int, d_model: int, device=None) -> List[KV]:

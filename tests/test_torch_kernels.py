@@ -381,6 +381,49 @@ def test_beam_attention_kernel_at_the_lm_shape_on_card(dtype, pos):
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["random", "beam"])
+@pytest.mark.parametrize("pos", [255, 1023])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_beam_attention_kernel_at_the_conformer_large_shape_on_card(dtype, pos, table):
+    """K4 at the Conformer-Large decoder's heads (S2S/conformer_large.yaml:
+    d_model 512, nhead 8: H 8 of dh 64), N 528 (B8 x beam 66), S 320 at pos
+    255 and S 1,024 at pos 1,023, on a random ancestor table (row pos the
+    identity) and on a beam-shaped one (each step's hypotheses take the
+    columns of parents among their utterance's 66 rows, as the search
+    does), rows past pos NaN: float32 within 2e-5, bf16 within 1e-2 +
+    1e-2 relative."""
+    _card()
+    from mamba_asr_torch.kernels import beam_attention as k4
+    from mamba_asr_torch.ops import beam_attention as ba
+
+    dt = getattr(torch, dtype)
+    h, dh, n, beam = 8, 64, 528, 66
+    s = {255: 320, 1023: 1024}[pos]
+    gen = torch.Generator(device="cuda").manual_seed(pos + 8)
+    q = torch.randn(n, h, dh, device="cuda", generator=gen).to(dt)
+    k, v = (torch.randn(h, s, n, dh, device="cuda", generator=gen).to(dt) for _ in range(2))
+    rng = np.random.default_rng(pos)
+    if table == "random":
+        anc = rng.integers(0, n, (s, n)).astype(np.int32)
+    else:
+        anc = np.zeros((s, n), np.int32)
+        base = np.arange(n) // beam * beam
+        for step in range(pos):
+            anc[step] = np.arange(n)
+            anc[:step + 1] = anc[:step + 1][:, base + rng.integers(0, beam, n)]
+    anc[pos] = np.arange(n)
+    anc = torch.from_numpy(anc).cuda()
+    ref = ba.beam_attention_ref(q, k, v, anc, pos)
+    k[:, pos + 1:], v[:, pos + 1:] = float("nan"), float("nan")
+    before = k4.LAUNCHES
+    got = ba.beam_attention(q, k, v, anc, pos)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == before + 1 and got.dtype == dt
+    tol = 1e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
 # -- P1, the scan-attribution variants; the redesigned K1 at B1 -------------
 
 

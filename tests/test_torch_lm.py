@@ -168,9 +168,16 @@ def test_encoder_layer_and_stack_match_jax(normalize_before, dtype):
 
 
 def test_encoder_refuses_what_is_not_ported():
+    """Layerdrop, RelPosMHAXL, hypermixing and the 1-D CNN FFN build (they
+    are held against JAX in tests/test_torch_encoders.py); an unknown
+    attention or FFN type, and hypermixing in a causal stack, raise."""
     for kw in (dict(layerdrop=0.1), dict(attention_type="RelPosMHAXL"),
                dict(attention_type="hypermixing"), dict(ffn_type="1dcnn")):
-        with pytest.raises(NotImplementedError, match="slice 4 item 1"):
+        port_tf.TransformerEncoder(1, D, FFN, H, **kw)
+    for kw, match in ((dict(attention_type="RelPosMHA"), "attention_type"),
+                      (dict(ffn_type="2dcnn"), "ffn_type"),
+                      (dict(attention_type="hypermixing", causal=True), "causal")):
+        with pytest.raises(ValueError, match=match):
             port_tf.TransformerEncoder(1, D, FFN, H, **kw)
 
 
