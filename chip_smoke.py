@@ -163,8 +163,8 @@ exits non-zero; it prints no result without a CUDA card):
              for MAMBA_RECIPE_EPOCHS epochs (K4 must not launch)
   mamba_dec_train_to_floor  tools.train_to_floor --mode s2s at its default
              config (the Mamba decoder) on 160 / 16 / 16 tone utterances,
-             --epochs 50 (150, the JAX regime proof's settings): test WER
-             <= 2.0 %
+             --epochs 30 (90; the JAX regime proof's 150, cut in PR 12):
+             test WER <= 2.0 %
   lm_kernels  (after mamba_dec_train) K4 at the TransformerLM's heads (H 12,
              dh 64, S 320, N 528, bf16, pos 255 on a random and a
              beam-shaped table; fp32; pos 1,023 at S 1,024) against its
@@ -208,6 +208,25 @@ exits non-zero; it prints no result without a CUDA card):
              (beam 66, median of S2S_SEARCHES searches, K3 256 and K4 1,024
              per search, one profiled search) and one Conformer-Large
              search (K4 1,536)
+  streaming  (after conformer_recognize) K1 at the streaming shapes (B1
+             and B4, L 1, 2, 3, 16, D288 N16, bf16 and fp32, h0 in, h_last
+             out) against its plain version, timed at B1 L16; a causal
+             ConMamba-Small (fp32) streamed at 3,000, 2,999 and 2,997
+             frames: tokens equal to the card's offline forward on the
+             canonically padded features; card against CPU (600 frames);
+             the YAML's bidirectional ConMamba-Small, Conformer-Large and
+             Branchformer-Large streams, card against CPU (the chunk-local
+             compromise's divergence from offline reported); per-chunk
+             latency, streaming RTFx, K1 launches per chunk and the idle
+             share of 30 s bf16 streams (ConMamba-Small, Conformer-Large);
+             StreamingS2SSession on ConMambaMamba-Small: feed + extend ms,
+             decode_greedy(32) ms, extended against primed cross states
+  recognize_cli  (last) `python -m mamba_asr_torch.recognize` on the CTC
+             floor run's test files and save dir: --beam 100 tokens equal
+             to the trainer's CTC-beam test pass, --timestamps word times,
+             --streaming transcripts; --s2s on the S2S floor run: tokens
+             equal to its test pass; `python -m mamba_asr_torch.evaluate`
+             reproduces the CTC floor's test WER
 
 Each phase also prints its wall seconds. Then the kernels line, the
 card's name and power limit, and last
@@ -290,13 +309,16 @@ FLOOR_EPOCHS = 60
 # The Mamba decoder (ConMambaMamba-Small): the search's batch and beam
 # (K1's h_last form primes N = 8 x 66 rows), the decoder's training
 # lengths at B32 x 25 s (S 81 targets with bos; the cross-Mamba scans the
-# 626 memory frames and them), and the floor run of the JAX regime proof
-# (scripts/falsify_s2s_residual.py --part b: 160 / 16 / 16 utterances,
-# 150 epochs = 3 x 50).
+# 626 memory frames and them), and the floor run on the JAX regime proof's
+# corpus (scripts/falsify_s2s_residual.py --part b: 160 / 16 / 16
+# utterances) for 90 epochs = 3 x 30: the proof's 150 cut to make room
+# for the streaming phases (PR 11's call 3 read valid WER 0.00 from epoch
+# 30 and ACC 0.93 to 0.95 from epoch 60 to 150; PR 12's 105-epoch run
+# test WER 0.00).
 MAMBA_CONFIG = "hparams/S2S/conmambamamba_small.yaml"
 MAMBA_SEARCH = (8, 66)
 MAMBA_TRAIN_S = 81
-MAMBA_FLOOR_EPOCHS = 50
+MAMBA_FLOOR_EPOCHS = 30
 MAMBA_FLOOR_CORPUS = (160, 16, 16)
 # Timed searches of s2s_recognize, mamba_dec_recognize and
 # conformer_recognize (5 until the LM's phases joined the script, 3 until
@@ -325,6 +347,12 @@ CONFORMER_CTC = ("hparams/CTC/conformer_large.yaml",
                  "hparams/CTC/conformer_large_hypermixing.yaml",
                  "hparams/CTC/branchformer_large.yaml")
 CONFORMER_S2S = ("hparams/S2S/conformer_small.yaml", "hparams/S2S/conformer_large.yaml")
+STREAM_CHUNK_FRAMES = 64  # recognize --chunk_frames: 640 ms of audio per feed
+# Total fbank frames of the causal parity streams: 3,000 is a multiple of
+# the front end's 4, 2,999 and 2,997 take the canonical padding's odd
+# branches.
+STREAM_PARITY_FRAMES = (3000, 2999, 2997)
+STREAM_ENCODER_FRAMES = 600  # the card-vs-CPU streams' fbank frames (6 s)
 
 
 def scans_per_step(cfg) -> int:
@@ -395,17 +423,19 @@ def scan_inputs(bsz, length, d, n, dtype, gen, h0=False):
     )
 
 
-def scan_bound_ms(inp, clock_hz: float, sms: int, rates=None):
+def scan_bound_ms(inp, clock_hz: float, sms: int, rates=None, h_last=False):
     """Least time for the scan's work: each input read and the output
-    written once, against the exp2 (one per state element) and the
-    softplus/silu special functions (~4 per channel step) on the SFUs and
-    ~6 fp32 FLOP per state element. `rates` (exp2 per s, FLOP per s)
-    replaces the published peaks with the ones peak_probe measured."""
+    (with h_last, the final state too) written once, against the exp2 (one
+    per state element) and the softplus/silu special functions (~4 per
+    channel step) on the SFUs and ~6 fp32 FLOP per state element. `rates`
+    (exp2 per s, FLOP per s) replaces the published peaks with the ones
+    peak_probe measured."""
     b, length, d = inp["u"].shape
     n = inp["A"].shape[1]
     sfu_rate, flop_rate = rates or (SFU_PER_CLOCK_PER_SM * sms * clock_hz, FP32_FLOP_PER_S)
     nbytes = sum(t.numel() * t.element_size() for t in inp.values() if t is not None)
     nbytes += inp["u"].numel() * inp["u"].element_size()  # out
+    nbytes += 4 * b * d * n if h_last else 0
     sfu_s = b * length * d * (n + 4) / sfu_rate
     flop_s = 6.0 * b * length * d * n / flop_rate
     bytes_s = nbytes / HBM_BYTES_PER_S
@@ -2554,7 +2584,7 @@ def phase_mamba_dec_recipe(work, corpus):
 def phase_mamba_dec_train_to_floor(work):
     """tools.train_to_floor --mode s2s at its default config (the Mamba
     decoder) on the JAX regime proof's corpus: 160 / 16 / 16 utterances,
-    --epochs 50 (150), test WER <= 2.0 %."""
+    --epochs MAMBA_FLOOR_EPOCHS (x 3), test WER <= 2.0 %."""
     from mamba_asr_torch.tools import train_to_floor
 
     corpus = os.path.join(work, "corpus160")
@@ -3096,6 +3126,378 @@ def phase_lm_floor(work, corpus, floor, lm_path):
     return launches
 
 
+# -- Streaming and recognition's entry points ----------------------------------
+
+
+def stream_wav(n_frames, seed, hop=160):
+    """N(0, 0.1) noise whose center framing gives n_frames fbank frames."""
+    return np.random.default_rng(seed).normal(0.0, 0.1, (n_frames - 1) * hop).astype(np.float32)
+
+
+def run_stream(model, frontend, wav, chunk_frames=STREAM_CHUNK_FRAMES, **kw):
+    """One StreamingASRSession over wav in chunk_frames chunks: (token ids,
+    each feed's wall ms, finish's wall ms, the session, K1 launches per
+    feed)."""
+    from mamba_asr_torch.kernels import selective_scan as kernel
+    from mamba_asr_torch.models.streaming import StreamingASRSession
+
+    sess = StreamingASRSession(model, frontend, chunk_frames=chunk_frames, **kw)
+    step = chunk_frames * frontend.hop
+    ids, lat = [], []
+    before = kernel.LAUNCHES
+    for off in range(0, len(wav), step):
+        t0 = time.perf_counter()
+        ids += sess.feed(wav[None, off:off + step])[0]
+        lat.append(1e3 * (time.perf_counter() - t0))
+    per_feed = (kernel.LAUNCHES - before) / len(lat)
+    t0 = time.perf_counter()
+    ids += sess.finish()[0]
+    return ids, lat, 1e3 * (time.perf_counter() - t0), sess, per_feed
+
+
+def stream_model(exp, state, device, dtype=None):
+    from mamba_asr_torch.models.asr import ASRModel
+
+    cfg = exp.model if dtype is None else dataclasses.replace(exp.model, compute_dtype=dtype)
+    model = ASRModel(cfg)
+    model.load_state_dict(state, strict=True)
+    return model.to(device).eval()
+
+
+@torch.no_grad()
+def offline_padded(model, frontend, wav):
+    """The offline equal of a stream: log-mel of the whole wav, zero frames
+    to a multiple of the downsampling, the model: (enc_out, log-probs),
+    on the model's device."""
+    from mamba_asr_torch.ops.fbank import log_mel_spectrogram
+
+    dev = model.src_proj.weight.device
+    fe = frontend
+    feats = log_mel_spectrogram(torch.from_numpy(wav)[None].to(dev), sample_rate=fe.sample_rate,
+                                n_fft=fe.n_fft, n_mels=fe.n_mels, win_length_ms=fe.win_length_ms,
+                                hop_length_ms=fe.hop_length_ms)
+    pad = (-feats.shape[1]) % model.cfg.downsample
+    out = model(torch.nn.functional.pad(feats, (0, 0, 0, pad)))
+    return out["enc_out"], out["ctc_log_probs"]
+
+
+def percentile(xs, q):
+    """Nearest-rank percentile."""
+    xs = sorted(xs)
+    return xs[max(0, int(np.ceil(q / 100.0 * len(xs))) - 1)]
+
+
+def latency_stats(lat, finish_ms, seconds):
+    return {"chunks": len(lat), "median_ms": statistics.median(lat),
+            "p90_ms": percentile(lat, 90), "p95_ms": percentile(lat, 95), "max_ms": max(lat),
+            "first_ms": lat[0], "finish_ms": finish_ms,
+            "rtfx": seconds / (1e-3 * (sum(lat) + finish_ms))}
+
+
+def phase_streaming(exp, state, conf, conf_states, mam, mam_state, clock_hz, sms):
+    """Chunked streaming on the card (models/streaming.py).
+
+    Kernel: K1 at the streaming shapes (B1 and B4, L 1, 2, 3, 16, D288 N16,
+    bf16 and fp32, h0 in and h_last out) against its plain version; time,
+    plain time and bound at B1 L16 bf16. Parity (fp32, TF32 off): the
+    YAML's ConMamba-Small made causal and unidirectional streams 3,000,
+    2,999 and 2,997 frames; its tokens equal the card's offline forward on
+    the canonically padded features (log-probs held within PARITY_TOL too);
+    a 600-frame stream's log-probs on the card within PARITY_TOL of the
+    CPU's. Encoders (fp32, 6 s): the YAML's bidirectional ConMamba-Small,
+    Conformer-Large and Branchformer-Large, card against CPU of the same
+    stream within PARITY_TOL; streamed against offline reported (the
+    chunk-local compromise). Latency (the YAMLs' bf16, B1, 30 s of noise in
+    64-frame chunks): per-chunk ms (median, p90, p95, max), streaming RTFx,
+    K1 launches per chunk (24 for ConMamba-Small, none for the
+    Conformer), one profiled stream's idle share; ConMamba-Small and
+    Conformer-Large. S2S (ConMambaMamba-Small): feed + extend ms per
+    chunk and decode_greedy(32) ms in bf16; in fp32 the cross states
+    extended over a stream's encoder chunks against one prime of them all,
+    within PARITY_TOL."""
+    from mamba_asr_torch.decoding.ctc_greedy import ctc_greedy_decode
+    from mamba_asr_torch.kernels import selective_scan as kernel
+    from mamba_asr_torch.models.streaming import StreamingS2SSession
+    from mamba_asr_torch.ops.selective_scan import selective_scan_ref
+
+    result = {"phase": "streaming", "chunk_frames": STREAM_CHUNK_FRAMES, "tol": PARITY_TOL}
+    cfg = exp.model
+    d_inner, n = cfg.mamba.expand * cfg.d_model, cfg.mamba.d_state
+    gen = torch.Generator().manual_seed(SEED + 40)
+    cases = []
+    for bsz in (1, 4):
+        for length in (1, 2, 3, 16):
+            for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+                inp = scan_inputs(bsz, length, d_inner, n, dtype, gen, h0=True)
+                if kernel.time_segments(bsz, length, d_inner, sms)[0] != 1:
+                    raise AssertionError(f"streaming: K1 splits B{bsz} L{length}")
+                out, h_last = kernel.selective_scan_fwd(**inp, delta_softplus=True,
+                                                        return_last_state=True)
+                torch.cuda.synchronize()
+                ref, h_ref = selective_scan_ref(**inp, delta_softplus=True,
+                                                return_last_state=True)
+                name = f"streaming k1 b{bsz} l{length} {str(dtype)[6:]}"
+                cases.append({"shape": [bsz, length, d_inner, n], "dtype": str(dtype),
+                              "max_abs_err": check_close(name, out, ref, *tol),
+                              "h_last_max_abs_err": check_close(name + " h_last", h_last,
+                                                                h_ref, *FP32_TOL)})
+    k1 = scan_inputs(1, 16, d_inner, n, torch.bfloat16, gen, h0=True)
+    bound_ms, bound_by = scan_bound_ms(k1, clock_hz, sms, h_last=True)
+    result["kernel"] = {
+        "cases": cases, "shape": [1, 16, d_inner, n], "dtype": "torch.bfloat16",
+        "max_abs_err": max(c["max_abs_err"] for c in cases if c["shape"][:2] == [1, 16]),
+        "ms": cuda_ms(lambda: kernel.selective_scan_fwd(**k1, delta_softplus=True,
+                                                        return_last_state=True), 200),
+        "plain_ms": cuda_ms(lambda: selective_scan_ref(**k1, delta_softplus=True,
+                                                       return_last_state=True), 10),
+        "bound_ms": bound_ms, "bound_by": bound_by}
+
+    # Parity: a causal, unidirectional ConMamba-Small at full width and depth.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    causal = dataclasses.replace(exp, model=dataclasses.replace(
+        cfg, causal=True, bidirectional=False, compute_dtype="float32"))
+    cstate = seeded_state(causal.model)
+    models = {dev: stream_model(causal, cstate, dev) for dev in ("cuda", "cpu")}
+    fe = exp.frontend
+    parity = {}
+    for frames in STREAM_PARITY_FRAMES:
+        wav = stream_wav(frames, SEED + frames)
+        ids, _, _, sess, _ = run_stream(models["cuda"], fe, wav, collect_log_probs=True)
+        lp = torch.from_numpy(np.concatenate(sess.log_probs, axis=1))
+        _, off_lp = offline_padded(models["cuda"], fe, wav)
+        toks, lens = ctc_greedy_decode(off_lp, torch.tensor([off_lp.shape[1]], device="cuda"))
+        off_ids = toks[0, :int(lens[0])].tolist()
+        if ids != off_ids:
+            raise AssertionError(f"streaming: causal stream of {frames} frames: tokens differ "
+                                 f"from the offline forward (first at "
+                                 f"{first_difference(torch.tensor(ids), torch.tensor(off_ids))})")
+        parity[frames] = {"tokens": len(ids), "offline_max_abs_err": check_close(
+            f"streaming causal {frames} vs offline", lp, off_lp.cpu(), PARITY_TOL, 0.0)}
+    # Card against CPU on a shorter stream: the CPU's is the phase's slowest part.
+    wav = stream_wav(STREAM_ENCODER_FRAMES, SEED + 44)
+    lps = [np.concatenate(run_stream(models[dev], fe, wav, collect_log_probs=True)[3].log_probs,
+                          axis=1) for dev in ("cuda", "cpu")]
+    parity["card_vs_cpu"] = {"frames": STREAM_ENCODER_FRAMES, "max_abs_err": check_close(
+        "streaming causal card vs cpu", torch.from_numpy(lps[0]), torch.from_numpy(lps[1]),
+        PARITY_TOL, 0.0)}
+    result["causal_parity"] = parity
+
+    # The bidirectional encoders: card against CPU; streamed against offline.
+    encoders = {}
+    wav = stream_wav(STREAM_ENCODER_FRAMES, SEED + 41)
+    for name, e, st in ((yaml_name(CONFIG), exp, state),
+                        *((yaml_name(p), conf[p], conf_states[p]) for p in CONFORMER_CTC[::2])):
+        sinks = {}
+        for dev in ("cuda", "cpu"):
+            sinks[dev] = []
+            run_stream(stream_model(e, st, dev, "float32"), e.frontend, wav,
+                       enc_sink=sinks[dev])
+        enc = torch.cat(sinks["cuda"], dim=1)
+        off_enc, _ = offline_padded(stream_model(e, st, "cuda", "float32"), e.frontend, wav)
+        rms = off_enc.float().pow(2).mean().sqrt().item()
+        div = (enc - off_enc).abs()
+        encoders[name] = {
+            "frames": enc.shape[1],
+            "card_vs_cpu_max_abs_err": check_close(f"streaming {name} card vs cpu", enc.cpu(),
+                                                   torch.cat(sinks["cpu"], dim=1),
+                                                   PARITY_TOL, 0.0),
+            "streamed_vs_offline": {"max_abs": div.max().item(),
+                                    "mean_abs": div.mean().item(), "offline_rms": rms}}
+    result["encoders"] = encoders
+    torch.backends.cudnn.allow_tf32 = True  # back to PyTorch's defaults
+    del models
+
+    # Latency at the YAMLs' bf16, B1.
+    wav30 = noise(30.0, SEED + 42)
+    latency = {}
+    for name, e, st in ((yaml_name(CONFIG), exp, state),
+                        (yaml_name(CONFORMER_CTC[0]), conf[CONFORMER_CTC[0]],
+                         conf_states[CONFORMER_CTC[0]])):
+        model = stream_model(e, st, "cuda")
+        run_stream(model, e.frontend, wav30[:3 * 16000])  # warm-up
+        kernel.LAUNCHES = 0
+        ids, lat, fin, _, per_feed = run_stream(model, e.frontend, wav30)
+        wall_ms, device_ms, top = device_profile(lambda: run_stream(model, e.frontend, wav30), 10)
+        entry = {**latency_stats(lat, fin, 30.0), "tokens": len(ids),
+                 "k1_launches_per_chunk": per_feed, "k1_launches_per_stream": kernel.LAUNCHES,
+                 "profile": {"wall_ms": wall_ms, "device_kernel_ms": device_ms,
+                             "idle_share": 1.0 - device_ms / wall_ms, "top": top}}
+        want = scans_per_step(e.model) if e.model.encoder_module == "conmamba" else 0
+        if per_feed != want:
+            raise AssertionError(f"streaming: {name}: {per_feed} K1 launches per chunk")
+        latency[name] = entry
+        del model
+    result["latency"] = latency
+
+    # S2S: the Mamba decoder's cross states extended chunk by chunk.
+    model = stream_model(mam, mam_state, "cuda")
+    sess = StreamingS2SSession(model, mam.frontend, chunk_frames=STREAM_CHUNK_FRAMES)
+    step = STREAM_CHUNK_FRAMES * mam.frontend.hop
+    sess.feed(wav30[None, :step])  # warm-up chunk
+    feed_ms = []
+    kernel.LAUNCHES = 0
+    for off in range(step, len(wav30), step):
+        t0 = time.perf_counter()
+        sess.feed(wav30[None, off:off + step])
+        torch.cuda.synchronize()
+        feed_ms.append(1e3 * (time.perf_counter() - t0))
+    s2s_launches = kernel.LAUNCHES
+    sess.finish()
+    t0 = time.perf_counter()
+    hyp = sess.decode_greedy(32)
+    decode_ms = 1e3 * (time.perf_counter() - t0)
+    model32 = stream_model(mam, mam_state, "cuda", "float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sink = []
+    run_stream(model32, mam.frontend, stream_wav(1000, SEED + 43), enc_sink=sink)
+    with torch.no_grad():
+        cache = model32.init_decoder_cache(1)
+        for chunk in sink:
+            cache = model32.extend_decoder_cache(chunk, cache)
+        primed = model32.prime_decoder_cache(torch.cat(sink, dim=1), model32.init_decoder_cache(1))
+    ext_err = max(check_close("streaming s2s extend vs prime", a, b, PARITY_TOL, 0.0)
+                  for got, want in zip(cache, primed) for a, b in zip(got["cross"], want["cross"]))
+    result["s2s"] = {"config": MAMBA_CONFIG, "feed_ms_median": statistics.median(feed_ms),
+                     "feed_ms_max": max(feed_ms), "chunks": len(feed_ms),
+                     "k1_launches_per_chunk": s2s_launches / len(feed_ms),
+                     "decode_greedy_32_ms": decode_ms, "tokens": len(hyp[0]),
+                     "extend_vs_prime_max_abs_err": ext_err, "memory_chunks": len(sink)}
+    emit(result)
+    return result
+
+
+def cli_lines(main_fn, argv):
+    """stdout lines of an entry point's main(argv), called in this process."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main_fn(argv)
+    return out.getvalue().splitlines()
+
+
+def capture_test_pass(trainer, loader, decoder):
+    """Token ids by utterance id of trainer.evaluate with `decoder` (the
+    test pass's averaged checkpoints, as the recipe decodes them)."""
+    got = {}
+
+    def capture(model, batch, out):
+        ids = decoder(model, batch, out)
+        for uid, row in zip(batch["ids"][:int(batch["weight"].sum())], ids):
+            got[uid] = row
+        return ids
+
+    trainer.evaluate(loader, test_name="recognize_cli", decoder=capture)
+    return got
+
+
+def phase_recognize_cli(work, corpus, floor_tr, s2s_floor):
+    """Recognition's CLIs on the card, in-process, on the floor runs'
+    checkpoints and test files: `python -m mamba_asr_torch.recognize
+    --ckpt_dir` with --beam 100 (tokens equal to the trainer's CTC-beam
+    test pass on the same averaged checkpoints), --timestamps (word times
+    increase and end within each file, one encoder frame of center padding
+    allowed), --streaming (transcripts reported beside the greedy ones);
+    --s2s on the S2S floor run (tokens equal to its test pass's joint
+    search); `python -m mamba_asr_torch.evaluate` on the CTC floor
+    experiment (its test WER)."""
+    from mamba_asr_torch import cli, evaluate, recognize
+    from mamba_asr_torch.configs.loader import load_config, parse_overrides
+    from mamba_asr_torch.data.librispeech import load_manifest
+    from mamba_asr_torch.data.tokenizer import load_tokenizer
+    from mamba_asr_torch.decoding.timestamps import encoder_frame_seconds
+    from mamba_asr_torch.tools import train_to_floor
+    from mamba_asr_torch.training import loop
+
+    result = {"phase": "recognize_cli"}
+    ctc_over = train_to_floor.ctc_overrides(corpus, os.path.join(work, "floor", "ctc"),
+                                            FLOOR_EPOCHS)
+    out_dir = floor_tr.cfg.output_folder
+    test_csv = os.path.join(out_dir, "manifests", "test-clean.csv")
+    utts = load_manifest(test_csv)
+    paths = [u.path for u in utts]
+    save = ["--ckpt_dir", os.path.join(out_dir, "save"), "--device", "cuda"]
+    tok = floor_tr.tokenizer
+
+    want = capture_test_pass(floor_tr, cli.eval_loader(floor_tr.cfg, test_csv, tok),
+                             floor_tr.ctc_decoder())
+    t0 = time.perf_counter()
+    beam = cli_lines(recognize.main, [CONFIG, *paths, *save, "--beam", "100", "--batch", "8",
+                                      *ctc_over])
+    beam_s = time.perf_counter() - t0
+    expect = [f"{u.path}\t{tok.decode(want[u.utt_id])}" for u in utts]
+    if beam != expect:
+        raise AssertionError(f"recognize_cli: --beam 100 lines {beam} != the test pass's "
+                             f"{expect}")
+    timed_lines = cli_lines(recognize.main, [CONFIG, *paths, *save, "--timestamps",
+                                             *ctc_over])
+    frame_s = encoder_frame_seconds(floor_tr.cfg.frontend, floor_tr.cfg.model)
+    words, cur, greedy = {}, None, {}
+    for line in timed_lines:
+        parts = line.split("\t")
+        if parts[0] in paths:
+            cur = parts[0]
+            greedy[cur], words[cur] = parts[1], []
+        else:
+            words[cur].append((float(parts[0]), float(parts[1]), float(parts[2]), parts[3]))
+    for u in utts:
+        w = words[u.path]
+        ok = (" ".join(x[3] for x in w) == " ".join(greedy[u.path].split())
+              and all(s < e for s, e, _, _ in w)
+              and all(a[1] <= b[0] for a, b in zip(w, w[1:]))
+              and (not w or w[-1][1] <= u.duration + frame_s))
+        if not ok:
+            raise AssertionError(f"recognize_cli: word times of {u.path}: {w} "
+                                 f"({u.duration} s, '{greedy[u.path]}')")
+    streamed = cli_lines(recognize.main, [CONFIG, *paths, *save, "--streaming", *ctc_over])
+    result["ctc"] = {
+        "files": len(paths), "beam_tokens_equal_test_pass": True, "beam_s": beam_s,
+        "beam_transcripts": [ln.split("\t")[1] for ln in beam],
+        "greedy_transcripts": [greedy[p] for p in paths],
+        "streaming_transcripts": [ln.split("\t")[1] for ln in streamed],
+        "streaming_equal_greedy": sum(ln.split("\t")[1] == greedy[p]
+                                      for ln, p in zip(streamed, paths)),
+        "words": sum(len(w) for w in words.values()),
+        "last_word_end_minus_duration_s": max(
+            (words[u.path][-1][1] - u.duration for u in utts if words[u.path]), default=None)}
+
+    # --s2s on the S2S floor run (the Transformer decoder), against its
+    # test pass's joint search on the same averaged checkpoints.
+    epochs = s2s_floor["epochs"]
+    s2s_over = [*train_to_floor.ctc_overrides(corpus, os.path.join(work, "floor", "s2s"), epochs),
+                *train_to_floor.s2s_overrides(epochs)]
+    s2s_cfg = load_config(S2S_CONFIG, parse_overrides(s2s_over))
+    s2s_tok = load_tokenizer(os.path.join(s2s_cfg.output_folder, "tokenizer_char.json"))
+    s2s_csv = os.path.join(s2s_cfg.output_folder, "manifests", "test-clean.csv")
+    s2s_tr = loop.Trainer(s2s_cfg, s2s_tok, device="cuda")
+    want = capture_test_pass(s2s_tr, cli.eval_loader(s2s_cfg, s2s_csv, s2s_tok),
+                             s2s_tr.s2s_decoder(test=True))
+    s2s_utts = load_manifest(s2s_csv)
+    t0 = time.perf_counter()
+    lines = cli_lines(recognize.main, [S2S_CONFIG, *[u.path for u in s2s_utts], "--s2s",
+                                       "--ckpt_dir", os.path.join(s2s_cfg.output_folder, "save"),
+                                       "--device", "cuda", *s2s_over])
+    s2s_s = time.perf_counter() - t0
+    expect = [f"{u.path}\t{s2s_tok.decode(want[u.utt_id])}" for u in s2s_utts]
+    if lines != expect:
+        raise AssertionError(f"recognize_cli: --s2s lines {lines} != the test pass's {expect}")
+    result["s2s"] = {"files": len(lines), "tokens_equal_test_pass": True, "s": s2s_s,
+                     "beam": s2s_cfg.decode.s2s_test_beam_size,
+                     "transcripts": [ln.split("\t")[1] for ln in lines]}
+
+    t0 = time.perf_counter()
+    lines = cli_lines(evaluate.main, [CONFIG, *ctc_over, "--device", "cuda"])
+    want_line = f"test-clean: {floor_tr.test_stats['test-clean']}"
+    if lines[-1] != want_line:
+        raise AssertionError(f"recognize_cli: evaluate printed {lines[-1]!r}, the floor run "
+                             f"{want_line!r}")
+    result["evaluate"] = {"line": lines[-1], "s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3149,13 +3551,15 @@ def main() -> int:
         timed(phase_lm_parity, s2s, s2s_state, mam, mam_state)
         lm_search = timed(phase_lm_recognize, s2s, s2s_state, mam, mam_state, work,
                           s2s_search)
-        del s2s_state, mam_state
+        del s2s_state
         conf = {path: load_config(path) for path in CONFORMER_CTC + CONFORMER_S2S}
         ck = timed(phase_conformer_kernels, conf[CONFORMER_S2S[1]].model, clock_hz, sms)
         conf_states = {path: seeded_state(exp.model) for path, exp in conf.items()}
         timed(phase_conformer_parity, conf, conf_states)
         conf_search = timed(phase_conformer_recognize, conf, conf_states)
-        del conf_states
+        stream = timed(phase_streaming, exp, state, conf, conf_states, mam, mam_state,
+                       clock_hz, sms)
+        del conf_states, mam_state
         corpus = timed(phase_data, work)
         timed(phase_ctc_beam, exp)
         recipe_launches = timed(phase_recipe, work, corpus)
@@ -3167,6 +3571,7 @@ def main() -> int:
         mam_floor_launches = timed(phase_mamba_dec_train_to_floor, work)
         lm_path = timed(phase_train_lm, work, s2s_floor)
         lm_floor_launches = timed(phase_lm_floor, work, corpus, s2s_floor, lm_path)
+        timed(phase_recognize_cli, work, corpus, floor, s2s_floor)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3187,6 +3592,10 @@ def main() -> int:
         "mamba_dec_floor_launches": mam_floor_launches["K1"],
         "mamba_dec_prime": {key: mk["prime"][key] for key in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "streaming_launches_per_chunk":
+            stream["latency"][yaml_name(CONFIG)]["k1_launches_per_chunk"],
+        **{f"streaming_{key}": stream["kernel"][key] for key in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
     }, {
         "name": "selective_scan_fwd_train", "route": "cuda",
         "source": "mamba_asr_torch/csrc/selective_scan_fwd.cu",

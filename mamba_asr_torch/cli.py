@@ -19,6 +19,10 @@ search (S2S, fusing the LM of `decode.lm_path` at test, when set),
 writing wer_<split>.txt. It runs on the CUDA card unless `--device cpu`
 (or another torch device) is given, and refuses to start without a card.
 `--distributed` (multi-process training) is not ported and raises.
+
+`restore_asr_state` gives recognition's entry points (recognize.py,
+evaluate.py) their model and normaliser: the averaged checkpoints of an
+experiment, or a reference checkpoint.
 """
 
 from __future__ import annotations
@@ -27,12 +31,18 @@ import os
 import sys
 from typing import List, Optional, Tuple
 
+import torch
+
 from mamba_asr_torch.configs.loader import ExperimentConfig, load_config, parse_overrides
 from mamba_asr_torch.data.dataset import ASRDataset, BucketedLoader
 from mamba_asr_torch.data.librispeech import create_lexicon, load_manifest, prepare_librispeech
 from mamba_asr_torch.data.tokenizer import CharTokenizer, SubwordTokenizer, load_tokenizer
 from mamba_asr_torch.models import lm as lm_module
+from mamba_asr_torch.models import params_import
+from mamba_asr_torch.models.asr import ASRModel
+from mamba_asr_torch.training.checkpoint import CheckpointManager
 from mamba_asr_torch.training.loop import Trainer
+from mamba_asr_torch.training.normalizer import NormalizerState, init_normalizer
 from mamba_asr_torch.utils.device import resolve_device
 
 
@@ -62,7 +72,55 @@ def load_lm(cfg: ExperimentConfig, device=None):
     return lm_module.load_lm(cfg.decode, cfg.model.vocab_size, device)
 
 
-def _pop_device(argv: List[str]) -> Tuple[List[str], Optional[str]]:
+def restore_asr_state(cfg: ExperimentConfig, ckpt_dir: str = "", torch_ckpt: str = "",
+                      torch_normalizer: str = "", device=None
+                      ) -> Tuple[ASRModel, NormalizerState]:
+    """The model in eval mode on `device` (None: the card) and its
+    normaliser (JAX `cli.py:111-187`), from one of two sources:
+
+    - torch_ckpt: a reference `model.ckpt` (models/params_import.py:
+      load_torch_asr), with the statistics of `torch_normalizer` when
+      given (none otherwise: features pass through);
+    - ckpt_dir: an experiment's save dir, the mean of its
+      train.avg_checkpoints best checkpoints, ranked as the recipe keeps
+      them (WER for CTC; ACC for S2S, where the JAX package ranks by WER
+      here and by ACC in its test pass), and the best one's normaliser.
+      A save dir of the JAX package (flax msgpack) is refused.
+    """
+    device = resolve_device(device)
+    model = ASRModel(cfg.model)
+    if torch_ckpt:
+        model.load_state_dict(params_import.load_torch_asr(torch_ckpt, cfg.model), strict=True)
+        if torch_normalizer:
+            stats = params_import.import_normalizer_stats(
+                torch.load(torch_normalizer, map_location="cpu", weights_only=True))
+            normalizer = NormalizerState.from_arrays(*stats, device=device)
+        else:
+            normalizer = init_normalizer(cfg.frontend.n_mels, device)
+        return model.to(device).eval(), normalizer
+    if not ckpt_dir:
+        raise SystemExit("need --ckpt_dir or --torch_ckpt")
+    if not os.path.isdir(ckpt_dir):
+        raise SystemExit(f"no checkpoints in {ckpt_dir}")
+    for name in sorted(os.listdir(ckpt_dir)):
+        if os.path.isfile(os.path.join(ckpt_dir, name, "state.msgpack")):
+            raise SystemExit(
+                f"{ckpt_dir}/{name} is a flax msgpack checkpoint of the JAX package; the "
+                "port reads torch checkpoints only: export it with "
+                "mamba_asr_tpu.models.torch_export.save_torch_asr (and "
+                "export_normalizer_stats) and pass --torch_ckpt (--torch_normalizer)")
+    rank = {"max_key": "ACC"} if cfg.model.num_decoder_layers > 0 else {"min_key": "WER"}
+    restored = CheckpointManager(ckpt_dir, keep=cfg.train.keep_checkpoints).restore_averaged(
+        k=cfg.train.avg_checkpoints, **rank)
+    if restored is None:
+        raise SystemExit(f"no checkpoints in {ckpt_dir}")
+    best, avg = restored
+    model.load_state_dict(avg, strict=True)
+    normalizer = NormalizerState(**{k: v.to(device) for k, v in best["normalizer"].items()})
+    return model.to(device).eval(), normalizer
+
+
+def pop_device(argv: List[str]) -> Tuple[List[str], Optional[str]]:
     """argv without its `--device X` (or `--device=X`), and X (None if absent)."""
     out, device, i = [], None, 0
     while i < len(argv):
@@ -105,7 +163,7 @@ def run_training(argv: Optional[List[str]] = None) -> Trainer:
     if "--distributed" in argv:
         raise NotImplementedError(
             "--distributed: multi-process training is not ported (ROADMAP slice 4 item 4)")
-    argv, device = _pop_device(argv)
+    argv, device = pop_device(argv)
     device = resolve_device(device)
     cfg = load_config(argv[0], parse_overrides(argv[1:]))
     lm = load_lm(cfg, device)

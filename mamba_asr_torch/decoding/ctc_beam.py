@@ -27,6 +27,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from mamba_asr_torch.decoding.ctc_greedy import tokens_to_lists
 from mamba_asr_torch.decoding.s2s_beam import stable_topk
 
 NEG_INF = -1e30
@@ -90,6 +91,18 @@ def ctc_beam_search(
     best = total.argmax(dim=1)
     rows = torch.arange(toks.shape[0], device=toks.device)
     return toks[rows, best], lens[rows, best]
+
+
+def ctc_beam_decode(log_probs: torch.Tensor, input_lengths: torch.Tensor,
+                    decode) -> List[List[int]]:
+    """The search as the recipes' test decoder runs it: a decode stanza's
+    (configs/loader.py:DecodeConfig) test_beam_size, blank_index,
+    beam_prune_logp and token_prune_min_logp; token ids per row."""
+    toks, lens = ctc_beam_search(
+        log_probs, input_lengths, beam_size=decode.test_beam_size,
+        blank_id=decode.blank_index, beam_prune_logp=decode.beam_prune_logp,
+        token_prune_min_logp=decode.token_prune_min_logp)
+    return tokens_to_lists(toks.cpu().numpy(), lens.cpu().numpy())
 
 
 def _seg_lse(vals: torch.Tensor, seg_id: torch.Tensor) -> torch.Tensor:

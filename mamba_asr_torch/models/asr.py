@@ -35,6 +35,11 @@ heads: `2` the CTC head without a decoder; `2` the seq head and `3` the
 CTC head with one (`torch_export.py:296-310`). The Conformer decoder
 waits for ROADMAP slice 3b item 5.
 
+Streaming: `init_streaming_state`, `forward_chunk` (a chunk of the
+streamed front end's output through src_proj and the encoder's chunk),
+`encode_chunk` and `extend_decoder_cache`; models/streaming.py drives
+them.
+
 The decode cache dispatches on the decoder: the Transformer's takes an
 s_max and an ancestor table (append-only K/V), the Mamba decoder's
 neither (a (conv, ssm) state per Mamba block, reordered by the search).
@@ -97,6 +102,7 @@ _ACTIVATIONS = {
 }
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+STREAMING_ENCODERS = ("conmamba", "conformer", "branchformer")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -333,6 +339,39 @@ class ASRModel(nn.Module):
             dec = self.decode(tokens_bos, enc, enc_lengths)
             out["seq_log_probs"] = F.log_softmax(self.seq_logits(dec), dim=-1)
         return out
+
+    # -- streaming encode -----------------------------------------------------
+
+    def init_streaming_state(self, batch: int):
+        """The encoder's per-layer state for chunked streaming, on the
+        model's device (JAX `asr.py:436-446`): ConMamba, the Conformer and
+        the Branchformer stream; the others raise."""
+        if self.cfg.encoder_module not in STREAMING_ENCODERS:
+            raise ValueError(f"encoder_module {self.cfg.encoder_module!r} does not stream "
+                             f"(streaming encoders: {', '.join(STREAMING_ENCODERS)})")
+        return self.encoder.init_stream_state(batch, self.src_proj.weight.device)
+
+    def forward_chunk(self, fe_out: torch.Tensor, state):
+        """The front end's output for one chunk (B, T', F', C) -> src_proj
+        -> the encoder's `forward_chunk`: (enc_out (B, T', d_model), the new
+        state)."""
+        b, t, f, c = fe_out.shape
+        x = dense(fe_out.reshape(b, t, f * c), self.src_proj, self.cfg.dtype)
+        return self.encoder.forward_chunk(x, state)
+
+    def encode_chunk(self, feats: torch.Tensor, state):
+        """One chunk of normalised features (B, T, n_mels) through the
+        whole front end (SAME-padded per chunk) and the encoder's chunk
+        (JAX `asr.py:448-456`); the streaming sessions stream the front end
+        exactly instead (models/streaming.py)."""
+        return self.forward_chunk(self.frontend(feats), state)
+
+    def extend_decoder_cache(self, enc_chunk: torch.Tensor, cache):
+        """The Mamba decoder's cache advanced over a further chunk of
+        encoder memory (JAX `asr.py:492-496`)."""
+        if not self.mamba_decoder:
+            raise ValueError("extend_decoder_cache needs the Mamba decoder")
+        return self.decoder.extend_cache(enc_chunk, cache)
 
     # -- decoder ------------------------------------------------------------
 

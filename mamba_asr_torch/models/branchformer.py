@@ -16,7 +16,12 @@ linear_after_conv), so each gate starts near the identity.
 
 A causal layer with regularMHA or hypermixing gets the look-ahead mask
 (JAX `branchformer.py:308-315`); hypermixing then refuses it
-(models/hypermixing.py). Streaming waits for ROADMAP slice 4 item 2.
+(models/hypermixing.py).
+
+Streaming (JAX `branchformer.py:175-195, 237-244, 344-394, 473-493`):
+the Conformer's attention window (models/conformer.py:attend_window,
+no look-ahead mask, as in JAX) and the CSGU's conv tail, which sees
+zeros to its right unless causal.
 
 No reference checkpoint can hold this encoder (the reference cannot
 build it, and `export_asr_params` refuses it), so its names are the
@@ -28,14 +33,14 @@ merge_proj; the stack's final LN is norm.norm.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from mamba_asr_torch.models.attention import self_attention
-from mamba_asr_torch.models.conformer import refuse_streaming
+from mamba_asr_torch.models.conformer import attend_window, init_window_state
 from mamba_asr_torch.models.layers import (
     Activation,
     SBLayerNorm,
@@ -44,6 +49,7 @@ from mamba_asr_torch.models.layers import (
     dropout,
     layer_norm,
     make_layer_norm,
+    stream_stack,
 )
 from mamba_asr_torch.models.transformer import get_lookahead_mask
 
@@ -80,19 +86,41 @@ class ConvolutionalSpatialGatingUnit(nn.Module):
                 lin.weight.normal_(0.0, 1e-6, generator=generator)
                 lin.bias.fill_(1.0)
 
-    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+    @property
+    def padding_amount(self) -> int:
+        return conv_pads(self.conv.kernel_size[0], self.causal)[0]
+
+    def _conv_gate(self, r: torch.Tensor, g: torch.Tensor, pads: tuple) -> torch.Tensor:
         dt = self.dtype
-        r, g = x.chunk(2, dim=-1)
-        g = layer_norm(g, self.norm, dt)
-        if pad_mask is not None:
-            g = g.masked_fill(pad_mask[..., None], 0.0)
-        g = F.pad(g.transpose(1, 2), conv_pads(self.conv.kernel_size[0], self.causal))
+        g = F.pad(g.transpose(1, 2), pads)
         g = F.conv1d(g, self.conv.weight.to(dt), self.conv.bias.to(dt),
                      groups=g.shape[1]).transpose(1, 2)
         if self.linear_after_conv is not None:
             g = dense(g, self.linear_after_conv, dt)
         return dropout(r * self.gate(g), self.dropout, self.training)
+
+    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        r, g = x.chunk(2, dim=-1)
+        g = layer_norm(g, self.norm, self.dtype)
+        if pad_mask is not None:
+            g = g.masked_fill(pad_mask[..., None], 0.0)
+        return self._conv_gate(r, g, conv_pads(self.conv.kernel_size[0], self.causal))
+
+    def init_stream_state(self, batch: int, device=None) -> torch.Tensor:
+        """The normed gate half's left tail: (B, pad, U // 2) zeros."""
+        return torch.zeros(batch, self.padding_amount, self.conv.in_channels,
+                           dtype=self.dtype, device=device)
+
+    def forward_chunk(self, x: torch.Tensor, tail: torch.Tensor):
+        """The conv over [tail, chunk], zeros to its right unless causal.
+        Returns (out, new tail)."""
+        r, g = x.chunk(2, dim=-1)
+        g = layer_norm(g, self.norm, self.dtype)
+        pad = self.padding_amount
+        buf = torch.cat([tail.to(g.dtype), g], dim=1)
+        new_tail = buf[:, buf.shape[1] - pad:] if pad else tail
+        return self._conv_gate(r, buf, (0, 0 if self.causal else pad)), new_tail
 
 
 class CgMLP(nn.Module):
@@ -113,6 +141,11 @@ class CgMLP(nn.Module):
                 ) -> torch.Tensor:
         x = self.activation(dense(x, self.channel_proj1, self.dtype))
         return dense(self.csgu(x, pad_mask), self.channel_proj2, self.dtype)
+
+    def forward_chunk(self, x: torch.Tensor, tail: torch.Tensor):
+        x = self.activation(dense(x, self.channel_proj1, self.dtype))
+        x, tail = self.csgu.forward_chunk(x, tail)
+        return dense(x, self.channel_proj2, self.dtype), tail
 
 
 class BranchformerEncoderLayer(nn.Module):
@@ -149,6 +182,20 @@ class BranchformerEncoderLayer(nn.Module):
                        self.merge_proj, dt)
         return x + dropout(merged, p, train)
 
+    def init_stream_state(self, batch: int, device=None) -> Dict:
+        d = self.norm_mha.normalized_shape[0]
+        return {**init_window_state(batch, d, self.dtype, device),
+                "csgu": self.cgmlp.csgu.init_stream_state(batch, device)}
+
+    def forward_chunk(self, x: torch.Tensor, state: Dict):
+        """One streaming chunk (JAX `branchformer.py:358-394`)."""
+        dt = self.dtype
+        xa, window = attend_window(self.mha_layer, layer_norm(x, self.norm_mha, dt), state)
+        xb, csgu_tail = self.cgmlp.forward_chunk(layer_norm(x, self.norm_mlp, dt),
+                                                 state["csgu"])
+        x = x + dense(torch.cat([xa, xb], dim=-1), self.merge_proj, dt)
+        return x, {**window, "csgu": csgu_tail}
+
 
 class BranchformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int, kernel_size: int = 31,
@@ -174,4 +221,10 @@ class BranchformerEncoder(nn.Module):
             out = layer(out, src_mask, src_key_padding_mask, pos_embs)
         return layer_norm(out, self.norm.norm, self.dtype)
 
-    init_stream_state = forward_chunk = refuse_streaming
+    def init_stream_state(self, batch: int, device=None) -> list:
+        return [layer.init_stream_state(batch, device) for layer in self.layers]
+
+    def forward_chunk(self, x: torch.Tensor, state: list):
+        """x (B, L, d_model), one chunk -> (its output, the new per-layer
+        state)."""
+        return stream_stack(self, x, state)

@@ -10,7 +10,8 @@ hidden layer and the conv module (models/layers.py); the Mamba block has
 none (reference Conmamba.py:670). The padding mask is dropped, as the reference zeroes the conv mask.
 ConmambaEncoder: the layer stack (a ModuleList; the JAX package's
 `scan_layers` is a compile-time layout that the port does not need) and
-a final LN.
+a final LN. Streaming: `init_stream_state` and `forward_chunk` carry
+each layer's Mamba state and conv tail across chunks.
 
 MambaDecoderLayer (reference Conmamba.py:854-934, always pre-LN and
 unidirectional), with dropout on the three residual branches in train()
@@ -22,8 +23,9 @@ MambaDecoder: the stack and a final LN. Neither masks anything: padded
 memory frames and padded targets are scanned, as in the JAX package, so
 a padded row's result depends on its batch. The decode cache:
 `init_cache`, `prime_cache` (every layer's cross-Mamba scans the same
-memory once), `step` (one token of every hypothesis) and
-`reorder_cache` (the search's gather).
+memory once), `extend_cache` (a further chunk of memory, for streaming),
+`step` (one token of every hypothesis) and `reorder_cache` (the search's
+gather).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from mamba_asr_torch.models.layers import (
     dropout,
     layer_norm,
     make_layer_norm,
+    stream_stack,
     swish,
 )
 from mamba_asr_torch.models.mamba import BiMambaBlock, Cache, MambaBlock, MambaConfig
@@ -86,6 +89,22 @@ class ConmambaEncoderLayer(nn.Module):
         x = x + FFN_RESIDUAL_SCALE * self._ffn(self.ffn_module2, x)
         return layer_norm(x, self.norm2.norm, dt)
 
+    def init_stream_state(self, batch: int, device=None) -> Dict[str, object]:
+        return {"mamba": self.mamba.init_stream_state(batch, self.dtype, device),
+                "conv": self.convolution_module.init_stream_state(batch, self.dtype, device)}
+
+    def forward_chunk(self, x: torch.Tensor, state: Dict[str, object]):
+        """One streaming chunk (JAX `conmamba.py:132-140`)."""
+        dt = self.dtype
+        x = x + FFN_RESIDUAL_SCALE * self._ffn(self.ffn_module1, x)
+        y, mamba_state = self.mamba.forward_chunk(layer_norm(x, self.norm1.norm, dt),
+                                                  state["mamba"])
+        x = y + x
+        c, conv_tail = self.convolution_module.forward_chunk(x, state["conv"])
+        x = x + c
+        x = x + FFN_RESIDUAL_SCALE * self._ffn(self.ffn_module2, x)
+        return layer_norm(x, self.norm2.norm, dt), {"mamba": mamba_state, "conv": conv_tail}
+
 
 class ConmambaEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, d_ffn: int,
@@ -108,6 +127,14 @@ class ConmambaEncoder(nn.Module):
         for layer in self.layers:
             out = layer(out)
         return layer_norm(out, self.norm.norm, self.dtype)
+
+    def init_stream_state(self, batch: int, device=None) -> list:
+        return [layer.init_stream_state(batch, device) for layer in self.layers]
+
+    def forward_chunk(self, x: torch.Tensor, state: list):
+        """x (B, L, d_model), one chunk -> (its output, the new per-layer
+        state)."""
+        return stream_stack(self, x, state)
 
 
 LayerCache = Dict[str, Cache]  # {"self": (conv, ssm), "cross": (conv, ssm)}
@@ -180,6 +207,13 @@ class MambaDecoder(nn.Module):
         """Every layer's cross-Mamba scans memory (N, T, D), one row per
         hypothesis: its input is the memory itself, not the layer below."""
         return [{"self": c["self"], "cross": layer.cross_mamba.prime(memory)}
+                for layer, c in zip(self.layers, cache)]
+
+    def extend_cache(self, memory: torch.Tensor, cache: List[LayerCache]) -> List[LayerCache]:
+        """Every layer's cross-Mamba state advanced over a further chunk of
+        memory (long-form streaming: each new chunk extends, nothing is
+        scanned again)."""
+        return [{"self": c["self"], "cross": layer.cross_mamba.extend_prime(memory, c["cross"])}
                 for layer, c in zip(self.layers, cache)]
 
     @staticmethod

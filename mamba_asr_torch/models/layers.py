@@ -1,6 +1,7 @@
 """Shared model layers (port of mamba_asr_tpu/models/layers.py): the
 positionwise FFN, its 1-D CNN form, the Conformer convolution module
-(full-sequence path) and the Conv2d front end.
+(full sequence and streaming chunks) and the Conv2d front end (whole,
+and one block at a time for the streaming front end).
 
 Parameters keep the reference PyTorch names that
 `mamba_asr_tpu.models.torch_export.export_asr_params` writes (SpeechBrain's
@@ -85,6 +86,16 @@ def flax_init_(module: nn.Module, name: str, p: torch.Tensor,
         nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=generator)
     else:
         p.zero_()
+
+
+def stream_stack(encoder: nn.Module, x: torch.Tensor, state: list):
+    """An encoder's streaming chunk: each layer's `forward_chunk` in turn,
+    then the stack's final LN. Returns (output, the new per-layer state)."""
+    new = []
+    for layer, s in zip(encoder.layers, state):
+        x, s = layer.forward_chunk(x, s)
+        new.append(s)
+    return layer_norm(x, encoder.norm.norm, encoder.dtype), new
 
 
 def make_layer_norm(d: int) -> nn.LayerNorm:
@@ -174,7 +185,8 @@ class ConvolutionModule(nn.Module):
     activation -> pointwise Dense -> dropout, then zero at the padded
     frames of `mask` (B, L, 1), True = padded (JAX `layers.py:155-162`;
     the Conformer passes its key padding mask, ConMamba none). Non-causal
-    pads (K-1)//2 on both sides, causal pads K-1 on the left."""
+    pads (K-1)//2 on both sides, causal pads K-1 on the left. Streaming:
+    `init_stream_state` and `forward_chunk` carry the left tail."""
 
     def __init__(self, d_model: int, kernel_size: int = 31, bias: bool = True,
                  activation: Activation = swish, causal: bool = False,
@@ -202,24 +214,50 @@ class ConvolutionModule(nn.Module):
         k = self.kernel_size
         return k - 1 if self.causal else (k - 1) // 2
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _pre(self, x: torch.Tensor) -> torch.Tensor:
+        """LN -> pointwise 2x expansion -> GLU, in the compute dtype."""
         dt = self.dtype
         out = layer_norm(x, self.layer_norm, dt)
         pw = self.bottleneck["0"]
         out = F.linear(out, pw.weight[:, :, 0].to(dt),
                        None if pw.bias is None else pw.bias.to(dt))
         a, g = out.chunk(2, dim=-1)
-        out = a * torch.sigmoid(g)
-        p = self.padding_amount
-        pads = (p, 0) if self.causal else (p, p)
+        return a * torch.sigmoid(g)
+
+    def _depthwise(self, out: torch.Tensor, pads: tuple) -> torch.Tensor:
+        """The depthwise conv over (B, L, D) with (left, right) time padding."""
+        dt = self.dtype
         out = F.pad(out.transpose(1, 2), pads)
         out = F.conv1d(out, self.conv.weight.to(dt),
                        None if self.conv.bias is None else self.conv.bias.to(dt),
                        groups=out.shape[1])
-        out = layer_norm(out.transpose(1, 2), self.after_conv["0"], dt)
+        return out.transpose(1, 2)
+
+    def _post(self, out: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        out = layer_norm(out, self.after_conv["0"], dt)
         out = dense(self.activation(out), self.after_conv["2"], dt)
-        out = dropout(out, self.dropout, self.training)
+        return dropout(out, self.dropout, self.training)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        p = self.padding_amount
+        out = self._post(self._depthwise(self._pre(x), (p, 0) if self.causal else (p, p)))
         return out if mask is None else out.masked_fill(mask, 0.0)
+
+    def init_stream_state(self, batch: int, dtype: torch.dtype, device=None) -> torch.Tensor:
+        """The left-context tail carried across chunks: (B, pad, D) zeros."""
+        return torch.zeros(batch, self.padding_amount, self.conv.in_channels, dtype=dtype,
+                           device=device)
+
+    def forward_chunk(self, x: torch.Tensor, tail: torch.Tensor):
+        """One streaming chunk (JAX `layers.py:204-216`): the conv over
+        [tail, chunk]; a non-causal conv sees zeros to its right, a causal
+        one is exact. Returns (out, new tail)."""
+        out = self._pre(x)
+        pad = self.padding_amount
+        buf = torch.cat([tail.to(out.dtype), out], dim=1)
+        new_tail = buf[:, buf.shape[1] - pad:] if pad else tail
+        return self._post(self._depthwise(buf, (0, 0 if self.causal else pad))), new_tail
 
 
 def same_padding(n: int, k: int, s: int) -> tuple:
@@ -284,3 +322,18 @@ class ConvolutionFrontEnd(nn.Module):
             y = dropout(F.leaky_relu(y, 0.01), self.dropout, self.training)
             x = y.permute(0, 3, 1, 2)
         return y
+
+    def apply_level(self, i: int, x: torch.Tensor, time_pad: tuple) -> torch.Tensor:
+        """One block with explicit time padding and the offline SAME
+        padding of frequency (JAX `layers.py:298-322`), for the streaming
+        front end: x (B, T, F, C_in) channels-last -> (B, T', F', C_out).
+        Mid-stream the caller runs it VALID over buffered inputs (time_pad
+        (0, 0)); the flush supplies the offline trailing zero."""
+        dt = self.dtype
+        k, s = self.kernel_sizes[i], self.strides[i]
+        convs = getattr(self, f"convblock_{i}").convs
+        conv = convs["conv_0"].conv
+        pf = same_padding(x.shape[2], k, s)
+        h = F.pad(x.permute(0, 3, 1, 2).to(dt), (pf[0], pf[1], time_pad[0], time_pad[1]))
+        h = F.conv2d(h, conv.weight.to(dt), conv.bias.to(dt), stride=s)
+        return F.leaky_relu(layer_norm(h.permute(0, 2, 3, 1), convs["norm_0"].norm, dt), 0.01)

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from mamba_asr_torch.models.attention import KV
 from mamba_asr_torch.models.layers import SBLinear, cast_copy, dense, flax_init_
+from mamba_asr_torch.models.params_import import NOT_WEIGHTS
 from mamba_asr_torch.models.transformer import (
     NormalizedEmbedding,
     TransformerEncoder,
@@ -47,9 +48,6 @@ from mamba_asr_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 PE_MIN = 512  # rows of the cached position table (grown when a call needs more)
-# Reference-checkpoint buffers that carry no weights (the JAX importer's
-# ignore_substrings, torch_import.py:88).
-_NOT_WEIGHTS = (".pe", "positional_encoding")
 
 
 def _gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -144,5 +142,5 @@ def load_lm(decode, vocab_size: int, device=None) -> Optional[TransformerLM]:
             break
     own = lm.state_dict()
     lm.load_state_dict({k: v for k, v in state.items()
-                        if k in own or not any(s in k for s in _NOT_WEIGHTS)}, strict=True)
+                        if k in own or not any(s in k for s in NOT_WEIGHTS)}, strict=True)
     return lm.to(device).eval()

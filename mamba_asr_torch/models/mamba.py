@@ -21,8 +21,16 @@ inputs; `step` advances one token in plain torch (`causal_conv1d_step`,
 `ssm_step`). Weights cast to bf16 (the search's decode weights) compute
 as they are: A = -exp(A_log) in A_log's dtype, as in the JAX package,
 and the scan is handed A, D and the dt bias as float32 tensors holding
-those values. `extend_prime` and `forward_chunk` wait for the streaming
-slice.
+those values.
+
+Streaming (JAX `mamba.py:223-245, 294-367, 411-428`): a chunk's state is
+(conv_tail (B, K-1, D) in the compute dtype, the last K-1 raw inputs;
+ssm_state (B, D, N) float32). `forward_chunk` convolves [tail, chunk]
+and scans the chunk from the carried state (K1 with h0 in and h_last
+out on the card). BiMambaBlock carries the forward direction only; its
+backward direction scans each chunk alone, the JAX package's compromise
+(it would need the future). `MambaBlock.extend_prime` advances a
+decoder cache over a further chunk of memory.
 """
 
 from __future__ import annotations
@@ -145,6 +153,22 @@ class _ScanHead:
             return_last_state=return_last_state,
         )
 
+    def scan_chunk(self, x: torch.Tensor, z: torch.Tensor, cache: Cache):
+        """Conv over [conv_tail, x], then the scan from the carried state:
+        (y (B, L, D), (new conv_tail, h_last))."""
+        conv_tail, h = cache
+        k = self.conv1d.kernel_size[0]
+        buf = torch.cat([conv_tail.to(x.dtype), x], dim=1)
+        x_c = causal_conv1d(buf, self.taps, self.conv1d.bias)[:, k - 1:].contiguous()
+        delta, b_mat, c_mat = self._dt_bc(x_c)
+        a, d, bias = self._a_d_bias()
+        y, h_new = selective_scan(
+            x_c, delta, a, b_mat.contiguous(), c_mat.contiguous(), D=d,
+            z=z.contiguous(), delta_bias=bias, delta_softplus=True, h0=h.float(),
+            return_last_state=True,
+        )
+        return y, (buf[:, buf.shape[1] - (k - 1):], h_new)
+
     def step(self, x_t: torch.Tensor, z_t: torch.Tensor, cache: Cache):
         """One token: x_t, z_t (B, d_inner) -> (y_t, new cache)."""
         conv_state, ssm_state = cache
@@ -220,6 +244,32 @@ class MambaBlock(nn.Module):
         tail = x_in[:, length - (k - 1 - pad):]
         return torch.cat([x_in.new_zeros(bsz, 1 + pad, self.d_inner), tail], dim=1), h
 
+    def extend_prime(self, x_seq: torch.Tensor, cache: Cache) -> Cache:
+        """The decoder cache advanced over a further context x_seq (B, T,
+        d_model): the scan continues from the cache's state and the conv
+        from its last K-1 inputs (JAX `MambaBlock.extend_prime`)."""
+        conv_state, h = cache
+        x_in, z = dense(x_seq, self.in_proj, self.dtype).chunk(2, dim=-1)
+        _, (tail, h) = _head(self, "").scan_chunk(x_in, z, (conv_state[:, 1:], h))
+        return torch.cat([torch.zeros_like(tail[:, :1]), tail], dim=1), h
+
+    def init_stream_state(self, batch: int, dtype: torch.dtype, device=None) -> Cache:
+        """Zero (conv_tail (B, K-1, d_inner) in dtype, ssm_state (B,
+        d_inner, N) float32)."""
+        return _stream_state(self, batch, dtype, device)
+
+    def forward_chunk(self, x: torch.Tensor, cache: Cache):
+        """One streaming chunk: x (B, L, d_model) -> ((B, L, d_model), new
+        state)."""
+        x_in, z = dense(x, self.in_proj, self.dtype).chunk(2, dim=-1)
+        y, cache = _head(self, "").scan_chunk(x_in, z, cache)
+        return dense(y, self.out_proj, self.dtype), cache
+
+
+def _stream_state(block: nn.Module, batch: int, dtype: torch.dtype, device) -> Cache:
+    return (torch.zeros(batch, block.cfg.d_conv - 1, block.d_inner, dtype=dtype, device=device),
+            torch.zeros(batch, block.d_inner, block.cfg.d_state, device=device))
+
 
 class BiMambaBlock(nn.Module):
     """Bidirectional Mamba (reference bimamba.py bimamba_type="v2")."""
@@ -241,3 +291,15 @@ class BiMambaBlock(nn.Module):
         y_f = _head(self, "")(x_in, z)
         y_b = _head(self, "_b")(x_in.flip(1), z.flip(1)).flip(1)
         return dense(0.5 * y_f + 0.5 * y_b, self.out_proj, self.dtype)
+
+    def init_stream_state(self, batch: int, dtype: torch.dtype, device=None) -> Cache:
+        """The forward direction's streaming state (MambaBlock's)."""
+        return _stream_state(self, batch, dtype, device)
+
+    def forward_chunk(self, x: torch.Tensor, cache: Cache):
+        """One streaming chunk: the forward scan carries state, the
+        backward scan sees this chunk alone (two K1 launches)."""
+        x_in, z = dense(x, self.in_proj, self.dtype).chunk(2, dim=-1)
+        y_f, cache = _head(self, "").scan_chunk(x_in, z, cache)
+        y_b = _head(self, "_b")(x_in.flip(1), z.flip(1)).flip(1)
+        return dense(0.5 * y_f + 0.5 * y_b, self.out_proj, self.dtype), cache

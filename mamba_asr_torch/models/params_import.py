@@ -19,6 +19,10 @@ q, k, v Dense kernels -> one stacked in_proj_weight (3D, D); depthwise taps
 (K, D) -> Conv1d (D, 1, K); the conv module's bottleneck Dense (D, 2D) ->
 pointwise Conv1d (2D, D, 1); flax Conv2d (kh, kw, I, O) -> (O, I, kh, kw).
 Every leaf must be consumed: a leaf this layout cannot hold raises.
+
+A reference checkpoint itself (`load_torch_asr`, recognize and evaluate's
+--torch_ckpt) already has these names, and its normaliser statistics
+come in through `import_normalizer_stats`.
 """
 
 from __future__ import annotations
@@ -320,3 +324,46 @@ def import_lm_params(params: Mapping[str, Any], num_layers: int = 12
     _linear(t, "out", "output_proj.w", out)
     t.finish()
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+# Reference-checkpoint buffers that carry no weights (the JAX importer's
+# ignore_substrings, torch_import.py:88).
+NOT_WEIGHTS = (".pe", "positional_encoding")
+
+
+def _state_dict(path_or_sd) -> Mapping[str, Any]:
+    """A reference checkpoint's state dict: the object at a path (read
+    with weights_only=True) or the mapping given, unwrapped from
+    {"state_dict": ...} or {"model": ...} (JAX `torch_import.py:472-483`)."""
+    obj = path_or_sd
+    if isinstance(path_or_sd, (str, bytes)):
+        obj = torch.load(path_or_sd, map_location="cpu", weights_only=True)
+    for key in ("state_dict", "model"):
+        if key in obj and isinstance(obj[key], Mapping):
+            return obj[key]
+    return obj
+
+
+def load_torch_asr(path_or_sd, cfg) -> Dict[str, torch.Tensor]:
+    """A reference `model.ckpt` (path or state dict; bare or wrapped) ->
+    the port's ASRModel state dict for `cfg`, float32, without the
+    weightless position buffers. The port's modules carry the reference
+    names, so no conversion is needed; the caller's
+    `load_state_dict(strict=True)` refuses a key that does not fit (JAX
+    `torch_import.py:442-469`)."""
+    return {k: torch.as_tensor(v).float() for k, v in _state_dict(path_or_sd).items()
+            if not any(s in k for s in NOT_WEIGHTS)}
+
+
+def import_normalizer_stats(obj: Mapping[str, Any]):
+    """A reference `normalizer.ckpt` (glob_mean, glob_std, count) -> the
+    port's (count, mean, m2) with m2 = std^2 * count taken in float64, as
+    the JAX package's restore does (`cli.py:160-167`)."""
+    def arr(x):
+        return np.asarray(x.detach().cpu().numpy() if torch.is_tensor(x) else x,
+                          dtype=np.float32)
+
+    mean, std = arr(obj["glob_mean"]), arr(obj["glob_std"])
+    count = float(arr(obj.get("count", 0.0)).reshape(-1)[0])
+    m2 = (std.astype(np.float64) ** 2 * count).astype(np.float32)
+    return np.float32(count), mean, m2

@@ -3,6 +3,10 @@ recognize.py, with training/trainer.py's make_eval_step).
 
     search="ctc" (default):
         waveform -> log-mel -> normaliser -> ASRModel -> greedy CTC collapse
+    search="beam" (recognize.py --beam N):
+        ... -> the CTC prefix beam search (decoding/ctc_beam.py) with the
+        `decode` stanza's test_beam_size, beam_prune_logp and
+        token_prune_min_logp, as the CTC recipe's test decoder
     search="s2s" (recognize.py --s2s):
         waveform -> log-mel -> normaliser -> ASRModel encoder + CTC
         log-probs -> joint CTC/attention beam search over the decoder
@@ -22,7 +26,9 @@ duration (stable), `batch` at a time, each group padded to a multiple
 of 1 s and short groups filled with rows of wav_len 1, so a padded
 request sees the same padding, and gives the same tokens, as there. In
 S2S mode `batch=1` feeds each request unpadded, as recognize.py --s2s
-does.
+does. With `times=True` each request also gets its greedy CTC alignment
+(tokens, onsets, offsets, confidences; recognize.py --timestamps) from
+the same forward.
 """
 
 from __future__ import annotations
@@ -33,7 +39,12 @@ import numpy as np
 import torch
 
 from mamba_asr_torch.configs.loader import DecodeConfig, FrontendConfig
-from mamba_asr_torch.decoding.ctc_greedy import ctc_greedy_decode, tokens_to_lists
+from mamba_asr_torch.decoding.ctc_beam import ctc_beam_decode
+from mamba_asr_torch.decoding.ctc_greedy import (
+    ctc_greedy_decode,
+    ctc_greedy_decode_with_times,
+    tokens_to_lists,
+)
 from mamba_asr_torch.decoding.s2s_beam import S2SBeamSearcher, strip_special
 from mamba_asr_torch.models.asr import ASRConfig, ASRModel
 from mamba_asr_torch.models.lm import load_lm
@@ -64,6 +75,9 @@ def eval_step(model: ASRModel, frontend: FrontendConfig, normalizer: NormalizerS
     return model(apply_normalizer(normalizer, feats), flens, tokens_bos)
 
 
+SEARCHES = ("ctc", "beam", "s2s")
+
+
 class Recognizer:
     """Holds the model on its device and answers transcription requests.
 
@@ -72,9 +86,11 @@ class Recognizer:
     mean, m2) of the JAX package's NormalizerState, or None for no
     statistics (features pass through). device: None means the CUDA card
     (raises without one); "cpu" runs the plain versions. search: "ctc"
-    (greedy) or "s2s" (the joint beam search, with `decode`'s settings
-    and its LM when `decode.lm_path` is set; the config needs a
-    Transformer or Mamba decoder).
+    (greedy), "beam" (the CTC prefix beam search) or "s2s" (the joint
+    beam search, with `decode`'s settings and its LM when `decode.lm_path`
+    is set; the config needs a Transformer or Mamba decoder).
+    `from_model` takes a model already built and restored
+    (cli.restore_asr_state).
     """
 
     def __init__(
@@ -88,23 +104,39 @@ class Recognizer:
         decode: DecodeConfig = DecodeConfig(),
         search: str = "ctc",
     ):
-        self.device = resolve_device(device)
-        if batch < 1:
-            raise ValueError(f"batch must be >= 1, got {batch}")
-        if search not in ("ctc", "s2s"):
-            raise ValueError(f"search must be 'ctc' or 's2s', got {search!r}")
+        device = resolve_device(device)
         model = ASRModel(cfg)
         model.load_state_dict(state_dict, strict=True)
-        self.model = model.to(self.device).eval()
         if normalizer is None:
             zeros = np.zeros((frontend.n_mels,), np.float32)
             normalizer = (0.0, zeros, zeros)
-        self.normalizer = NormalizerState.from_arrays(*normalizer, device=self.device)
-        self.cfg, self.frontend, self.batch = cfg, frontend, batch
-        self.search = search
+        self._setup(model.to(device), NormalizerState.from_arrays(*normalizer, device=device),
+                    frontend, batch, decode, search)
+
+    @classmethod
+    def from_model(cls, model: ASRModel, normalizer: NormalizerState,
+                   frontend: FrontendConfig, batch: int = 1,
+                   decode: DecodeConfig = DecodeConfig(), search: str = "ctc") -> "Recognizer":
+        """A Recognizer over `model` as it is (its device, put in eval
+        mode) and a NormalizerState on that device."""
+        rec = cls.__new__(cls)
+        rec._setup(model, normalizer, frontend, batch, decode, search)
+        return rec
+
+    def _setup(self, model: ASRModel, normalizer: NormalizerState, frontend: FrontendConfig,
+               batch: int, decode: DecodeConfig, search: str) -> None:
+        if batch < 1:
+            raise ValueError(f"batch must be >= 1, got {batch}")
+        if search not in SEARCHES:
+            raise ValueError(f"search must be one of {SEARCHES}, got {search!r}")
+        self.model = model.eval()
+        self.device = model.src_proj.weight.device
+        self.normalizer = normalizer
+        self.cfg, self.frontend, self.batch = model.cfg, frontend, batch
+        self.decode, self.search = decode, search
         self.searcher = None
         if search == "s2s":
-            lm = load_lm(decode, cfg.vocab_size, self.device)
+            lm = load_lm(decode, self.cfg.vocab_size, self.device)
             self.searcher = S2SBeamSearcher(
                 self.model, beam_size=decode.s2s_test_beam_size,
                 ctc_weight=decode.ctc_weight_decode,
@@ -124,27 +156,41 @@ class Recognizer:
         enc_lengths, enc_out (make_eval_step without a decoder)."""
         return eval_step(self.model, self.frontend, self.normalizer, wav, wav_lens)
 
-    def decode_batch(self, wav: torch.Tensor, wav_lens: torch.Tensor) -> List[List[int]]:
-        """One padded batch -> token ids per row, by the Recognizer's search."""
-        out = self.eval_step(wav, wav_lens)
-        if self.searcher is None:
-            toks, lens = ctc_greedy_decode(out["ctc_log_probs"], out["enc_lengths"])
-            return tokens_to_lists(toks.cpu().numpy(), lens.cpu().numpy())
-        toks, lens, _ = self.searcher(out["enc_out"], out["enc_lengths"],
-                                      out["ctc_log_probs"])
-        return strip_special(toks.cpu().numpy(), lens.cpu().numpy(),
-                             self.searcher.eos_id)
+    def _search(self, out: Dict[str, torch.Tensor]) -> List[List[int]]:
+        lp, lens = out["ctc_log_probs"], out["enc_lengths"]
+        if self.search == "beam":
+            return ctc_beam_decode(lp, lens, self.decode)
+        if self.search == "s2s":
+            toks, tlens, _ = self.searcher(out["enc_out"], lens, lp)
+            return strip_special(toks.cpu().numpy(), tlens.cpu().numpy(),
+                                 self.searcher.eos_id)
+        toks, lens = ctc_greedy_decode(lp, lens)
+        return tokens_to_lists(toks.cpu().numpy(), lens.cpu().numpy())
 
-    def transcribe(self, wavs: Sequence[np.ndarray]) -> List[List[int]]:
-        """1-D float32 waveforms -> token ids, in the order given."""
+    def decode_batch(self, wav: torch.Tensor, wav_lens: torch.Tensor, times: bool = False):
+        """One padded batch -> token ids per row, by the Recognizer's
+        search; with `times`, (ids, alignment) per row, the alignment the
+        greedy one: (tokens, onsets, offsets, confidences), cut to length."""
+        out = self.eval_step(wav, wav_lens)
+        ids = self._search(out)
+        if not times:
+            return ids
+        toks, lens, ons, offs, confs = (x.cpu().numpy() for x in ctc_greedy_decode_with_times(
+            out["ctc_log_probs"], out["enc_lengths"]))
+        return [(row, tuple(a[r, :lens[r]] for a in (toks, ons, offs, confs)))
+                for r, row in enumerate(ids)]
+
+    def transcribe(self, wavs: Sequence[np.ndarray], times: bool = False) -> list:
+        """1-D float32 waveforms -> token ids, in the order given; with
+        `times`, (ids, greedy alignment) per request."""
         wavs = [np.asarray(w, dtype=np.float32) for w in wavs]
         if self.searcher is not None and self.batch == 1:
             return [self.decode_batch(torch.from_numpy(w)[None],
-                                      torch.tensor([len(w)], dtype=torch.int32))[0]
+                                      torch.tensor([len(w)], dtype=torch.int32), times)[0]
                     for w in wavs]
         order = sorted(range(len(wavs)), key=lambda i: len(wavs[i]))
         bucket = self.frontend.sample_rate  # 1 s
-        results: List[List[int]] = [[] for _ in wavs]
+        results: list = [None] * len(wavs)
         for start in range(0, len(order), self.batch):
             group = order[start:start + self.batch]
             max_len = max(len(wavs[i]) for i in group)
@@ -154,7 +200,8 @@ class Recognizer:
             for r, i in enumerate(group):
                 wav_mat[r, : len(wavs[i])] = wavs[i]
                 wav_lens[r] = len(wavs[i])
-            ids = self.decode_batch(torch.from_numpy(wav_mat), torch.from_numpy(wav_lens))
+            rows = self.decode_batch(torch.from_numpy(wav_mat), torch.from_numpy(wav_lens),
+                                     times)
             for r, i in enumerate(group):
-                results[i] = ids[r]
+                results[i] = rows[r]
         return results

@@ -42,7 +42,7 @@ import torch
 
 from mamba_asr_torch.configs.loader import ExperimentConfig
 from mamba_asr_torch.data.dataset import BucketedLoader, prefetch_iterator
-from mamba_asr_torch.decoding.ctc_beam import ctc_beam_search
+from mamba_asr_torch.decoding.ctc_beam import ctc_beam_decode
 from mamba_asr_torch.decoding.ctc_greedy import ctc_greedy_decode, tokens_to_lists
 from mamba_asr_torch.decoding.s2s_beam import S2SBeamSearcher, strip_special
 from mamba_asr_torch.models.asr import ASRModel
@@ -238,11 +238,7 @@ class Trainer:
         d = self.cfg.decode
 
         def decode(model, batch, out):
-            toks, lens = ctc_beam_search(
-                out["ctc_log_probs"], out["enc_lengths"], beam_size=d.test_beam_size,
-                blank_id=d.blank_index, beam_prune_logp=d.beam_prune_logp,
-                token_prune_min_logp=d.token_prune_min_logp)
-            return tokens_to_lists(toks.cpu().numpy(), lens.cpu().numpy())
+            return ctc_beam_decode(out["ctc_log_probs"], out["enc_lengths"], d)
 
         return decode
 
@@ -277,17 +273,20 @@ class Trainer:
         return decode
 
     def evaluate(self, loader: BucketedLoader, test_name: str = "test",
-                 decoder: Optional[Decoder] = None) -> Dict[str, float]:
+                 decoder: Optional[Decoder] = None, use_averaged: bool = True
+                 ) -> Dict[str, float]:
         """Decode a test set with the average of the train.avg_checkpoints
         best checkpoints (by WER, or ACC for S2S; the current model when
-        there is none);
-        the optimizer and normaliser are the best checkpoint's. Saves that
-        state as `averaged_<test_name>` and writes the per-utterance
-        alignments to wer_<test_name>.txt."""
+        there is none, or with use_averaged False);
+        the optimizer and normaliser are the best checkpoint's. With
+        use_averaged, saves that state as `averaged_<test_name>`. Writes the
+        per-utterance alignments to wer_<test_name>.txt."""
         model, normalizer = self.step.model, self.step.normalizer
         rank = "max_key" if self.is_s2s else "min_key"
-        restored = self.ckpt.restore_averaged(k=self.cfg.train.avg_checkpoints,
-                                              **{rank: self.metric_key})
+        restored = None
+        if use_averaged:
+            restored = self.ckpt.restore_averaged(k=self.cfg.train.avg_checkpoints,
+                                                  **{rank: self.metric_key})
         if restored is None:
             state = self.state()
         else:
@@ -300,8 +299,9 @@ class Trainer:
                                             for k, v in best["normalizer"].items()})
         wer, cer = self._decode_set(model, normalizer, loader, decoder)
         summary = {"WER": wer.summarize()["WER"], "CER": cer.summarize()["WER"]}
-        self.ckpt.save(state, metrics={**summary, "averaged": True},
-                       name=f"averaged_{test_name}")
+        if use_averaged:
+            self.ckpt.save(state, metrics={**summary, "averaged": True},
+                           name=f"averaged_{test_name}")
         out_path = os.path.join(self.cfg.output_folder, f"wer_{test_name}.txt")
         os.makedirs(os.path.dirname(out_path), exist_ok=True)
         with open(out_path, "w", encoding="utf-8") as f:
@@ -309,4 +309,3 @@ class Trainer:
         self.logger.log_stats({"test_set": test_name}, test_stats=summary)
         self.test_stats[test_name] = summary
         return summary
-

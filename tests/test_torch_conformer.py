@@ -250,13 +250,32 @@ def test_conformer_import_equals_export(model):
 
 def test_conformer_init_and_streaming():
     """init_params_ draws RelPosMHAXL's u and v as zeros (JAX's init), and
-    streaming raises, naming its slice."""
+    streaming builds each layer's state (an empty left context, the conv
+    tail) and gives JAX's chunks: two chunks of 6 frames, within 2e-5."""
     pm = asr.init_params_(asr.ASRModel(port_cfg(jax_cfg())), torch.Generator().manual_seed(0))
     mha = pm.encoder.layers[0].mha_layer
     assert not mha.pos_bias_u.any() and not mha.pos_bias_v.any()
     assert mha.in_proj_weight.std() > 0.1
-    with pytest.raises(NotImplementedError, match="slice 4 item 2"):
-        pm.encoder.init_stream_state(1)
+    jcfg = jax_cfg()
+    jm = jax_asr.ASRModel(jcfg)
+    params = seeded(jm, 1, jnp.asarray(FEATS), jnp.asarray(FLENS))
+    pm = port_model(jcfg, params)
+    state = pm.init_streaming_state(2)
+    assert len(state) == 2 and not state[0]["mha_left_len"].any()
+    assert tuple(state[0]["conv"].shape) == (2, (K - 1) // 2, D)
+
+    def chunk(m, x, s):
+        return m.encoder.forward_chunk(m.src_proj(x), s)
+
+    run = jax.jit(lambda x, s: jm.apply({"params": params}, x, s, method=chunk))
+    jstate = jm.apply({"params": params}, 2, method=jax_asr.ASRModel.init_streaming_state)
+    x = np.random.default_rng(8).normal(size=(2, 12, pm.cfg.frontend_output_dim))
+    for lo in (0, 6):
+        xc = x[:, lo:lo + 6].astype(np.float32)
+        want, jstate = run(jnp.asarray(xc), jstate)
+        got, state = pm.encoder.forward_chunk(
+            layers.dense(torch.from_numpy(xc), pm.src_proj, torch.float32), state)
+        _close(got.detach().numpy(), np.asarray(want), 2e-5, f"chunk at {lo}")
 
 
 # -- training ------------------------------------------------------------------------------------

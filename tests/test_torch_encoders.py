@@ -132,8 +132,11 @@ def test_csgu_init_is_near_identity():
     csgu = pm.encoder.layers[0].cgmlp.csgu
     for lin in (csgu.conv, csgu.linear_after_conv):
         assert lin.weight.abs().max() < 1e-5 and (lin.bias == 1).all()
-    with pytest.raises(NotImplementedError, match="slice 4 item 2"):
-        pm.encoder.forward_chunk(None, None)
+    # Streaming is ported (tests/test_torch_streaming.py holds it against
+    # JAX): a chunk from a fresh state fills the window and the CSGU tail.
+    y, state = pm.encoder.forward_chunk(torch.ones(2, 6, D), pm.init_streaming_state(2))
+    assert tuple(y.shape) == (2, 6, D) and state[0]["mha_left_len"].tolist() == [6, 6]
+    assert tuple(state[0]["csgu"].shape) == (2, csgu.padding_amount, 16)
 
 
 @pytest.fixture(scope="module", params=["RelPosMHAXL", "regularMHA", "hypermixing"])

@@ -441,6 +441,30 @@ def test_scan_kernel_full_length_at_batch_one_on_card():
     torch.testing.assert_close(h_last, h_ref, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("length", [1, 2, 3, 16])
+def test_scan_kernel_streaming_chunk_on_card(length, dtype):
+    """K1 at a streaming chunk's shape (B1, L 16, or 1 to 3 at a flush;
+    D288, N16) with the carried state in and h_last out, against the plain
+    version: one launch; bf16 within (1e-2, 1e-2), fp32 2e-4; h_last
+    2e-4."""
+    _card()
+    dt = getattr(torch, dtype)
+    t = _on_card(scan_inputs(29 + length, bsz=1, length=length, d=288, n=16), dt)
+    h0 = torch.randn(1, 288, 16, device="cuda")
+    before = kernel.LAUNCHES
+    out, h_last = kernel.selective_scan_fwd(**t, delta_softplus=True, h0=h0,
+                                            return_last_state=True)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + 1
+    ref, h_ref = selective_scan.selective_scan_ref(**t, delta_softplus=True, h0=h0,
+                                                   return_last_state=True)
+    tol = 1e-2 if dt == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h_last, h_ref, rtol=2e-4, atol=2e-4)
+
+
 def test_time_segments_cover_the_steps():
     """Every K1 launch's segments are whole CHUNKs and cover L, the last
     one non-empty; at 30 s and d_inner 288 on 132 SMs B1 runs in 12, B8 in
@@ -455,6 +479,8 @@ def test_time_segments_cover_the_steps():
     assert kernel.time_segments(16, 751, 288, 132) == (1, 768)
     assert kernel.time_segments(8, 751, 288, 132) == (4, 192)
     assert kernel.time_segments(1, 751, 288, 132) == (12, 64)
+    for length in (1, 2, 3, 16):  # a streaming chunk: one segment
+        assert kernel.time_segments(1, length, 288, 132) == (1, 32)
 
 
 @pytest.mark.cuda

@@ -2,7 +2,8 @@
 
 - No file of mamba_asr_torch/, nor chip_smoke.py, imports JAX, flax,
   optax or the JAX package (a static scan of the source).
-- Entry points default to the CUDA card and refuse to run without one;
+- Entry points (the recipes, recognize, evaluate, the tools) default to
+  the CUDA card and refuse to run without one;
   chip_smoke.py fails, printing no result, without a card or without the
   rest of the repository.
 - The kernel wrappers have no `try` that could fall back to a plain
@@ -22,8 +23,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from mamba_asr_torch import train_lm
-from mamba_asr_torch.cli import load_lm, run_training
+from mamba_asr_torch import evaluate, recognize, train_lm
+from mamba_asr_torch.cli import load_lm, restore_asr_state, run_training
 from mamba_asr_torch.configs.loader import DecodeConfig, ExperimentConfig, FrontendConfig
 from mamba_asr_torch.data.tokenizer import CharTokenizer
 from mamba_asr_torch.models.asr import ASRConfig
@@ -96,6 +97,12 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch, tmp_path):
                              "--n-dev", "1", "--n-test", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_lm(dataclasses.replace(exp, decode=DecodeConfig(lm_path="lm.pt")))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        restore_asr_state(exp, torch_ckpt="model.ckpt")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recognize.main([yaml, "a.wav", "--torch_ckpt", "model.ckpt"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate.main([yaml, "--data.output_folder", str(tmp_path / "out")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_lm.main(["--corpus", "c.txt", "--tokenizer", "t.json", "--output",
                        str(tmp_path / "lm")])

@@ -10,12 +10,14 @@ tests/test_torch_s2s_ops.py (float32).
   unpadded): tokens equal. At batch=2 the requests are grouped and padded
   as in the CTC mode.
 - What is not ported raises: the Conformer decoder, a flax msgpack
-  `decode.lm_path`, a search other than "ctc" and "s2s".
+  `decode.lm_path`, a search other than "ctc", "beam" and "s2s";
+  search="beam" gives the CTC recipe's test decoder's tokens.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +38,7 @@ from mamba_asr_torch.decoding.s2s_beam import (
 from mamba_asr_torch.models import asr
 from mamba_asr_torch.models import params_import as pi
 from mamba_asr_torch.serving.recognizer import Recognizer
+from mamba_asr_torch.training import loop
 from tests.test_torch_s2s_ops import encode, port_cfg, s2s_cfg, s2s_model
 
 torch.set_num_threads(1)
@@ -151,7 +154,16 @@ def test_what_is_not_ported_raises(tiny):
                    decode=DecodeConfig(lm_path="lm.msgpack"), search="s2s")
     with pytest.raises(ValueError, match="search"):
         Recognizer(pm.cfg, FrontendConfig(n_mels=20), pm.state_dict(), device="cpu",
-                   search="beam")
+                   search="greedy")
+    # search="beam" is ported: the CTC prefix beam search of the CTC
+    # recipe's test decoder (loop.Trainer.ctc_decoder) on the same forward.
+    decode = DecodeConfig(test_beam_size=4)
+    rec = Recognizer(pm.cfg, FrontendConfig(n_mels=20), pm.state_dict(), device="cpu",
+                     batch=2, decode=decode, search="beam")
+    wav = torch.from_numpy(np.random.default_rng(9).normal(0, 0.1, (2, 16000)).astype(np.float32))
+    lens = torch.tensor([16000, 12000], dtype=torch.int32)
+    hook = loop.Trainer.ctc_decoder(SimpleNamespace(cfg=SimpleNamespace(decode=decode)))
+    assert rec.decode_batch(wav, lens) == hook(rec.model, None, rec.eval_step(wav, lens))
 
 
 def test_bf16_search_casts_the_decode_weights_once(tiny):
