@@ -53,7 +53,9 @@ exits non-zero; it prints no result without a CUDA card):
              (PyTorch's default; reported). Where an fp32 step put a
              front-end leaky_relu input on the other side of 0 than the
              float64 step, its reference is the float64 step on the fp32
-             step's sides (the flips are reported)
+             step's sides (the flips are reported); then one dynamic-chunk
+             micro-step (chunks of 16 encoder frames, 2 of left context),
+             card (cuDNN off) against CPU, held alike
   train      Trainer(device="cuda") with the YAML's settings (bf16,
              dropout 0.1, SpecAugment, accumulation 4) on B32 x 25 s of
              noise with ~300-token targets: 8 checked micro-steps, then
@@ -200,7 +202,9 @@ exits non-zero; it prints no result without a CUDA card):
              of CTC/conformer_large, conformer_large_hypermixing and
              branchformer_large and of S2S/conformer_small, card against
              CPU; for S2S/conformer_small 8 decode steps through shuffled
-             ancestor tables and the joint search at beam 4 (tokens equal)
+             ancestor tables and the joint search at beam 4 (tokens equal);
+             one dynamic-chunk micro-step of conformer_large, card against
+             CPU, held as train_parity holds it
   conformer_recognize  bf16 through Recognizer: CTC RTFx of Conformer-Large
              at B32 x 30 s (5 blocks of 10 calls; one profiled call), one
              block each for the hypermixing and Branchformer YAMLs; S2S
@@ -221,6 +225,24 @@ exits non-zero; it prints no result without a CUDA card):
              share of 30 s bf16 streams (ConMamba-Small, Conformer-Large);
              StreamingS2SSession on ConMambaMamba-Small: feed + extend ms,
              decode_greedy(32) ms, extended against primed cross states
+  serving    (after streaming) the slot-batched StreamingServer: K1 at the
+             tick's shapes (B8, B32, B64 x L16 D288 N16, bf16 and fp32, h0
+             in, h_last out) against its plain version, timed at B32 bf16;
+             the causal fp32 ConMamba-Small of streaming in a 4-slot engine
+             (TF32 off), six staggered streams of 4 to 12 s with one more
+             aborted and slots reused: every transcript equal to the single
+             session's and the offline greedy decode's; the same engine
+             behind AsrTcpServer on 127.0.0.1 (an abandoned client, four
+             concurrent 10 s clients in 320 ms sends with ids equal to the
+             engine's, the full-server error, an endpoint event with the
+             signal forced, the stats op); tools/bench_serving.py on the
+             YAML's bf16 ConMamba-Small at 1, 8, 32, 64 slots (tick ms,
+             spread, per-stream ms, capacity, K1 24 per tick, peak memory)
+             and one profiled tick at 32 slots; the final passes on a 6 s
+             stream (ctc_beam at beam 8 without and with a seeded
+             full-width LM, s2s on S2S/conmamba_small and on the Mamba
+             decoder), each equal to its search run directly on the same
+             encoder output, with finish_final ms and launches
   recognize_cli  (last) `python -m mamba_asr_torch.recognize` on the CTC
              floor run's test files and save dir: --beam 100 tokens equal
              to the trainer's CTC-beam test pass, --timestamps word times,
@@ -313,8 +335,8 @@ FLOOR_EPOCHS = 60
 # corpus (scripts/falsify_s2s_residual.py --part b: 160 / 16 / 16
 # utterances) for 90 epochs = 3 x 30: the proof's 150 cut to make room
 # for the streaming phases (PR 11's call 3 read valid WER 0.00 from epoch
-# 30 and ACC 0.93 to 0.95 from epoch 60 to 150; PR 12's 105-epoch run
-# test WER 0.00).
+# 30 and ACC 0.93 to 0.95 from epoch 60 to 150; PR 12's 90-epoch runs test
+# WER 0.00; 60 epochs read test WER 2.00, at the limit, in PR 13).
 MAMBA_CONFIG = "hparams/S2S/conmambamamba_small.yaml"
 MAMBA_SEARCH = (8, 66)
 MAMBA_TRAIN_S = 81
@@ -353,6 +375,24 @@ STREAM_CHUNK_FRAMES = 64  # recognize --chunk_frames: 640 ms of audio per feed
 # branches.
 STREAM_PARITY_FRAMES = (3000, 2999, 2997)
 STREAM_ENCODER_FRAMES = 600  # the card-vs-CPU streams' fbank frames (6 s)
+# Dynamic-chunk training's check (train_parity, conformer_parity): chunks of
+# 16 encoder frames (640 ms) with 2 of left context; 4 s rows give 101
+# frames, so the last chunk is partial.
+DYNCHUNK = (16, 2)
+# Serving (phase serving): K1 at the tick's batch; the exactness streams
+# (fp32, causal, SERVING_EXACT_SLOTS slots) with one more stream aborted
+# mid-flight; bench_serving's sweep at the YAML's bf16; the final passes'
+# stream; the TCP clients (count, seconds each, seconds per send).
+SERVING_K1_SLOTS = (8, 32, 64)
+SERVING_EXACT_SLOTS = 4
+SERVING_STREAMS_S = (4.0, 12.0, 7.0, 10.0, 5.0, 9.0)
+SERVING_SLOTS = (1, 8, 32, 64)
+SERVING_TICKS = 12
+SERVING_PROFILE_SLOTS = 32
+SERVING_FINAL_S = 6.0
+SERVING_CTC_BEAM = 8
+SERVING_TCP = (4, 10.0, 0.32)
+SERVING_ENDPOINT_S = 1.5
 
 
 def scans_per_step(cfg) -> int:
@@ -696,8 +736,13 @@ def device_profile(fn, top: int, named=()):
     the `top` kernels by device time as {kernel, ms, calls}, followed by
     any other kernel whose name holds one of `named`). Only the
     card's activity is traced: recording the host's operators as well made
-    the S2S search's profile take 67 s instead of 22 s on an H100 host."""
+    the S2S search's profile take 67 s instead of 22 s on an H100 host. The
+    device events are summed straight from the trace
+    (`tools/timing.py:device_kernel_times`), not through
+    `key_averages`, whose event tree is the slow part of a long trace."""
     from torch.profiler import ProfilerActivity, profile
+
+    from mamba_asr_torch.tools.timing import device_kernel_times
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -705,13 +750,7 @@ def device_profile(fn, top: int, named=()):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "cuda_time_total", 0.0)
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dev_us, ev.key, ev.count))
+    rows = [(us, name, calls) for name, (us, calls) in device_kernel_times(prof).items()]
     if not rows:
         raise AssertionError("the profile recorded no device time")
     rows.sort(reverse=True)
@@ -1182,6 +1221,34 @@ def card_vs_cpu(name, card, cpu):
     return loss_errs, worst, worst_name
 
 
+@torch.enable_grad()  # conformer_parity runs under no_grad
+def dynchunk_parity(name, exp, state):
+    """One dynamic-chunk micro-step (train.dynchunk_size, dynchunk_left_context
+    = DYNCHUNK) of `exp`'s model, fp32 with TF32 and cuDNN off, dropout 0,
+    SpecAugment off, on train_parity's B2 x 4 s batch: the card against the
+    CPU, held as train_parity holds the full pass (card_vs_cpu)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(exp.model, compute_dtype="float32", dropout=0.0)
+    spec = dataclasses.replace(exp.specaug, enabled=False)
+    dyn = dataclasses.replace(exp, train=dataclasses.replace(
+        exp.train, dynchunk_size=DYNCHUNK[0], dynchunk_left_context=DYNCHUNK[1]))
+    batch = char_batch(2, 4.0, 20, 3, exp.model.vocab_size)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        torch.backends.cudnn.enabled = dev != "cuda"
+        runs[dev] = dict(zip(("losses", "grads"),
+                             step_grads(dyn, spec, cfg32, state, batch, dev)[:2]))
+    torch.backends.cudnn.enabled = True
+    torch.backends.cudnn.allow_tf32 = True  # back to PyTorch's defaults
+    loss_errs, worst, worst_name = card_vs_cpu(name, runs["cuda"], runs["cpu"])
+    return {"chunk_size": DYNCHUNK[0], "left_context_chunks": DYNCHUNK[1],
+            "loss_cuda": runs["cuda"]["losses"]["loss"], "loss_cpu": runs["cpu"]["losses"]["loss"],
+            "loss_rel_err": loss_errs["loss"],
+            "params": len(runs["cpu"]["grads"]), "grad_max_rel_err": worst,
+            "grad_worst_param": worst_name}
+
+
 def phase_train_parity(exp, state):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg32 = dataclasses.replace(exp.model, compute_dtype="float32", dropout=0.0)
@@ -1202,7 +1269,8 @@ def phase_train_parity(exp, state):
           "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad": TRAIN_GRAD_TOL,
                   "fault": {"ratio": CUDNN_FAULT_RATIO, "frac": CUDNN_FAULT_FRAC}},
           "scan_launches": {"K1": 2 * cfg32.num_encoder_layers,
-                            "K2": 2 * cfg32.num_encoder_layers}})
+                            "K2": 2 * cfg32.num_encoder_layers},
+          "dynchunk": dynchunk_parity("train_parity dynchunk", exp, state)})
 
 
 def phase_train(exp, state):
@@ -2946,6 +3014,9 @@ def phase_conformer_parity(exps, states):
             S2S_PARITY_TOL, 0.0),
         "search": {"beam": 4, "scores": found["cuda"][2].tolist(),
                    "lengths": found["cuda"][1].tolist(), "steps": st, "tokens_equal": True}}
+    large = CONFORMER_CTC[0]
+    result["dynchunk"] = {yaml_name(large): dynchunk_parity(
+        "conformer_parity dynchunk", exps[large], states[large])}
     emit(result)
 
 
@@ -3367,6 +3438,315 @@ def phase_streaming(exp, state, conf, conf_states, mam, mam_state, clock_hz, sms
     return result
 
 
+def drive_engine(engine, wavs, seed, abort=None):
+    """Streams `wavs` through `engine`'s public API: attach while a slot is
+    free (the rest wait in order, so freed slots are reused), each live
+    stream fed a ragged piece of 0.1 to 0.9 s per step, one tick per step,
+    a stream finished once fed. abort (index, step): that stream is
+    aborted at that step. Returns {index: ids} (None for the aborted)."""
+    rng = np.random.default_rng(seed)
+    queue, live, out, step = list(range(len(wavs))), {}, {}, 0
+    while queue or live:
+        while queue and engine.free_slots:
+            live[engine.attach()] = [queue.pop(0), 0, []]
+        for sid, st in live.items():
+            n = int(rng.uniform(0.1, 0.9) * 16000)
+            engine.feed(sid, wavs[st[0]][st[1]:st[1] + n])
+            st[1] += n
+        for sid, toks in engine.tick().items():
+            live[sid][2] += toks
+        for sid in [s for s, st in live.items() if st[1] >= len(wavs[st[0]])]:
+            idx, _, ids = live.pop(sid)
+            out[idx] = ids + engine.finish(sid)
+        if abort is not None and step == abort[1]:
+            sid = next(s for s, st in live.items() if st[0] == abort[0])
+            engine.abort(sid)
+            out[live.pop(sid)[0]] = None
+        step += 1
+    return out
+
+
+def final_pass(name, model, frontend, final, beam, opts, seed, lm=None):
+    """One SERVING_FINAL_S stream through an engine with final_decode
+    `final`, fed in 320 ms pieces with a tick after each; finish_final
+    timed (the flush and the search) with its K1/K3/K4 launches; the same
+    search run directly on the encoder output and CTC log-probs the
+    engine's pass took: ids equal."""
+    from mamba_asr_torch.decoding.ctc_beam import ctc_beam_search, ctc_beam_search_nbest
+    from mamba_asr_torch.decoding.rescore import rescore_nbest
+    from mamba_asr_torch.decoding.s2s_beam import S2SBeamSearcher
+    from mamba_asr_torch.serving.engine import StreamingServer
+
+    engine = StreamingServer(model, frontend, None, n_slots=2,
+                             chunk_frames=STREAM_CHUNK_FRAMES, final_decode=final,
+                             beam_size=beam, decode_opts=opts, lm_model=lm)
+    seen = {}
+    if final == "s2s":
+        searcher = engine._s2s_searcher
+
+        def record(enc, lens, ctc_log_probs):
+            seen.update(enc=enc, lens=lens, lp=ctc_log_probs)
+            return searcher(enc, lens, ctc_log_probs=ctc_log_probs)
+
+        engine._s2s_searcher = record
+    else:
+        final_ctc = engine._final_ctc
+
+        def record(lp, lens):
+            seen.update(lp=lp, lens=lens)
+            return final_ctc(lp, lens)
+
+        engine._final_ctc = record
+    wav = noise(SERVING_FINAL_S, seed)
+    sid = engine.attach()
+    for off in range(0, len(wav), 5120):
+        engine.feed(sid, wav[off:off + 5120])
+        engine.tick()
+    reset, read = s2s_launch_counters()
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, got = engine.finish_final(sid)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = read()
+    with torch.no_grad():
+        if final == "s2s":
+            toks, lens, _ = S2SBeamSearcher(model, beam_size=beam, **opts)(
+                seen["enc"], seen["lens"], ctc_log_probs=seen["lp"])
+        elif lm is None:
+            toks, lens = ctc_beam_search(seen["lp"], seen["lens"], beam_size=beam)
+        else:
+            nb = ctc_beam_search_nbest(seen["lp"], seen["lens"], nbest=min(beam, 10),
+                                       beam_size=beam)
+            toks, lens = rescore_nbest(*nb, lm, lm_weight=opts["lm_weight"],
+                                       temperature_lm=opts["temperature_lm"])
+    direct = toks[0, :int(lens[0])].tolist()
+    if got != direct:
+        raise AssertionError(f"serving {name}: final ids differ from the direct search, "
+                             f"first at {first_difference(torch.tensor(got), torch.tensor(direct))}")
+    return {"final": final, "beam": beam, "encoder_frames": int(seen["lens"][0]),
+            "padded_frames": int(seen["lp"].shape[1]), "ids": len(got),
+            "finish_final_ms": ms, "launches": launches, "equal_to_direct": True}
+
+
+def s2s_opts(decode):
+    """The decode stanza's joint-search settings, as Recognizer passes them."""
+    return dict(ctc_weight=decode.ctc_weight_decode, ctc_candidates=decode.ctc_candidates,
+                temperature=decode.temperature, length_normalization=decode.length_normalization,
+                max_decode_ratio=decode.max_decode_ratio, min_decode_ratio=decode.min_decode_ratio)
+
+
+def tcp_round_trips(engine, want, wavs):
+    """AsrTcpServer over `engine` on 127.0.0.1: an abandoned client's slot
+    comes back; SERVING_TCP's clients stream `wavs` concurrently; a client
+    beyond the slots gets the server-full error; every client's ids equal
+    `want`; the stats op. Client 0 waits for its endpoint event first: the
+    trailing-silence signal is forced to SERVING_ENDPOINT_S, as the JAX
+    package's test forces it (a seeded model's argmax need not end a chunk
+    on a blank; the engine's bookkeeping is held against JAX's on the
+    CPU)."""
+    import threading
+
+    from mamba_asr_torch.serving.server import AsrTcpServer, StreamingClient
+
+    before = engine.stats()
+    engine.trailing_silence_s = lambda sid: SERVING_ENDPOINT_S
+    server = AsrTcpServer(engine, port=0, endpoint_silence_s=SERVING_ENDPOINT_S)
+    server.start()
+    step = int(SERVING_TCP[2] * 16000)
+    try:
+        gone = StreamingClient(server.host, server.port)
+        gone.send(gone.start(), wavs[0][:32000])
+        gone.close()
+        deadline = time.time() + 30
+        while engine.free_slots < engine.n_slots and time.time() < deadline:
+            time.sleep(0.01)
+        if engine.free_slots != engine.n_slots:
+            raise AssertionError("serving tcp: the abandoned client's slot was not reclaimed")
+        clients = [StreamingClient(server.host, server.port) for _ in wavs]
+        sids = [c.start() for c in clients]
+        extra = StreamingClient(server.host, server.port)
+        try:
+            extra.start()
+            raise AssertionError("serving tcp: a client beyond the slots was started")
+        except RuntimeError as e:
+            full = str(e)
+        extra.close()
+        got, endpoint = [None] * len(wavs), {}
+
+        def run(i):
+            for off in range(0, len(wavs[i]), step):
+                clients[i].send(sids[i], wavs[i][off:off + step])
+            if i == 0:
+                endpoint["silence_s"] = clients[i].wait_endpoint(sids[i], timeout=120)
+            got[i] = clients[i].end(sids[i])[0]
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(wavs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall_s = time.perf_counter() - t0
+        stats = clients[0].stats()
+        for c in clients:
+            c.close()
+    finally:
+        server.stop()
+        del engine.trailing_silence_s
+    for i, ids in enumerate(got):
+        if ids != want[i]:
+            raise AssertionError(f"serving tcp: client {i}'s ids differ from the engine's")
+    if endpoint.get("silence_s") != SERVING_ENDPOINT_S:
+        raise AssertionError(f"serving tcp: endpoint event {endpoint}")
+    counts = {k: stats[k] - before[k] for k in ("attached_total", "finished_total",
+                                                 "aborted_total")}
+    if counts != {"attached_total": len(wavs) + 1, "finished_total": len(wavs),
+                  "aborted_total": 1} or stats["active_streams"]:
+        raise AssertionError(f"serving tcp: stats {stats} after {before}")
+    return {"clients": len(wavs), "seconds_each": SERVING_TCP[1], "send_s": SERVING_TCP[2],
+            "wall_s": wall_s, "ids_equal": True, "full_error": full,
+            "endpoint_silence_s": endpoint["silence_s"], "stats": stats}
+
+
+def phase_serving(exp, state, s2s, s2s_state, mam, mam_state, clock_hz, sms):
+    """The slot-batched engine (serving/engine.py) and its TCP server.
+
+    Kernel: K1 at the tick's shapes (SERVING_K1_SLOTS x L16 x D288 x N16,
+    bf16 and fp32, h0 in, h_last out) against its plain version; time,
+    plain time and bound at n_slots 32 bf16. Exactness (fp32, TF32 off):
+    the causal, unidirectional ConMamba-Small of phase streaming in an
+    engine of SERVING_EXACT_SLOTS slots, 64-frame chunks, the
+    SERVING_STREAMS_S streams staggered (ragged feeds, slots reused) with
+    one more aborted mid-flight: each transcript equals the single session
+    and the offline greedy decode. Capacity: tools/bench_serving.py on the
+    YAML's bf16 ConMamba-Small at SERVING_SLOTS (K1 24 per tick held), and
+    one profiled tick at SERVING_PROFILE_SLOTS. Final passes (bf16):
+    "ctc_beam" at beam SERVING_CTC_BEAM without and with a seeded
+    full-width LM (vocab 31), "s2s" on S2S/conmamba_small.yaml and on the
+    Mamba decoder with their decode stanzas: each equal to its search run
+    directly on the same encoder output; finish_final ms and launches.
+    TCP: the exactness engine behind AsrTcpServer on 127.0.0.1, an
+    abandoned client, SERVING_TCP's concurrent clients (ids equal to the
+    engine's own), the full-server error, an endpoint event (the signal
+    forced), the stats op."""
+    from mamba_asr_torch.decoding.ctc_greedy import ctc_greedy_decode
+    from mamba_asr_torch.kernels import selective_scan as kernel
+    from mamba_asr_torch.ops.selective_scan import selective_scan_ref
+    from mamba_asr_torch.serving.engine import StreamingServer
+    from mamba_asr_torch.tools import bench_serving
+
+    result = {"phase": "serving", "chunk_frames": STREAM_CHUNK_FRAMES}
+    cfg = exp.model
+    d_inner, n = cfg.mamba.expand * cfg.d_model, cfg.mamba.d_state
+    gen = torch.Generator().manual_seed(SEED + 70)
+    cases = []
+    for bsz in SERVING_K1_SLOTS:
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            inp = scan_inputs(bsz, 16, d_inner, n, dtype, gen, h0=True)
+            out, h_last = kernel.selective_scan_fwd(**inp, delta_softplus=True,
+                                                    return_last_state=True)
+            torch.cuda.synchronize()
+            ref, h_ref = selective_scan_ref(**inp, delta_softplus=True, return_last_state=True)
+            name = f"serving k1 b{bsz} l16 {str(dtype)[6:]}"
+            cases.append({"shape": [bsz, 16, d_inner, n], "dtype": str(dtype),
+                          "time_segments": kernel.time_segments(bsz, 16, d_inner, sms)[0],
+                          "max_abs_err": check_close(name, out, ref, *tol),
+                          "h_last_max_abs_err": check_close(name + " h_last", h_last, h_ref,
+                                                            *FP32_TOL)})
+    k1 = scan_inputs(SERVING_PROFILE_SLOTS, 16, d_inner, n, torch.bfloat16, gen, h0=True)
+    bound_ms, bound_by = scan_bound_ms(k1, clock_hz, sms, h_last=True)
+    result["kernel"] = {
+        "cases": cases, "shape": [SERVING_PROFILE_SLOTS, 16, d_inner, n],
+        "dtype": "torch.bfloat16",
+        "max_abs_err": max(c["max_abs_err"] for c in cases
+                           if c["shape"][0] == SERVING_PROFILE_SLOTS),
+        "ms": cuda_ms(lambda: kernel.selective_scan_fwd(**k1, delta_softplus=True,
+                                                        return_last_state=True), 200),
+        "plain_ms": cuda_ms(lambda: selective_scan_ref(**k1, delta_softplus=True,
+                                                       return_last_state=True), 10),
+        "bound_ms": bound_ms, "bound_by": bound_by}
+
+    # Exactness: fp32 causal ConMamba-Small, TF32 off.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    causal = dataclasses.replace(exp, model=dataclasses.replace(
+        cfg, causal=True, bidirectional=False, compute_dtype="float32"))
+    model32 = stream_model(causal, seeded_state(causal.model), "cuda")
+    fe = exp.frontend
+    wavs = [noise(sec, SEED + 80 + i) for i, sec in enumerate(SERVING_STREAMS_S)]
+    engine = StreamingServer(model32, fe, None, n_slots=SERVING_EXACT_SLOTS,
+                             chunk_frames=STREAM_CHUNK_FRAMES)
+    kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    # Stream 1 of the drive (8 s) is aborted at its fifth step.
+    got = drive_engine(engine, wavs[:1] + [noise(8.0, SEED + 79)] + wavs[1:], SEED + 81,
+                       abort=(1, 4))
+    drive_s = time.perf_counter() - t0
+    got = [got[0]] + [got[i + 1] for i in range(1, len(wavs))]
+    exact = []
+    for i, wav in enumerate(wavs):
+        single = run_stream(model32, fe, wav)[0]
+        _, off_lp = offline_padded(model32, fe, wav)
+        toks, lens = ctc_greedy_decode(off_lp, torch.tensor([off_lp.shape[1]], device="cuda"))
+        off_ids = toks[0, :int(lens[0])].tolist()
+        if not got[i] == single == off_ids:
+            raise AssertionError(f"serving: stream {i} ({SERVING_STREAMS_S[i]} s): engine, "
+                                 "single session and offline ids differ")
+        exact.append(len(off_ids))
+    st = engine.stats()
+    result["exactness"] = {"slots": SERVING_EXACT_SLOTS, "streams_s": list(SERVING_STREAMS_S),
+                           "aborted": 1, "ids": exact, "equal": True, "drive_s": drive_s,
+                           "stats": st, "k1_launches": kernel.LAUNCHES}
+    # TCP over the same engine: the engine-direct ids of SERVING_TCP's streams.
+    tcp_wavs = [noise(SERVING_TCP[1], SEED + 90 + i) for i in range(SERVING_TCP[0])]
+    want = drive_engine(engine, tcp_wavs, SEED + 91)
+    result["tcp"] = tcp_round_trips(engine, [want[i] for i in range(len(tcp_wavs))], tcp_wavs)
+    torch.backends.cudnn.allow_tf32 = True  # back to PyTorch's defaults
+    del model32, engine
+
+    # Capacity at the YAML's bf16.
+    rows = bench_serving.run(cfg, fe, SERVING_SLOTS, STREAM_CHUNK_FRAMES, SERVING_TICKS, SEED,
+                             "cuda")
+    for row in rows:
+        if row["k1_launches_per_tick"] != scans_per_step(cfg):
+            raise AssertionError(f"serving: {row['k1_launches_per_tick']} K1 launches per tick "
+                                 f"at {row['n_slots']} slots")
+    model = bench_serving.seeded_model(cfg, SEED, torch.device("cuda"))
+    engine, feed = bench_serving.filled_engine(model, fe, SERVING_PROFILE_SLOTS,
+                                               STREAM_CHUNK_FRAMES, SEED)
+    wall_ms, device_ms, top = device_profile(lambda: (feed(), engine.tick()), 10)
+    result["capacity"] = {"rows": rows, "profile": {
+        "slots": SERVING_PROFILE_SLOTS, "wall_ms": wall_ms, "device_kernel_ms": device_ms,
+        "idle_share": 1.0 - device_ms / wall_ms, "top": top}}
+    del engine
+
+    # Final passes, bf16.
+    finals = {"ctc_beam": final_pass("ctc_beam", model, fe, "ctc_beam", SERVING_CTC_BEAM, {},
+                                     SEED + 100)}
+    lm = seeded_lm(s2s.decode, cfg.vocab_size).to("cuda")
+    finals["ctc_beam_lm"] = final_pass(
+        "ctc_beam_lm", model, fe, "ctc_beam", SERVING_CTC_BEAM,
+        {"lm_weight": s2s.decode.lm_weight, "temperature_lm": s2s.decode.temperature_lm},
+        SEED + 100, lm=lm)
+    del lm, model
+    for name, e, st_ in (("s2s", s2s, s2s_state), ("s2s_mamba_decoder", mam, mam_state)):
+        m = stream_model(e, st_, "cuda")
+        finals[name] = final_pass(name, m, e.frontend, "s2s", e.decode.s2s_test_beam_size,
+                                  s2s_opts(e.decode), SEED + 101)
+        del m
+    layers = s2s.model.num_decoder_layers
+    fin = finals["s2s"]["launches"]
+    if fin["K4"] != layers * fin["K3"] or fin["K3"] == 0:
+        raise AssertionError(f"serving: s2s final pass launched K3 {fin['K3']}, K4 {fin['K4']}")
+    if finals["s2s_mamba_decoder"]["launches"]["K1"] < mam.model.num_decoder_layers:
+        raise AssertionError("serving: the Mamba decoder's final pass did not prime with K1")
+    result["finals"] = finals
+    emit(result)
+    return result
+
+
 def cli_lines(main_fn, argv):
     """stdout lines of an entry point's main(argv), called in this process."""
     import contextlib
@@ -3551,7 +3931,6 @@ def main() -> int:
         timed(phase_lm_parity, s2s, s2s_state, mam, mam_state)
         lm_search = timed(phase_lm_recognize, s2s, s2s_state, mam, mam_state, work,
                           s2s_search)
-        del s2s_state
         conf = {path: load_config(path) for path in CONFORMER_CTC + CONFORMER_S2S}
         ck = timed(phase_conformer_kernels, conf[CONFORMER_S2S[1]].model, clock_hz, sms)
         conf_states = {path: seeded_state(exp.model) for path, exp in conf.items()}
@@ -3559,7 +3938,9 @@ def main() -> int:
         conf_search = timed(phase_conformer_recognize, conf, conf_states)
         stream = timed(phase_streaming, exp, state, conf, conf_states, mam, mam_state,
                        clock_hz, sms)
-        del conf_states, mam_state
+        serving = timed(phase_serving, exp, state, s2s, s2s_state, mam, mam_state,
+                        clock_hz, sms)
+        del conf_states, mam_state, s2s_state
         corpus = timed(phase_data, work)
         timed(phase_ctc_beam, exp)
         recipe_launches = timed(phase_recipe, work, corpus)
@@ -3595,6 +3976,10 @@ def main() -> int:
         "streaming_launches_per_chunk":
             stream["latency"][yaml_name(CONFIG)]["k1_launches_per_chunk"],
         **{f"streaming_{key}": stream["kernel"][key] for key in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+        "serving_launches_per_tick": {
+            row["n_slots"]: row["k1_launches_per_tick"] for row in serving["capacity"]["rows"]},
+        **{f"serving_{key}": serving["kernel"][key] for key in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
     }, {
         "name": "selective_scan_fwd_train", "route": "cuda",
@@ -3641,6 +4026,8 @@ def main() -> int:
         "mamba_dec_recipe_launches": mam_recipe_launches["K3"],
         "conformer_launches_per_search": {
             name: e["launches_per_search"]["K3"] for name, e in conf_search["s2s"].items()},
+        "serving_final_launches": {name: serving["finals"][name]["launches"]["K3"]
+                                   for name in ("s2s", "s2s_mamba_decoder")},
     }, {
         "name": "beam_attention", "route": "cuda",
         "source": "mamba_asr_torch/csrc/beam_attention.cu",
@@ -3670,6 +4057,7 @@ def main() -> int:
         "conformer_large_shape_bound_by": ck["bound_by"],
         "conformer_large_shape_library_ms": ck["library_ms"],
         "conformer_large_shape_beam_table_ms": ck["timing"]["beam"]["kernel_ms"],
+        "serving_final_launches": {"s2s": serving["finals"]["s2s"]["launches"]["K4"]},
     }] + [{
         "name": f"scan_variants_{part}", "route": "cuda",
         "source": "mamba_asr_torch/csrc/scan_variants.cu",

@@ -12,8 +12,19 @@ Ported so far: offline ConMamba CTC recognition
 CTC/attention beam search over the Transformer decoder
 (`Recognizer(..., search="s2s")`, `decoding.s2s_beam`), and the
 scan-attribution tools (`tools.scan_variants`, `tools.peak_probe`).
+Later slices: the recipes, the other encoders and the LM, recognition's
+entry points and streaming, and serving (`serving.engine`,
+`serving.server`, `python -m mamba_asr_torch.serve`).
 """
 
-from mamba_asr_torch.utils.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # Imported on first use, so that the package's numpy-only modules (the
+    # serving client, serve.py's client mode) import without PyTorch.
+    if name == "resolve_device":
+        from mamba_asr_torch.utils.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

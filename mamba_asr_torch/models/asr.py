@@ -72,6 +72,7 @@ from mamba_asr_torch.models.transformer import (
     TransformerEncoder,
     get_lookahead_mask,
     lengths_to_padding_mask,
+    make_chunked_src_mask,
     sinusoidal_position_encoding,
 )
 from mamba_asr_torch.models.mamba import (
@@ -303,8 +304,16 @@ class ASRModel(nn.Module):
         return self.has_decoder and self.cfg.decoder_module == "mamba"
 
     def encode(self, feats: torch.Tensor,
-               feat_lengths: Optional[torch.Tensor] = None):
-        """feats (B, T, n_mels) -> (enc_out (B, T', d_model), enc_lengths)."""
+               feat_lengths: Optional[torch.Tensor] = None,
+               chunk_size: Optional[int] = None,
+               left_context_chunks: Optional[int] = None):
+        """feats (B, T, n_mels) -> (enc_out (B, T', d_model), enc_lengths).
+        chunk_size (encoder frames): dynamic-chunk training (JAX
+        `asr.py:327-387`): the attention encoders take
+        `make_chunked_src_mask(T', chunk_size, left_context_chunks)` beside
+        the padding mask, and the conv modules (ConMamba's, the
+        Conformer's, the Branchformer's CSGU) convolve chunk by chunk; the
+        Transformer encoder takes the mask alone."""
         x = self.frontend(feats)  # (B, T', F', C)
         b, t, f, c = x.shape
         x = dense(x.reshape(b, t, f * c), self.src_proj, self.cfg.dtype)
@@ -315,20 +324,27 @@ class ASRModel(nn.Module):
             enc_lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
         cfg = self.cfg
         if cfg.encoder_module == "conmamba":
-            return self.encoder(x), enc_lengths
+            return self.encoder(x, chunk_size), enc_lengths
         pos = None
         if cfg.attention_type == "RelPosMHAXL":
             pos = rel_pos_encoding(t, cfg.d_model, x.dtype, x.device)
         elif cfg.attention_type != "hypermixing" and cfg.encoder_module != "conformer":
             x = x + sinusoidal_position_encoding(t, cfg.d_model, x.dtype, x.device)
         pad_mask = lengths_to_padding_mask(enc_lengths, t)
-        return self.encoder(x, src_key_padding_mask=pad_mask, pos_embs=pos), enc_lengths
+        src_mask = None
+        if chunk_size is not None:
+            src_mask = make_chunked_src_mask(t, chunk_size, left_context_chunks, x.device)
+        chunk = {} if cfg.encoder_module == "transformer" else {"chunk_size": chunk_size}
+        return self.encoder(x, src_mask=src_mask, src_key_padding_mask=pad_mask,
+                            pos_embs=pos, **chunk), enc_lengths
 
     def forward(self, feats: torch.Tensor,
                 feat_lengths: Optional[torch.Tensor] = None,
-                tokens_bos: Optional[torch.Tensor] = None
+                tokens_bos: Optional[torch.Tensor] = None,
+                chunk_size: Optional[int] = None,
+                left_context_chunks: Optional[int] = None
                 ) -> Dict[str, torch.Tensor]:
-        enc, enc_lengths = self.encode(feats, feat_lengths)
+        enc, enc_lengths = self.encode(feats, feat_lengths, chunk_size, left_context_chunks)
         ctc_logits = dense(enc.float(), self.ctc_head, torch.float32)
         out = {
             "enc_out": enc,

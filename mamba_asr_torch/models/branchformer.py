@@ -47,6 +47,7 @@ from mamba_asr_torch.models.layers import (
     conv_pads,
     dense,
     dropout,
+    dynamic_chunk_depthwise,
     layer_norm,
     make_layer_norm,
     stream_stack,
@@ -95,17 +96,32 @@ class ConvolutionalSpatialGatingUnit(nn.Module):
         g = F.pad(g.transpose(1, 2), pads)
         g = F.conv1d(g, self.conv.weight.to(dt), self.conv.bias.to(dt),
                      groups=g.shape[1]).transpose(1, 2)
+        return self._gate(r, g)
+
+    def _gate(self, r: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        """The conv's output g through linear_after_conv and the gate
+        activation, times r, then dropout."""
+        dt = self.dtype
         if self.linear_after_conv is not None:
             g = dense(g, self.linear_after_conv, dt)
         return dropout(r * self.gate(g), self.dropout, self.training)
 
-    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
+                chunk_size: Optional[int] = None) -> torch.Tensor:
+        """chunk_size: dynamic-chunk training's conv (JAX
+        `branchformer.py:141-160`, non-causal only)."""
         r, g = x.chunk(2, dim=-1)
         g = layer_norm(g, self.norm, self.dtype)
         if pad_mask is not None:
             g = g.masked_fill(pad_mask[..., None], 0.0)
-        return self._conv_gate(r, g, conv_pads(self.conv.kernel_size[0], self.causal))
+        if chunk_size is None:
+            return self._conv_gate(r, g, conv_pads(self.conv.kernel_size[0], self.causal))
+        if self.causal:
+            raise ValueError("dynamic-chunk convolution needs a non-causal CSGU")
+        dt = self.dtype
+        g = dynamic_chunk_depthwise(g, self.conv.weight.to(dt), self.conv.bias.to(dt),
+                                    self.padding_amount, chunk_size)
+        return self._gate(r, g)
 
     def init_stream_state(self, batch: int, device=None) -> torch.Tensor:
         """The normed gate half's left tail: (B, pad, U // 2) zeros."""
@@ -137,10 +153,10 @@ class CgMLP(nn.Module):
         self.activation = activation
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
+                chunk_size: Optional[int] = None) -> torch.Tensor:
         x = self.activation(dense(x, self.channel_proj1, self.dtype))
-        return dense(self.csgu(x, pad_mask), self.channel_proj2, self.dtype)
+        return dense(self.csgu(x, pad_mask, chunk_size), self.channel_proj2, self.dtype)
 
     def forward_chunk(self, x: torch.Tensor, tail: torch.Tensor):
         x = self.activation(dense(x, self.channel_proj1, self.dtype))
@@ -170,14 +186,15 @@ class BranchformerEncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
                 src_key_padding_mask: Optional[torch.Tensor] = None,
-                pos_embs: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pos_embs: Optional[torch.Tensor] = None,
+                chunk_size: Optional[int] = None) -> torch.Tensor:
         dt, p, train = self.dtype, self.dropout, self.training
         if self.lookahead:
             la = get_lookahead_mask(x.shape[1], x.device)
             src_mask = la if src_mask is None else src_mask | la
         xa = self.mha_layer(layer_norm(x, self.norm_mha, dt), attn_mask=src_mask,
                             key_padding_mask=src_key_padding_mask, pos_embs=pos_embs)
-        xb = self.cgmlp(layer_norm(x, self.norm_mlp, dt), src_key_padding_mask)
+        xb = self.cgmlp(layer_norm(x, self.norm_mlp, dt), src_key_padding_mask, chunk_size)
         merged = dense(torch.cat([dropout(xa, p, train), dropout(xb, p, train)], dim=-1),
                        self.merge_proj, dt)
         return x + dropout(merged, p, train)
@@ -215,10 +232,13 @@ class BranchformerEncoder(nn.Module):
 
     def forward(self, src: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
                 src_key_padding_mask: Optional[torch.Tensor] = None,
-                pos_embs: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pos_embs: Optional[torch.Tensor] = None,
+                chunk_size: Optional[int] = None) -> torch.Tensor:
+        """src_mask: dynamic-chunk training's chunked attention mask, with
+        chunk_size the CSGU's conv chunks (JAX `branchformer.py:456-467`)."""
         out = src
         for layer in self.layers:
-            out = layer(out, src_mask, src_key_padding_mask, pos_embs)
+            out = layer(out, src_mask, src_key_padding_mask, pos_embs, chunk_size)
         return layer_norm(out, self.norm.norm, self.dtype)
 
     def init_stream_state(self, batch: int, device=None) -> list:

@@ -102,13 +102,15 @@ class ConformerEncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
                 src_key_padding_mask: Optional[torch.Tensor] = None,
-                pos_embs: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pos_embs: Optional[torch.Tensor] = None,
+                chunk_size: Optional[int] = None) -> torch.Tensor:
         kpm = src_key_padding_mask
         x = x + MACARON_FFN_SCALE * self._ffn(self.ffn_module1, x)
         xn = layer_norm(x, self.norm1.norm, self.dtype)
         x = self.mha_layer(xn, attn_mask=src_mask, key_padding_mask=kpm,
                            pos_embs=pos_embs) + x
-        x = x + self.convolution_module(x, None if kpm is None else kpm[..., None])
+        x = x + self.convolution_module(x, None if kpm is None else kpm[..., None],
+                                        chunk_size)
         x = x + MACARON_FFN_SCALE * self._ffn(self.ffn_module2, x)
         return layer_norm(x, self.norm2.norm, self.dtype)
 
@@ -145,10 +147,13 @@ class ConformerEncoder(nn.Module):
 
     def forward(self, src: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
                 src_key_padding_mask: Optional[torch.Tensor] = None,
-                pos_embs: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pos_embs: Optional[torch.Tensor] = None,
+                chunk_size: Optional[int] = None) -> torch.Tensor:
+        """src_mask: dynamic-chunk training's chunked attention mask, with
+        chunk_size its conv chunks (JAX `conformer.py:112-133, 251-262`)."""
         out = src
         for layer in self.layers:
-            out = layer(out, src_mask, src_key_padding_mask, pos_embs)
+            out = layer(out, src_mask, src_key_padding_mask, pos_embs, chunk_size)
         return layer_norm(out, self.norm.norm, self.dtype)
 
     def init_stream_state(self, batch: int, device=None) -> list:

@@ -30,7 +30,7 @@ gather).
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -81,11 +81,11 @@ class ConmambaEncoderLayer(nn.Module):
         out = ffn["1"](layer_norm(x, ffn["0"], self.dtype))
         return dropout(out, self.dropout, self.training)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, chunk_size: Optional[int] = None) -> torch.Tensor:
         dt = self.dtype
         x = x + FFN_RESIDUAL_SCALE * self._ffn(self.ffn_module1, x)
         x = self.mamba(layer_norm(x, self.norm1.norm, dt)) + x
-        x = x + self.convolution_module(x)
+        x = x + self.convolution_module(x, chunk_size=chunk_size)
         x = x + FFN_RESIDUAL_SCALE * self._ffn(self.ffn_module2, x)
         return layer_norm(x, self.norm2.norm, dt)
 
@@ -122,10 +122,12 @@ class ConmambaEncoder(nn.Module):
         self.norm = SBLayerNorm(d_model)
         self.dtype = dtype
 
-    def forward(self, src: torch.Tensor) -> torch.Tensor:
+    def forward(self, src: torch.Tensor, chunk_size: Optional[int] = None) -> torch.Tensor:
+        """chunk_size: dynamic-chunk training's conv chunks (JAX
+        `conmamba.py:195-204`); the Mamba blocks still scan every frame."""
         out = src
         for layer in self.layers:
-            out = layer(out)
+            out = layer(out, chunk_size)
         return layer_norm(out, self.norm.norm, self.dtype)
 
     def init_stream_state(self, batch: int, device=None) -> list:

@@ -179,14 +179,40 @@ class CNNFeedForward(nn.Module):
         return h.transpose(1, 2)
 
 
+def dynamic_chunk_depthwise(x: torch.Tensor, weight: torch.Tensor,
+                            bias: Optional[torch.Tensor], pad: int,
+                            chunk_size: int) -> torch.Tensor:
+    """Dynamic Chunk Convolution (JAX `layers.py:228-256`, after
+    SpeechBrain's Conformer.py:1090-1213): a depthwise conv of 2 * pad + 1
+    taps over (B, T, D), each chunk of chunk_size frames seeing `pad`
+    frames of left context and zeros to its right. The sequence is padded
+    to whole chunks (the last chunk's missing frames are zeros too), each
+    [left context, chunk, zeros] window runs VALID, and the result is cut
+    back to T frames. Shared by the conv module and the Branchformer's
+    CSGU. weight (D, 1, K) and bias in x's dtype."""
+    b, t, d = x.shape
+    right = (-t) % chunk_size
+    n_chunks = (t + right) // chunk_size
+    xp = F.pad(x, (0, 0, pad, right))
+    win = pad + chunk_size
+    idx = (torch.arange(n_chunks, device=x.device)[:, None] * chunk_size
+           + torch.arange(win, device=x.device)[None, :])
+    windows = F.pad(xp[:, idx], (0, 0, 0, pad))  # (B, n_chunks, win + pad, D)
+    windows = windows.reshape(b * n_chunks, win + pad, d).transpose(1, 2)
+    out = F.conv1d(windows, weight, bias, groups=d)  # (B * n_chunks, D, chunk_size)
+    return out.transpose(1, 2).reshape(b, n_chunks * chunk_size, d)[:, :t]
+
+
 class ConvolutionModule(nn.Module):
     """Conformer convolution module, full sequence:
     LN -> pointwise 2x expansion + GLU -> depthwise conv -> LN ->
     activation -> pointwise Dense -> dropout, then zero at the padded
     frames of `mask` (B, L, 1), True = padded (JAX `layers.py:155-162`;
     the Conformer passes its key padding mask, ConMamba none). Non-causal
-    pads (K-1)//2 on both sides, causal pads K-1 on the left. Streaming:
-    `init_stream_state` and `forward_chunk` carry the left tail."""
+    pads (K-1)//2 on both sides, causal pads K-1 on the left; with
+    chunk_size (dynamic-chunk training, non-causal only) the conv is
+    `dynamic_chunk_depthwise`. Streaming: `init_stream_state` and
+    `forward_chunk` carry the left tail."""
 
     def __init__(self, d_model: int, kernel_size: int = 31, bias: bool = True,
                  activation: Activation = swish, causal: bool = False,
@@ -239,9 +265,20 @@ class ConvolutionModule(nn.Module):
         out = dense(self.activation(out), self.after_conv["2"], dt)
         return dropout(out, self.dropout, self.training)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                chunk_size: Optional[int] = None) -> torch.Tensor:
         p = self.padding_amount
-        out = self._post(self._depthwise(self._pre(x), (p, 0) if self.causal else (p, p)))
+        out = self._pre(x)
+        if chunk_size is not None:
+            if self.causal:
+                raise ValueError("dynamic-chunk convolution needs a non-causal conv module")
+            dt = self.dtype
+            out = dynamic_chunk_depthwise(
+                out, self.conv.weight.to(dt),
+                None if self.conv.bias is None else self.conv.bias.to(dt), p, chunk_size)
+        else:
+            out = self._depthwise(out, (p, 0) if self.causal else (p, p))
+        out = self._post(out)
         return out if mask is None else out.masked_fill(mask, 0.0)
 
     def init_stream_state(self, batch: int, dtype: torch.dtype, device=None) -> torch.Tensor:

@@ -128,6 +128,20 @@ def get_lookahead_mask(length: int, device=None) -> torch.Tensor:
     return torch.ones(length, length, dtype=torch.bool, device=device).triu(1)
 
 
+def make_chunked_src_mask(length: int, chunk_size: int,
+                          left_context_chunks: Optional[int] = None,
+                          device=None) -> torch.Tensor:
+    """Dynamic Chunk Training's attention mask (JAX `transformer.py:90-103`,
+    after SpeechBrain's TransformerASR.py:305-364): (L, L) bool, True =
+    disallowed. Frame i sees its own chunk and up to left_context_chunks
+    chunks back (every earlier chunk when None)."""
+    chunk_id = torch.arange(length, device=device) // chunk_size
+    mask = chunk_id[None, :] > chunk_id[:, None]
+    if left_context_chunks is not None:
+        mask = mask | (chunk_id[None, :] < chunk_id[:, None] - left_context_chunks)
+    return mask
+
+
 def zero_kv(nhead: int, s_max: int, n: int, d_model: int, dtype: torch.dtype,
             device=None) -> KV:
     """One layer's append-only self K/V of n hypotheses: zero-filled

@@ -43,9 +43,10 @@ from mamba_asr_torch.utils.device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class SpecAugmentConfig:
     """hparams/CTC/conmamba_large.yaml:273-320 (a copy of the JAX package's
-    SpecAugmentConfig, so every YAML loads). The port runs the time warps
-    and the time and frequency drops; the Augmenter's concat/repeat modes
-    are not ported and raise (ROADMAP slice 2b item 2)."""
+    SpecAugmentConfig, so every YAML loads): the time warps, the time and
+    frequency drops, and the Augmenter's batch enlargement
+    (`concat_original`, `repeat_augment`: [the original batch?; that many
+    augmented copies], labels and weights replicated)."""
 
     enabled: bool = True
     num_time_drops: int = 4
@@ -63,8 +64,9 @@ class SpecAugmentConfig:
 class TrainConfig:
     """A copy of the JAX package's TrainConfig. `rng_impl`, `use_wandb`
     and `wandb_project` change nothing here; `ctc_weight` and
-    `label_smoothing` act only with a decoder; dynamic-chunk training is
-    not ported and raises (ROADMAP slice 2b item 2)."""
+    `label_smoothing` act only with a decoder; `dynchunk_size` (encoder
+    frames) and `dynchunk_left_context` (chunks) train the encoder on
+    chunked attention and convolution (models/asr.py:ASRModel.encode)."""
 
     lr: float = 1e-3
     warmup_steps: int = 7500
@@ -88,13 +90,7 @@ class TrainConfig:
     rng_impl: str = "threefry2x32"
 
 
-def _refuse_unported(train: TrainConfig, specaug: SpecAugmentConfig) -> None:
-    if train.dynchunk_size is not None:
-        raise NotImplementedError(
-            "dynamic-chunk training is not ported (ROADMAP slice 2b item 2)")
-    if specaug.enabled and (specaug.concat_original or specaug.repeat_augment > 1):
-        raise NotImplementedError(
-            "the Augmenter's concat/repeat modes are not ported (ROADMAP slice 2b item 2)")
+REPLICATED_KEYS = ("tokens", "token_lens", "tokens_bos", "tokens_eos", "eos_lens", "weight")
 
 
 class Trainer:
@@ -121,7 +117,6 @@ class Trainer:
         device: Optional[Union[str, torch.device]] = None,
     ):
         self.device = resolve_device(device)
-        _refuse_unported(train, specaug)
         torch.manual_seed(train.seed)  # dropout masks
         model = ASRModel(cfg)
         if state_dict is None:
@@ -164,6 +159,30 @@ class Trainer:
         flens = torch.clamp_max(wav_lens // fe.hop + 1, feats.shape[1])
         return feats, flens
 
+    def _augment(self, feats: torch.Tensor, flens: torch.Tensor, b: Dict[str, torch.Tensor]):
+        """SpecAugment; with concat_original or repeat_augment > 1 the
+        Augmenter's enlarged batch (JAX `trainer.py:405-429`): [feats?;
+        repeat_augment augmented copies], each copy's draws following the
+        last's from `self.generator` (JAX folds a key per copy), flens and
+        the REPLICATED_KEYS tiled to match."""
+        sa = self.specaug
+
+        def aug(f):
+            return spec_augment(
+                f, self.generator, num_time_drops=sa.num_time_drops,
+                time_drop_width=sa.time_drop_width, num_freq_drops=sa.num_freq_drops,
+                freq_drop_width=sa.freq_drop_width, apply_time_warp=sa.apply_time_warp,
+                time_warp_window=sa.time_warp_window, time_warp_mode=sa.time_warp_mode)
+
+        reps = max(sa.repeat_augment, 1)
+        if not sa.concat_original and reps == 1:
+            return aug(feats), flens, b
+        parts = ([feats] if sa.concat_original else []) + [aug(feats) for _ in range(reps)]
+        n = len(parts)
+        b = {k: (v.repeat(n, *([1] * (v.dim() - 1))) if k in REPLICATED_KEYS else v)
+             for k, v in b.items()}
+        return torch.cat(parts), flens.repeat(n), b
+
     def train_step(self, batch: Mapping[str, object], update_norm: bool = True
                    ) -> Dict[str, torch.Tensor]:
         """One micro-step on batch = {wav (B, T) float32, wav_lens (B,),
@@ -186,20 +205,15 @@ class Trainer:
                          & (weight[:, None] > 0))
                 self.normalizer = update_normalizer(self.normalizer, feats, fmask)
             feats = apply_normalizer(self.normalizer, feats)
-            sa = self.specaug
-            if sa.enabled:
-                feats = spec_augment(
-                    feats, self.generator, num_time_drops=sa.num_time_drops,
-                    time_drop_width=sa.time_drop_width,
-                    num_freq_drops=sa.num_freq_drops,
-                    freq_drop_width=sa.freq_drop_width,
-                    apply_time_warp=sa.apply_time_warp,
-                    time_warp_window=sa.time_warp_window,
-                    time_warp_mode=sa.time_warp_mode,
-                )
+            if self.specaug.enabled:
+                feats, flens, b = self._augment(feats, flens, b)
+        weight = b["weight"].float()
         self.model.train()
         use_decoder = self.model.has_decoder
-        out = self.model(feats, flens, b["tokens_bos"] if use_decoder else None)
+        tc = self.train
+        out = self.model(feats, flens, b["tokens_bos"] if use_decoder else None,
+                         chunk_size=tc.dynchunk_size,
+                         left_context_chunks=tc.dynchunk_left_context)
         loss_ctc = ctc_loss(out["ctc_log_probs"], b["tokens"], out["enc_lengths"],
                             b["token_lens"], reduction="batchmean", weight=weight)
         metrics = {"loss_ctc": loss_ctc}

@@ -2,8 +2,9 @@
 
 - No file of mamba_asr_torch/, nor chip_smoke.py, imports JAX, flax,
   optax or the JAX package (a static scan of the source).
-- Entry points (the recipes, recognize, evaluate, the tools) default to
-  the CUDA card and refuse to run without one;
+- Entry points (the recipes, recognize, evaluate, serve's server mode,
+  the tools) default to the CUDA card and refuse to run without one;
+  serve's client mode and the serving client run without PyTorch;
   chip_smoke.py fails, printing no result, without a card or without the
   rest of the repository.
 - The kernel wrappers have no `try` that could fall back to a plain
@@ -23,12 +24,13 @@ from pathlib import Path
 import pytest
 import torch
 
-from mamba_asr_torch import evaluate, recognize, train_lm
+from mamba_asr_torch import evaluate, recognize, serve, train_lm
 from mamba_asr_torch.cli import load_lm, restore_asr_state, run_training
 from mamba_asr_torch.configs.loader import DecodeConfig, ExperimentConfig, FrontendConfig
 from mamba_asr_torch.data.tokenizer import CharTokenizer
 from mamba_asr_torch.models.asr import ASRConfig
 from mamba_asr_torch.serving.recognizer import Recognizer
+from mamba_asr_torch.tools import bench_serving
 from mamba_asr_torch.tools import peak_probe as peak_probe_tool
 from mamba_asr_torch.tools import scan_variants as scan_variants_tool
 from mamba_asr_torch.tools import train_to_floor
@@ -106,8 +108,75 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_lm.main(["--corpus", "c.txt", "--tokenizer", "t.json", "--output",
                        str(tmp_path / "lm")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main([yaml, "--torch_ckpt", "model.ckpt"])  # server mode
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_serving.main([yaml])
     assert not (tmp_path / "out").exists() and not (tmp_path / "lm").exists()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_serve_refuses_what_is_not_ported():
+    yaml = str(REPO / "hparams" / "CTC" / "conmamba_small.yaml")
+    with pytest.raises(SystemExit, match="Queue 1 item 9"):
+        serve.main([yaml, "--bundle", "b"])
+    with pytest.raises(SystemExit, match="Queue 1 item 6"):
+        serve.main([yaml, "--data_parallel", "2", "--device", "cpu"])
+
+
+NO_TORCH_CLIENT = """
+import sys
+sys.modules["torch"] = None  # any import of PyTorch now fails
+import numpy as np
+from mamba_asr_torch import serve
+from mamba_asr_torch.data.audio import write_wav
+from mamba_asr_torch.serving.server import AsrTcpServer, StreamingClient
+
+class Engine:  # host only: every chunk of 640 ms emits id 5
+    final_decode = None
+    def __init__(self): self.samples = 0
+    def attach(self): return 0
+    def feed(self, sid, x): self.samples += len(x)
+    def ready_slots(self): return [0] if self.samples >= 10240 else []
+    def tick(self):
+        self.samples -= 10240
+        return {0: [5]}
+    def trailing_silence_s(self, sid): return 0.0
+    def finish(self, sid):  # drains the chunks no tick took yet
+        n, self.samples = self.samples // 10240, 0
+        return [5] * n + [6]
+    def abort(self, sid): pass
+    def stats(self): return {}
+
+server = AsrTcpServer(Engine(), port=0)
+server.start()
+c = StreamingClient(server.host, server.port)
+sid = c.start()
+c.send(sid, np.zeros(3 * 10240, np.float32))
+assert c.end(sid) == ([5, 5, 5, 6], None)
+c.close()
+write_wav(sys.argv[1], np.zeros(2 * 10240, np.float32), 16000)
+serve.main(["--connect", f"{server.host}:{server.port}", sys.argv[1]])
+server.stop()
+assert "torch" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
+"""
+
+
+def test_serving_client_runs_without_torch(tmp_path):
+    """`StreamingClient` and serve's client mode on a host with neither
+    a card nor PyTorch: the import of torch is blocked in a subprocess."""
+    wav = str(tmp_path / "a.wav")
+    out = subprocess.run([sys.executable, "-c", NO_TORCH_CLIENT, wav], cwd=REPO,
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == f"{wav}\t5 5 6"
+
+
+def test_new_modules_are_scanned():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("serve.py", "serving/engine.py", "serving/server.py",
+                "tools/bench_serving.py"):
+        assert f"mamba_asr_torch/{rel}" in names
 
 
 @pytest.mark.parametrize("path", sorted((REPO / "mamba_asr_torch" / "kernels").glob("*.py")),

@@ -292,10 +292,14 @@ def test_cli_refuses_what_is_not_ported(corpus, tmp_path):
         run_training([s2s, "--decode.lm_path", "lm.msgpack", "--device", "cpu",
                       "--data.output_folder", str(tmp_path / "lm")])
     assert not (tmp_path / "lm").exists()
-    with pytest.raises(NotImplementedError, match="concat/repeat"):
-        loop.Trainer(load_config(s2s, {"data.output_folder": str(tmp_path),
-                                       "specaug.repeat_augment": 2}),
-                     CharTokenizer(list("AB")), device="cpu")
+    # Dynamic-chunk training and the Augmenter's concat/repeat modes are
+    # ported now: the loop builds with them.
+    tr = loop.Trainer(load_config(s2s, {"data.output_folder": str(tmp_path),
+                                        "specaug.repeat_augment": 2,
+                                        "specaug.concat_original": True,
+                                        "train.dynchunk_size": 8}),
+                      CharTokenizer(list("AB")), device="cpu")
+    assert tr.step.specaug.repeat_augment == 2 and tr.step.train.dynchunk_size == 8
 
 
 def _jax_script():
