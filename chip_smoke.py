@@ -7,18 +7,21 @@ Phases, each printing one JSON line (any failure raises and the script
 exits non-zero; it prints no result without a CUDA card):
 
   build      compile the CUDA kernels from mamba_asr_torch/csrc (nvcc, sm_90a)
-  peak_probe the probe (P2) against its plain loop at a small size in its
-             three modes, then the tools.peak_probe entry point at its
-             defaults (B32 x 751 x 288): the attained FFMA rate (dependent
-             and 4 independent chains) and exp2 rate against the
-             published peaks; the probe against its plain loop again at
-             that shape and the tool's two chain lengths (64, 1,024);
-             time, plain time and bound of one launch
+  peak_probe the probe (P2) against its plain loop in its three modes at
+             a small size and on ragged ends (7,474 elements, a view one
+             element off a 16-byte boundary, k 0, 10, 70), then the
+             tools.peak_probe entry point at its defaults (B32 x 751 x
+             288): the attained FFMA rate (dependent and 4 independent
+             chains) and exp2 rate against the published peaks and the
+             peaks at the SM clock held in one more launch; the probe
+             against its plain loop again at that shape and the tool's
+             two chain lengths (64, 1,024); each mode's time, plain time,
+             bound and share of it at k 64, and ptxas's lines for P2
   kernel     the selective-scan kernel (K1) against its plain version on
              the card: the full-width shape in bf16, an fp32 case with h0
              in, h_last out and ragged L and D, and B1 L751 bf16; times,
              the published-peak bound and the bound at peak_probe's
-             measured rates; a batch sweep (B1 to B32 at L751 bf16, each
+             measured rates (its whole 1,024-step launches); a batch sweep (B1 to B32 at L751 bf16, each
              against its plain version) timing the time segments chosen
              for several blocks-per-SM targets beside the unsplit form
   parity     the full-width ConMamba-Small CTC model (hparams/CTC/
@@ -862,24 +865,16 @@ def phase_kernel_bwd(cfg, clock_hz, sms):
 # against torch.exp2, over 64 steps of contracting chains.
 PROBE_TOL = (1e-6, 1e-5)
 VARIANT_SHAPE = (2, 200, 280, 16)  # ragged against the 32-step tile and 16 channels
-
-
-def probe_bound_ms(numel, k, mode, clock_hz, sms):
-    """Least time for the probe's work: x read and out written once,
-    against 2 FLOP per FMA at the float32 peak, or one exp2 per step on the
-    SFUs."""
-    from mamba_asr_torch.tools.peak_probe import steps_per_element
-
-    steps = steps_per_element(mode, k) * numel
-    bytes_s = 8.0 * numel / HBM_BYTES_PER_S
-    if mode == "exp2":
-        ops_s = steps / (SFU_PER_CLOCK_PER_SM * sms * clock_hz)
-    else:
-        ops_s = 2.0 * steps / FP32_FLOP_PER_S
-    return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s else "operations")
+# P2's ragged cases, each mode: (name, shape, k, storage offset). 2 x 37 x
+# 101 = 7,474 elements end in a partial float4; an offset of one element
+# puts x off a 16-byte boundary, so the kernel's head and tail both run.
+PROBE_RAGGED = (("ragged", (2, 37, 101), 64, 0), ("offset", (2, 37, 101), 64, 1),
+                ("k0", (2, 37, 101), 0, 1), ("k10", (2, 37, 101), 10, 1),
+                ("k70", (2, 37, 101), 70, 0))
 
 
 def phase_peak_probe(clock_hz, sms):
+    from mamba_asr_torch.kernels import build
     from mamba_asr_torch.kernels import peak_probe as p2
     from mamba_asr_torch.ops.peak_probe import MODES, peak_probe_ref
     from mamba_asr_torch.tools import peak_probe as tool
@@ -891,6 +886,19 @@ def phase_peak_probe(clock_hz, sms):
         torch.cuda.synchronize()
         errs[mode] = check_close(f"peak_probe {mode}", got, peak_probe_ref(small, 64, mode),
                                  *PROBE_TOL)
+    # The ragged ends: a numel that is no multiple of 4, a view off a
+    # 16-byte boundary (x.flatten()[1:]), k 0, 10 and 70 (a block of 64
+    # steps and a remainder).
+    for name, shape, k, offset in PROBE_RAGGED:
+        whole = tool.probe_input(*shape, SEED + 11, "cuda").flatten()
+        x = whole[offset:]
+        if offset and x.data_ptr() % 16 == 0:
+            raise AssertionError(f"peak_probe {name}: the view is 16-byte aligned")
+        for mode in MODES:
+            got = p2.peak_probe(x, k, mode)
+            torch.cuda.synchronize()
+            errs[f"{name}_{mode}"] = check_close(f"peak_probe {name} {mode} k {k}", got,
+                                                 peak_probe_ref(x, k, mode), *PROBE_TOL)
     # The entry point, at its defaults (the scan's B32 x 751 x 288, k 64 and 1024).
     p2.LAUNCHES = 0
     records = tool.run(MODES)
@@ -900,8 +908,8 @@ def phase_peak_probe(clock_hz, sms):
     if not all(r["finite"] for r in records):
         raise AssertionError(f"peak_probe produced non-finite values: {records}")
     by_mode = {r["mode"]: r for r in records}
-    # The tool's own input and chain lengths, against the plain loop: the
-    # kernel's grid-stride loop runs past one pass of its grid here.
+    # The tool's own input and chain lengths, against the plain loop: each
+    # thread of the persistent grid walks several float4s here.
     x = tool.probe_input(32, 751, 288, tool.SEED, "cuda")
     main_errs = {}
     for mode in MODES:
@@ -911,16 +919,28 @@ def phase_peak_probe(clock_hz, sms):
             main_errs[f"{mode}_k{k}"] = check_close(
                 f"peak_probe {mode} k {k} at {tuple(x.shape)}", got,
                 peak_probe_ref(x, k, mode), *PROBE_TOL)
-    bound_ms, bound_by = probe_bound_ms(x.numel(), 64, "dependent", clock_hz, sms)
-    flop_per_s = 1e12 * max(by_mode[m]["attained_tflops"] for m in ("dependent", "independent"))
+    # K1's second bound takes each rate from the whole 1,024-step launch:
+    # at k 64 the FMA launches are bound by their stream, and the per-step
+    # difference would take the stream's time away too.
+    whole = {m: r["whole_k2"] for m, r in by_mode.items()}
+    flop_per_s = 1e12 * max(whole[m]["attained_tflops"] for m in ("dependent", "independent"))
     result = {"phase": "peak_probe", "name": "peak_probe", "records": records,
+              "ptxas": [ln.strip() for ln in build.build_log("peak_probe").splitlines()
+                        if "peak_probe" in ln or "registers" in ln or "spill" in ln],
               "small_max_abs_err": errs, "main_max_abs_err": main_errs,
               "max_abs_err": max(list(errs.values()) + list(main_errs.values())),
               "tol": PROBE_TOL, "launches": launches,
-              "ms": by_mode["dependent"]["ms"],
-              "plain_ms": cuda_ms(lambda: peak_probe_ref(x, 64, "dependent"), 5),
-              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-              "rates": (by_mode["exp2"]["attained_exp2_per_s"], flop_per_s)}
+              "held_clock_mhz": {m: r["held_clock_mhz"] for m, r in by_mode.items()},
+              "bound_share": {m: r["bound_share"] for m, r in by_mode.items()},
+              "by_mode": {m: dict(zip(("bound_ms", "bound_by"),
+                                      tool.probe_bound_ms(x.numel(), 64, m, clock_hz, sms)),
+                              ms=r["ms"],
+                              plain_ms=cuda_ms(lambda: peak_probe_ref(x, 64, m), 5))
+                          for m, r in by_mode.items()},
+              "rates": (whole["exp2"]["attained_exp2_per_s"], flop_per_s)}
+    dep = result["by_mode"]["dependent"]
+    result.update(ms=dep["ms"], plain_ms=dep["plain_ms"], bound_ms=dep["bound_ms"],
+                  bound_by=dep["bound_by"], library_ms=None)
     emit(result)
     return result
 
@@ -4072,6 +4092,8 @@ def main() -> int:
         "max_abs_err": probe["max_abs_err"], "ms": probe["ms"],
         "plain_ms": probe["plain_ms"], "bound_ms": probe["bound_ms"],
         "bound_by": probe["bound_by"], "library_ms": None,
+        **{f"{mode}_{key}": row[key] for mode, row in probe["by_mode"].items()
+           if mode != "dependent" for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

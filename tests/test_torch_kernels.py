@@ -605,9 +605,9 @@ def test_probe_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("mode", ["dependent", "independent", "exp2"])
 def test_probe_matches_plain_on_card(mode, shape, k):
     """Within 1e-5 relative: FMA against separate multiply and add, exp2f
-    against torch.exp2, on contracting chains. The tool's shape has more
-    elements than one pass of the kernel's grid, so its grid-stride loop
-    runs."""
+    against torch.exp2, on contracting chains. At the tool's shape each
+    thread of the persistent grid walks several float4s with the next one
+    in flight."""
     _card()
     from mamba_asr_torch.kernels import peak_probe as p2
     from mamba_asr_torch.ops import peak_probe as probe
@@ -619,6 +619,64 @@ def test_probe_matches_plain_on_card(mode, shape, k):
     torch.cuda.synchronize()
     assert p2.LAUNCHES == before + 1
     torch.testing.assert_close(got, probe.peak_probe_ref(x, k, mode), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,k", [(0, 64), (1, 64), (1, 0), (1, 10), (0, 70)],
+                         ids=["ragged", "offset", "k0", "k10", "k70"])
+@pytest.mark.parametrize("mode", ["dependent", "independent", "exp2"])
+def test_probe_ragged_ends_on_card(mode, offset, k):
+    """7,474 elements (no multiple of 4); with offset 1 a view off a
+    16-byte boundary, so the kernel's head and tail and its 4-byte stores
+    run; k 0, 10 and 70 (a block of 64 steps and a remainder)."""
+    _card()
+    from mamba_asr_torch.kernels import peak_probe as p2
+    from mamba_asr_torch.ops import peak_probe as probe
+
+    whole = torch.from_numpy(np.random.default_rng(6).uniform(0.1, 0.9, 2 * 37 * 101 + offset)
+                             .astype(np.float32)).cuda()
+    x = whole[offset:]
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    before = p2.LAUNCHES
+    got = probe.peak_probe(x, k, mode)
+    torch.cuda.synchronize()
+    assert p2.LAUNCHES == before + 1
+    torch.testing.assert_close(got, probe.peak_probe_ref(x, k, mode), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks,warps", [(1, 1), (1, 8), (2, 32)])
+def test_probe_at_a_geometry_on_card(blocks, warps):
+    """The sweep's entry: any geometry computes the same chains (an
+    offset view: head, tail and 4-byte stores), and the timed kernel's
+    block 0 records its cycles and nanoseconds, at an SM clock between
+    0.5 and 3 GHz."""
+    _card()
+    from mamba_asr_torch.kernels import peak_probe as p2
+    from mamba_asr_torch.ops import peak_probe as probe
+
+    x = torch.from_numpy(np.random.default_rng(7).uniform(0.1, 0.9, 40_001)
+                         .astype(np.float32)).cuda()[1:]
+    for mode in ("dependent", "exp2"):
+        got, clock = p2.peak_probe_at(x, 70, mode, blocks, warps, clock=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, probe.peak_probe_ref(x, 70, mode), rtol=1e-5, atol=1e-6)
+        cycles, ns = clock.tolist()
+        assert cycles > 0 and ns > 0 and 0.5 < cycles / ns < 3.0
+
+
+def test_probe_at_refuses_cpu_tensors_and_bad_geometry():
+    from mamba_asr_torch.kernels import peak_probe as p2
+
+    before = p2.LAUNCHES
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        p2.peak_probe_at(torch.full((4, 5), 0.5), 8, "dependent", 1, 8)
+    if torch.cuda.is_available():
+        for blocks, warps in ((1, 33), (1, 0), (0, 8)):
+            with pytest.raises(ValueError, match="warps"):
+                p2.peak_probe_at(torch.full((4, 5), 0.5, device="cuda"), 8, "dependent",
+                                 blocks, warps)
+    assert p2.LAUNCHES == before
 
 
 # -- Timing -------------------------------------------------------------------

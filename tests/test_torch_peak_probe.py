@@ -84,6 +84,86 @@ def test_peak_probe_tool_on_cpu(capsys):
     assert "cpu_ms" in rec and "ms" not in rec and "attained_exp2_per_s" not in rec
 
 
+DEVICE_FIELDS = ("bound_ms", "bound_by", "bound_share", "held_clock_mhz", "geometry",
+                 "fraction_of_published", "fraction_of_held_peak", "whole_k2")
+
+
+@pytest.mark.parametrize("mode,ms,by", [("dependent", 0.016528, "bytes"),
+                                        ("independent", 0.016528, "bytes"),
+                                        ("exp2", 0.105926, "operations")])
+def test_probe_bound_at_the_tools_shape(mode, ms, by):
+    """B32 x 751 x 288 fp32 at k 64: 55.4 MB at 3.35 TB/s bounds both FMA
+    modes (0.886 GFLOP take 0.0132 ms at 67 TFLOP/s); 443 M exp2 on 132
+    SMs x 16 per clock at 1.98 GHz bound the exp2 mode."""
+    got_ms, got_by = probe_tool.probe_bound_ms(32 * 751 * 288, 64, mode, 1.98e9, 132)
+    assert got_by == by
+    assert got_ms == pytest.approx(ms, rel=1e-4)
+
+
+def test_peak_probe_cpu_record_has_no_device_fields():
+    (rec,) = probe_tool.run(("independent",), k=4, b=1, t=3, d=5, device="cpu")
+    assert rec["cpu_ms"] >= 0 and rec["finite"]
+    assert not set(DEVICE_FIELDS) & set(rec)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_probe_on_ragged_and_offset_views(mode):
+    """7,474 elements, and the same values as a view one element into its
+    storage: the plain loop gives the jnp restatement's values (the exp2
+    chain float64's) on both."""
+    whole = torch.from_numpy(_x(8, (2 * 37 * 101 + 1,)))
+    view = whole[1:]
+    assert view.storage_offset() == 1 and view.is_contiguous()
+    xs = view.numpy().copy()
+    if mode == "exp2":
+        want = xs.astype(np.float64)
+        for _ in range(70):
+            want = np.exp2(want * xs) * 0.5
+    else:
+        want = _jax_probe(xs, 70, mode == "independent")
+    for x in (view, view.clone()):
+        np.testing.assert_allclose(peak_probe(x, 70, mode).numpy(), want, rtol=TOL, atol=0)
+
+
+SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_117peak_probe_kernelILi0ELb0EEEvPKfPfxiixPx
+        /*0000*/                   LDC R1, c[0x0][0x28] ;      /* 0x00000a00ff017b82 */
+                                                                /* 0x000fe40000000800 */
+        /*0010*/                   ISETP.GE.AND P0, PT, R4, 0x40, PT ;
+        /*0020*/                   FFMA R5, R5, R2, 0.5 ;     /* 0x3f00000005057423 */
+                                                                /* 0x000fc80000000002 */
+        /*0030*/                   FFMA R8, R8, R14, 0.5 ;    /* 0x3f00000005057423 */
+                                                                /* 0x000fd00000000002 */
+        /*0040*/                   IADD3 R4, R4, -0x40, RZ ;
+        /*0050*/               @P0 BRA 0x20 ;
+        /*0060*/                   FFMA R5, R5, R2, 0.5 ;
+        /*0070*/               @P1 BRA 0x60 ;
+        /*0080*/                   BRA 0x10 ;
+\t\tFunction : _ZN12_GLOBAL__N_117peak_probe_kernelILi2ELb1EEEvPKfPfxiixPx
+.L_x_1:
+        /*0010*/                   FMUL R3, R5, R2 ;
+        /*0020*/                   MUFU.EX2 R4, R3 ;
+        /*0030*/                   FMUL R5, R4, 0.5 ;
+        /*0040*/              @!P0 BRA `(.L_x_1) ;
+"""
+
+
+def test_sass_loops_finds_each_kernels_chain_loop():
+    """The innermost loop with the most FFMAs (MUFUs for exp2), branch
+    targets as addresses or as labels; the outer loop is not taken."""
+    dep, ex = probe_tool.sass_loops(SASS)
+    assert (dep["mode"], dep["timed"], dep["steps"], dep["instructions"]) == (
+        "dependent", False, 2, 4)
+    assert dep["opcodes"] == {"FFMA": 2, "IADD3": 1, "BRA": 1}
+    assert dep["other_per_step"] == 1.0
+    assert dep["bank_conflicts"] == 1  # R8 and R14 both even; R5 and R2 not
+    assert probe_tool._bank_conflict("FFMA R8, R14, R8, 0.5")
+    assert not probe_tool._bank_conflict("FFMA R8, R14.reuse, R8, 0.5")
+    assert not probe_tool._bank_conflict("FFMA R10, R7, R10, 0.5")
+    assert (ex["mode"], ex["timed"], ex["steps"], ex["opcodes"]["FMUL"]) == ("exp2", True, 1, 2)
+    assert ex["other_per_step"] == 1.0 and ex["bank_conflicts"] == 0
+
+
 def test_scan_variants_tool_on_cpu(capsys):
     """Base is timed first for the deltas; an unknown variant raises (the
     TPU script printed FAILED and went on)."""
