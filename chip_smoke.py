@@ -65,6 +65,20 @@ exits non-zero; it prints no result without a CUDA card):
              training throughput (audio-s per wall-s, median of 3 blocks
              of 4 micro-steps) and peak memory
   train_profile  one such micro-step under torch.profiler
+  distributed_train  multi-process training: (a) one NCCL rank on cuda:0,
+             a micro-step through the port's all-reduces against the
+             plain micro-step, bit for bit where two plain ones agree;
+             then 2 gloo ranks on cuda:0 (NCCL refuses two ranks on a
+             card), fp32 with TF32 off, dropout 0, SpecAugment off, on
+             B32 x 25 s with the last 3 rows weighted 0: (b) data
+             parallel (16 and 13 real rows) and (c) sequence parallel 2
+             (half of T' each), loss and every gradient held against the
+             single-process card step as train_parity holds card and CPU;
+             K1 and K2 per rank per sp micro-step (48 each: 2 passes x 2
+             directions x 12 layers, against 24 unsharded); the sp
+             micro-step's wall ms in bf16 with the YAML's settings, as
+             audio-s per s (two ranks on one card through host-staged
+             gloo: not a scaling number)
   kernel_ctc_dp  the CTC prefix DP (K3) against its plain loop at T 751
              (30 s) with N 66 and 528 hypotheses, ragged N 66 and 528,
              T 1, T 2, N 1 and N 33; time, bound, the chain of dependent
@@ -110,6 +124,14 @@ exits non-zero; it prints no result without a CUDA card):
              and CER, training audio-s per s, K1 and K2 launches; one more
              epoch profiled (idle share); then the CLI again with one more
              epoch, which must resume from the last
+  distributed_recipe  (after recipe) the CTC recipe at full width in
+             fp32 (dropout 0, SpecAugment off, 3 epochs, batches of 6 rows:
+             one bucket plan for one process and two) through
+             cli.run_training(... --distributed), what `python -m
+             mamba_asr_torch.train_ctc --distributed` runs, in 2 gloo
+             ranks on cuda:0, against the single-process run: per-step
+             losses within 1e-4, and one save dir, train_log.txt and
+             wer_test-clean.txt, written by rank 0
   train_to_floor  mamba_asr_torch.tools.train_to_floor at the JAX
              script's settings (60 epochs): test WER <= 2.0 %
   bf16       the train-to-floor test set decoded with its averaged
@@ -166,7 +188,9 @@ exits non-zero; it prints no result without a CUDA card):
              peak memory, one profiled micro-step
   mamba_dec_recipe  as s2s_recipe, on hparams/S2S/conmambamamba_small.yaml
              for MAMBA_RECIPE_EPOCHS epochs (K4 must not launch)
-  mamba_dec_train_to_floor  tools.train_to_floor --mode s2s at its default
+  mamba_dec_train_to_floor  (in a process of its own beside
+             s2s_train_to_floor; its output printed after it) tools.
+             train_to_floor --mode s2s at its default
              config (the Mamba decoder) on 160 / 16 / 16 tone utterances,
              --epochs 30 (90; the JAX regime proof's 150, cut in PR 12):
              test WER <= 2.0 %
@@ -209,12 +233,18 @@ exits non-zero; it prints no result without a CUDA card):
              one dynamic-chunk micro-step of conformer_large, card against
              CPU, held as train_parity holds it
   conformer_recognize  bf16 through Recognizer: CTC RTFx of Conformer-Large
-             at B32 x 30 s (5 blocks of 10 calls; one profiled call), one
+             at B32 x 30 s (3 blocks of 10 calls; one profiled call), one
              block each for the hypermixing and Branchformer YAMLs; S2S
              RTFx of Conformer-Small at B8 x 30 s with its decode stanza
              (beam 66, median of S2S_SEARCHES searches, K3 256 and K4 1,024
              per search, one profiled search) and one Conformer-Large
              search (K4 1,536)
+  conformer_train  (after conformer_recognize) Conformer-Large CTC
+             training: one fp32 micro-step (TF32 and cuDNN off, dropout 0,
+             B2 x 4 s) card against CPU as train_parity holds them; 8
+             micro-steps with the YAML's settings (bf16, dropout 0.1,
+             SpecAugment, accumulation 4) at B32 x 25 s: finite losses,
+             updates on every 4th only, audio-s per s, peak memory
   streaming  (after conformer_recognize) K1 at the streaming shapes (B1
              and B4, L 1, 2, 3, 16, D288 N16, bf16 and fp32, h0 in, h_last
              out) against its plain version, timed at B1 L16; a causal
@@ -253,8 +283,9 @@ exits non-zero; it prints no result without a CUDA card):
              equal to its test pass; `python -m mamba_asr_torch.evaluate`
              reproduces the CTC floor's test WER
 
-Each phase also prints its wall seconds. Then the kernels line, the
-card's name and power limit, and last
+Each phase also prints its wall seconds (the Mamba floor run's overlap
+the S2S floor run's; the script's wall seconds follow the phases). Then
+the kernels line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
 
@@ -348,7 +379,7 @@ MAMBA_FLOOR_CORPUS = (160, 16, 16)
 # Timed searches of s2s_recognize, mamba_dec_recognize and
 # conformer_recognize (5 until the LM's phases joined the script, 3 until
 # the other encoders' did).
-S2S_SEARCHES = 2
+S2S_SEARCHES = 1  # 2 until multi-process training joined the script
 # The LM (slice 3b item 4): the timed fused searches at B8 x 30 s, the
 # LM's training run on the 160-utterance tone transcripts (at full width,
 # vocab 5000, fp32; the JAX script's flags but steps, batch and logging)
@@ -358,7 +389,7 @@ S2S_SEARCHES = 2
 # 300 steps on an H100, with 4000 they reached ppl ~3. 900 steps bring the
 # tone floor run's held-out transcripts to ppl ~1.2 (300: ~2.8, an LM that
 # still turned one test word of that run from AB into FAB).
-LM_SEARCHES = 2  # 3 until the other encoders' phases joined the script
+LM_SEARCHES = 1  # 3 until the other encoders' phases joined, 2 until multi-process training
 LM_TRAIN = dict(steps=900, batch_size=16, seq_len=128, lr=1e-3, warmup=4000,
                 log_every=100, save_every=900)
 LM_PPL_TARGET = 10.0
@@ -366,12 +397,13 @@ LM_PPL_OF_UNIGRAM = 0.5  # and below half the stream's unigram ppl
 # The other encoders (slice 4 item 1): the CTC YAMLs (Conformer-Large with
 # RelPosMHAXL and with hypermixing, Branchformer-Large) and the Conformer
 # S2S YAMLs (Small and Large, the Transformer decoder). The CTC RTFx
-# blocks: the recognize phase's 5 of 10 calls for Conformer-Large, one
-# block each for the others.
+# blocks: CONFORMER_CTC_BLOCKS of 10 calls for Conformer-Large, one block
+# each for the others.
 CONFORMER_CTC = ("hparams/CTC/conformer_large.yaml",
                  "hparams/CTC/conformer_large_hypermixing.yaml",
                  "hparams/CTC/branchformer_large.yaml")
 CONFORMER_S2S = ("hparams/S2S/conformer_small.yaml", "hparams/S2S/conformer_large.yaml")
+CONFORMER_CTC_BLOCKS = 3  # Conformer-Large's timed blocks (5 until multi-process training)
 STREAM_CHUNK_FRAMES = 64  # recognize --chunk_frames: 640 ms of audio per feed
 # Total fbank frames of the causal parity streams: 3,000 is a multiple of
 # the front end's 4, 2,999 and 2,997 take the canonical padding's odd
@@ -396,6 +428,24 @@ SERVING_FINAL_S = 6.0
 SERVING_CTC_BEAM = 8
 SERVING_TCP = (4, 10.0, 0.32)
 SERVING_ENDPOINT_S = 1.5
+# Multi-process training (distributed_train, distributed_recipe): 2 ranks on
+# cuda:0 over gloo; the global batch B32 x TRAIN_SECONDS with its last 3 rows
+# weighted 0 (the data ranks hold 16 and 13 real rows); timed bf16 sp
+# micro-steps per rank; each spawn's timeout (also the process group's);
+# the recipe's epochs, rows per batch (an even plan, so one process and
+# two load the same batches) and the loss tolerance (the card's CTC
+# backward adds with atomics).
+DIST_BATCH = 32
+DIST_PAD_ROWS = 3
+DIST_TIMED_STEPS = 3
+DIST_TIMEOUT_S = 300
+DIST_RECIPE_EPOCHS = 3
+DIST_MAX_BATCH_EX = 6
+DIST_RECIPE_RTOL = 1e-4
+# Conformer-Large training (conformer_train): micro-steps at the YAML's settings.
+CONFORMER_TRAIN_STEPS = 8
+# The Mamba floor run's timeout in its process beside the S2S floor run.
+FLOOR_BESIDE_TIMEOUT_S = 600
 
 
 def scans_per_step(cfg) -> int:
@@ -1350,6 +1400,424 @@ def phase_train_profile(tr, batch):
     wall_ms, total_ms, top = device_profile(lambda: tr.train_step(batch), 15)
     emit({"phase": "train_profile", "wall_ms": wall_ms, "device_kernel_ms": total_ms,
           "idle_share": 1.0 - total_ms / wall_ms, "top": top})
+
+
+# -- multi-process training (distributed_train, distributed_recipe) -----------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class RankGroup:
+    """`nproc` ranks of `python chip_smoke.py --rank-worker kind work ...`,
+    all on cuda:0 over gloo (MASR_BACKEND: NCCL refuses two ranks on one
+    card), each in a session of its own, started at once so that the
+    caller can work beside them. `wait()` fails the phase, killing every
+    rank's process group, when a rank fails or DIST_TIMEOUT_S passes,
+    with the ranks' logs; `kill()` ends them."""
+
+    def __init__(self, kind, work, nproc=2, args=(), timeout=None):
+        env = {k: v for k, v in os.environ.items() if not k.startswith("MASR_")}
+        env.update(MASR_COORDINATOR=f"localhost:{free_port()}", MASR_NUM_PROCESSES=str(nproc),
+                   MASR_BACKEND="gloo", MASR_TIMEOUT_S=str(DIST_TIMEOUT_S),
+                   # the host's cores split between the ranks and this process,
+                   # which works beside them (torchrun gives each rank 1)
+                   OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // (nproc + 1))))
+        self.kind, self.logs, self.procs = kind, [], []
+        self.timeout = DIST_TIMEOUT_S if timeout is None else timeout
+        self.t0 = time.perf_counter()
+        for rank in range(nproc):
+            path = os.path.join(work, f"{kind}_rank{rank}.log")
+            self.logs.append(path)
+            with open(path, "w") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--rank-worker", kind, work,
+                     *args], env={**env, "MASR_PROCESS_ID": str(rank)}, stdout=log,
+                    stderr=subprocess.STDOUT, start_new_session=True))
+
+    def kill(self):
+        import signal
+
+        for p in self.procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+
+    def wait(self) -> float:
+        """The ranks' wall seconds from their start, once all exited 0."""
+        try:
+            deadline = self.t0 + self.timeout
+            while True:  # the first rank to fail ends every rank
+                codes = [p.poll() for p in self.procs]
+                failed = [f"rank {r} exited {c}" for r, c in enumerate(codes)
+                          if c not in (None, 0)]
+                if failed or all(c == 0 for c in codes):
+                    break
+                if time.perf_counter() > deadline:
+                    failed = [f"timed out after {self.timeout} s"]
+                    break
+                time.sleep(0.2)
+        finally:
+            self.kill()
+        if failed:
+            tails = []
+            for rank, path in enumerate(self.logs):
+                with open(path) as f:
+                    tails.append(f"--- rank {rank}\n" + f.read()[-3000:])
+            raise AssertionError(f"{self.kind}: {', '.join(failed)}\n" + "\n".join(tails))
+        return time.perf_counter() - self.t0
+
+
+PARENT_IDLE = "parent_idle"  # written by the parent once its own card work is done
+
+
+def wait_for_file(path, timeout):
+    deadline = time.perf_counter() + timeout
+    while not os.path.exists(path):
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"{path} did not appear within {timeout} s")
+        time.sleep(0.1)
+
+
+def dist_batch(vocab):
+    """The global batch of the multi-process checks: B32 x 25 s with the
+    last DIST_PAD_ROWS rows weighted 0, so the 2 data ranks hold 16 and 13
+    real rows."""
+    batch = char_batch(DIST_BATCH, TRAIN_SECONDS, 300, 4, vocab)
+    batch["weight"][-DIST_PAD_ROWS:] = 0.0
+    return batch
+
+
+def fp32_step_setup(exp):
+    """train_parity's fp32 settings: TF32 off, dropout 0, SpecAugment off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return (dataclasses.replace(exp.model, compute_dtype="float32", dropout=0.0),
+            dataclasses.replace(exp.specaug, enabled=False))
+
+
+def worker_steps(work):
+    """One rank of distributed_train's steps, on cuda:0 over gloo: gloo's
+    all_reduce, broadcast and all_gather on CUDA tensors; the dp step (its 16 rows of dist_batch) and the sp 2
+    step (all 32 rows, half of T' each) in fp32, each's loss and gradients
+    saved for the parent; K1 and K2 launches of the sp micro-step; the
+    wall ms of sp 2 micro-steps with the YAML's settings (bf16, dropout,
+    SpecAugment)."""
+    import torch.distributed as dist
+
+    from mamba_asr_torch.configs.loader import load_config
+    from mamba_asr_torch.kernels import selective_scan as kernel
+    from mamba_asr_torch.parallel import distributed
+    from mamba_asr_torch.parallel.mesh import make_mesh
+    from mamba_asr_torch.training.trainer import Trainer
+
+    rt = distributed.initialize(device="cuda:0")
+    dev, rank = rt.device, rt.rank
+    probe = torch.full((4,), float(rank + 1), device=dev)
+    dist.all_reduce(probe)
+    sent = torch.full((3,), float(rank + 7), device=dev)
+    dist.broadcast(sent, src=0)
+    rows = [torch.empty(2, device=dev) for _ in range(2)]
+    dist.all_gather(rows, torch.full((2,), float(rank), device=dev))
+    if not (torch.all(probe == 3.0) and torch.all(sent == 7.0)
+            and torch.equal(torch.stack(rows).cpu(), torch.tensor([[0.0, 0.0], [1.0, 1.0]]))):
+        raise AssertionError(f"gloo on {dev}: all_reduce {probe.tolist()}, broadcast "
+                             f"{sent.tolist()}, all_gather {[r.tolist() for r in rows]}")
+    exp = load_config(CONFIG)
+    state = seeded_state(exp.model)
+    cfg32, spec = fp32_step_setup(exp)
+    batch = dist_batch(exp.model.vocab_size)
+    out = {"backend": rt.backend, "device": str(dev)}
+
+    def step(mesh, rows, name):
+        tr = Trainer(cfg32, exp.frontend, exp.train, spec, state_dict=state, device=dev,
+                     mesh=mesh)
+        kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+        m = tr.train_step({k: v[rows] for k, v in batch.items()})
+        torch.cuda.synchronize()
+        out[name] = {"losses": {k: v.item() for k, v in m.items() if k.startswith("loss")},
+                     "launches": {"K1": kernel.LAUNCHES, "K2": kernel.BWD_LAUNCHES},
+                     "real_rows": float(batch["weight"][rows].sum())}
+        torch.save({n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()},
+                   os.path.join(work, f"{name}_grads_rank{rank}.pt"))
+
+    dp, sp = make_mesh(data=2), make_mesh(seq=2)
+    half = DIST_BATCH // dp.data.size
+    step(dp, slice(dp.data.index * half, (dp.data.index + 1) * half), "dp")
+    step(sp, slice(None), "sp")
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default
+    torch.backends.cudnn.allow_tf32 = True
+    tr = Trainer(exp.model, exp.frontend, exp.train, exp.specaug, state_dict=state, device=dev,
+                 mesh=sp)
+    # The timed block waits until the parent's own steps on the card are done.
+    t0 = time.perf_counter()
+    wait_for_file(os.path.join(work, PARENT_IDLE), DIST_TIMEOUT_S)
+    distributed.barrier("parent idle")
+    waited_s = time.perf_counter() - t0
+    tr.train_step(batch)  # warm
+    walls = []
+    for _ in range(DIST_TIMED_STEPS):
+        torch.cuda.synchronize()
+        distributed.barrier("timed step")
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        if not np.isfinite(m["loss"].item()):
+            raise AssertionError(f"sp bf16 step: loss {m['loss'].item()}")
+    out["sp_bf16"] = {"wall_ms": walls, "waited_for_parent_s": waited_s,
+                      "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    with open(os.path.join(work, f"steps_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.shutdown()
+
+
+def worker_recipe(work, argv_json):
+    """One rank of distributed_recipe: `cli.run_training(argv +
+    --distributed)`, what `python -m mamba_asr_torch.train_ctc` runs, with
+    TF32 off; rank 0 writes its per-step losses."""
+    from mamba_asr_torch.cli import run_training
+    from mamba_asr_torch.parallel import distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    with open(argv_json) as f:
+        argv = json.load(f)
+    tr = run_training(argv + ["--distributed"])
+    if distributed.is_main_process():
+        with open(os.path.join(work, "recipe_losses.json"), "w") as f:
+            json.dump({"loss": tr.loss_history, "test": tr.test_stats}, f)
+    distributed.shutdown()
+
+
+def rank_worker(argv) -> int:
+    kind, work = argv[0], argv[1]
+    if kind == "steps":
+        worker_steps(work)
+    elif kind == "recipe":
+        worker_recipe(work, argv[2])
+    elif kind == "phase":  # a phase in a process of its own (`join_phase`)
+        result = timed(globals()["phase_" + argv[2]], work)
+        with open(os.path.join(work, f"{argv[2]}.json"), "w") as f:
+            json.dump(result, f)
+    else:
+        raise ValueError(f"no rank worker {kind!r}")
+    return 0
+
+
+def join_phase(group, work, name, beside):
+    """Wait for the phase `name` that `group` runs in a process of its own
+    (beside the phase `beside` of this process), print its output here,
+    and return its result."""
+    t0 = time.perf_counter()
+    group.wait()
+    with open(group.logs[0]) as f:
+        sys.stdout.write(f.read())
+    emit({"phase_beside": name, "beside": beside, "waited_s": time.perf_counter() - t0})
+    with open(os.path.join(work, f"{name}.json")) as f:
+        return json.load(f)
+
+
+def world_of_one_nccl(exp, state):
+    """(a) One NCCL rank on cuda:0: a mesh micro-step, through the port's
+    all-reduces, against the plain micro-step, bit for bit wherever two
+    plain micro-steps agree bit for bit (the CTC loss runs on the CPU here,
+    since the card's CTC backward adds with atomics; cuDNN deterministic)."""
+    import torch.nn.functional as F
+
+    from mamba_asr_torch.ops import ctc
+    from mamba_asr_torch.parallel import distributed
+    from mamba_asr_torch.parallel.mesh import make_mesh
+    from mamba_asr_torch.training.trainer import Trainer
+
+    cfg32, spec = fp32_step_setup(exp)
+    batch = char_batch(4, 4.0, 20, 3, exp.model.vocab_size)
+    batch["weight"][-1] = 0.0
+    saved_nll, saved_det = ctc._nll, torch.backends.cudnn.deterministic
+
+    def cpu_nll(log_probs, labels, input_lengths, label_lengths, blank_id, zero_infinity):
+        nll = F.ctc_loss(log_probs.float().cpu().transpose(0, 1), labels.long().cpu(),
+                         input_lengths.long().cpu(), label_lengths.long().cpu(),
+                         blank=blank_id, reduction="none", zero_infinity=zero_infinity)
+        return nll.to(log_probs.device)
+
+    rt = distributed.initialize(f"localhost:{free_port()}", 1, 0, backend="nccl",
+                                device="cuda:0", timeout_s=DIST_TIMEOUT_S)
+    ctc._nll, torch.backends.cudnn.deterministic = cpu_nll, True
+    try:
+        runs = []
+        for grid in (None, None, make_mesh()):
+            tr = Trainer(cfg32, exp.frontend, exp.train, spec, state_dict=state,
+                         device="cuda", mesh=grid)
+            m = tr.train_step(batch)
+            runs.append(([m[k] for k in ("loss", "loss_ctc", "grad_norm")],
+                         [p.grad.detach().clone() for p in tr.model.parameters()],
+                         list(tr.normalizer)))
+        used = grid.world.group is not None
+    finally:
+        ctc._nll, torch.backends.cudnn.deterministic = saved_nll, saved_det
+        distributed.shutdown()
+    (m1, g1, n1), (m2, g2, n2), (m3, g3, n3) = runs
+    flat = [torch.cat([t.reshape(-1).float() for t in ts]) for ts in
+            (m1 + g1 + n1, m2 + g2 + n2, m3 + g3 + n3)]
+    spread = (flat[0] - flat[1]).abs()
+    off = (flat[2] - flat[0]).abs()
+    if not used or bool((off > spread).any()):
+        raise AssertionError(f"world-1 nccl step: {int((off > spread).sum())} values off the "
+                             "plain step beyond its own repeat")
+    return {"backend": rt.backend, "values": int(spread.numel()),
+            "plain_repeats_bitwise": bool((spread == 0).all()),
+            "bitwise_equal": int((off == 0).sum()), "max_abs_diff": float(off.max())}
+
+
+def phase_distributed_train(exp, state):
+    """(a) one NCCL rank; (b) 2 gloo ranks on cuda:0 data-parallel and (c)
+    sequence-parallel 2, each's fp32 step (dist_batch: B32 x 25 s, 3 rows
+    weighted 0) held against the single-process card step on the same
+    global batch with train_parity's rule (card_vs_cpu); K1 and K2 per rank
+    per sp micro-step; the sp step's wall time in bf16 with the YAML's
+    settings. Two ranks share one card through host-staged gloo: not a
+    scaling number."""
+    from mamba_asr_torch.kernels import selective_scan as kernel
+
+    work = tempfile.mkdtemp(prefix="dist_steps_")
+    try:
+        # The ranks' fp32 steps run beside (a) and the single step; their
+        # timed bf16 steps wait for PARENT_IDLE.
+        group = RankGroup("steps", work)
+        try:
+            nccl = world_of_one_nccl(exp, state)
+            cfg32, spec = fp32_step_setup(exp)
+            batch = dist_batch(exp.model.vocab_size)
+            kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+            losses, grads, _ = step_grads(exp, spec, cfg32, state, batch, "cuda")
+            single = {"losses": losses, "grads": grads}
+            plain_launches = {"K1": kernel.LAUNCHES, "K2": kernel.BWD_LAUNCHES}
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            open(os.path.join(work, PARENT_IDLE), "w").close()  # the ranks may time now
+        except BaseException:
+            group.kill()
+            raise
+        wall_s = group.wait()
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(work, f"steps_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        held = {}
+        for name in ("dp", "sp"):
+            g = [torch.load(os.path.join(work, f"{name}_grads_rank{r}.pt"), weights_only=True)
+                 for r in range(2)]
+            if any(not torch.equal(g[0][n], g[1][n]) for n in g[0]):
+                raise AssertionError(f"distributed_train {name}: the ranks' summed gradients "
+                                     "differ")
+            loss_errs, worst, worst_name = card_vs_cpu(
+                f"distributed_train {name}", {"losses": ranks[0][name]["losses"], "grads": g[0]},
+                single)
+            held[name] = {"loss": ranks[0][name]["losses"]["loss"],
+                          "loss_rel_err": loss_errs["loss"], "grad_max_rel_err": worst,
+                          "grad_worst_param": worst_name,
+                          "real_rows_per_rank": [rk[name]["real_rows"] for rk in ranks],
+                          "launches_per_rank": [rk[name]["launches"] for rk in ranks]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    per_step = scans_per_step(cfg32)
+    if plain_launches != {"K1": per_step, "K2": per_step}:
+        raise AssertionError(f"distributed_train: the single-process step launched "
+                             f"{plain_launches}")
+    for name, want in (("dp", per_step), ("sp", 2 * per_step)):
+        if any(lr != {"K1": want, "K2": want} for lr in held[name]["launches_per_rank"]):
+            raise AssertionError(f"distributed_train {name}: launches "
+                                 f"{held[name]['launches_per_rank']}, want {want} each")
+    walls = ranks[0]["sp_bf16"]["wall_ms"]
+    audio = DIST_BATCH * TRAIN_SECONDS
+    emit({"phase": "distributed_train", "note": "two ranks share one card through "
+          "host-staged gloo: correctness and launch counts, not a scaling number; NCCL "
+          "across cards is not verified (one card)",
+          "world_of_one_nccl": nccl, "batch": DIST_BATCH, "seconds_each": TRAIN_SECONDS,
+          "weight0_rows": DIST_PAD_ROWS, "single_loss": single["losses"]["loss"],
+          "single_launches": plain_launches, "dp": held["dp"], "sp": held["sp"],
+          "sp_launches_per_rank_per_micro_step": held["sp"]["launches_per_rank"][0],
+          "sp_launch_ratio_to_unsharded": held["sp"]["launches_per_rank"][0]["K1"] / per_step,
+          "sp_bf16": {"wall_ms": walls, "median_ms": statistics.median(walls),
+                      "waited_for_parent_s": ranks[0]["sp_bf16"]["waited_for_parent_s"],
+                      "audio_s_per_s": audio / (statistics.median(walls) / 1e3),
+                      "max_memory_allocated_gb": [rk["sp_bf16"]["max_memory_allocated_gb"]
+                                                  for rk in ranks]},
+          "gloo": {"backend": ranks[0]["backend"], "device": ranks[0]["device"]},
+          "spawn_wall_s": wall_s,
+          "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad": TRAIN_GRAD_TOL}})
+    return {"sp_train_launches": held["sp"]["launches_per_rank"][0]}
+
+
+def phase_distributed_recipe(work, corpus):
+    """(d) The CTC recipe at full ConMamba-Small width in fp32 (TF32 off,
+    dropout 0, SpecAugment off, DIST_RECIPE_EPOCHS epochs on the tone
+    corpus, batches of DIST_MAX_BATCH_EX rows: the same bucket plan for one
+    process and two) through `cli.run_training(... --distributed)` in 2
+    gloo ranks on cuda:0, against the single-process run: per-step losses
+    within DIST_RECIPE_RTOL (the card's CTC backward adds with atomics),
+    one save dir and one wer_test-clean.txt, written by rank 0."""
+    from mamba_asr_torch import cli
+
+    def argv(out):
+        return recipe_args(corpus, out, DIST_RECIPE_EPOCHS) + [
+            "--model.compute_dtype", "float32", "--model.dropout", "0.0",
+            "--specaug.enabled", "false", "--data.max_batch_ex", str(DIST_MAX_BATCH_EX)]
+
+    one_out, two_out = os.path.join(work, "dist_one"), os.path.join(work, "dist_two")
+    args_path = os.path.join(work, "dist_argv.json")
+    with open(args_path, "w") as f:  # both ranks on cuda:0 (gloo)
+        json.dump(argv(two_out) + ["--device", "cuda:0"], f)
+    group = RankGroup("recipe", work, args=(args_path,))  # beside the single process
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        one = cli.run_training(argv(one_out))
+        one_s = time.perf_counter() - t0
+        torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    except BaseException:
+        group.kill()
+        raise
+    wall_s = group.wait()
+    cfg = one.cfg
+    csv_path = os.path.join(cfg.output_folder, "manifests", cfg.data.train_csv)
+    plans = [cli.train_loader(cfg, csv_path, one.tokenizer, batch_divisor=d).plan.buckets
+             for d in (1, 2)]
+    if plans[0] != plans[1]:
+        raise AssertionError(f"distributed_recipe: the bucket plans differ: {plans}")
+    with open(os.path.join(work, "recipe_losses.json")) as f:
+        two = json.load(f)
+    got, want = np.array(two["loss"]), np.array(one.loss_history)
+    if got.shape != want.shape or not np.all(np.abs(got - want) <= DIST_RECIPE_RTOL
+                                             * np.abs(want)):
+        raise AssertionError(f"distributed_recipe: losses {got.tolist()} vs {want.tolist()}")
+    two_dir = one.cfg.output_folder.replace(one_out, two_out)
+
+    def files(d):
+        with open(os.path.join(d, "train_log.txt")) as f:
+            rows = f.read().splitlines()
+        return (sorted(os.listdir(d)), len(os.listdir(os.path.join(d, "save"))),
+                len(rows), sum(r.startswith("test_set") for r in rows))
+
+    layout = {"one": files(one.cfg.output_folder), "two": files(two_dir)}
+    if layout["one"] != layout["two"] or layout["two"][3] != 1 or \
+            "wer_test-clean.txt" not in layout["two"][0]:
+        raise AssertionError(f"distributed_recipe: files {layout}")
+    emit({"phase": "distributed_recipe", "epochs": DIST_RECIPE_EPOCHS,
+          "micro_steps": len(want), "loss_max_rel_err": float(
+              np.max(np.abs(got - want) / np.abs(want))), "rtol": DIST_RECIPE_RTOL,
+          "losses_one": want.tolist(), "losses_two": got.tolist(),
+          "test_one": one.test_stats["test-clean"], "test_two": two["test"].get("test-clean"),
+          "files": {"entries": layout["two"][0], "checkpoints": layout["two"][1],
+                    "log_rows": layout["two"][2], "test_rows": layout["two"][3]},
+          "bucket_plan": [dataclasses.astuple(b) for b in plans[0]],
+          "one_process_s": one_s, "two_process_s": wall_s,
+          "note": "the two runs side by side on one card and host"})
 
 
 # -- S2S joint CTC/attention beam recognition (K3, K4) -------------------------
@@ -3042,8 +3510,8 @@ def phase_conformer_parity(exps, states):
 
 @torch.no_grad()
 def phase_conformer_recognize(exps, states):
-    """bf16 through Recognizer. CTC RTFx at B32 x 30 s of noise: the
-    recognize phase's 5 blocks of 10 calls for Conformer-Large, one block
+    """bf16 through Recognizer. CTC RTFx at B32 x 30 s of noise:
+    CONFORMER_CTC_BLOCKS blocks of 10 calls for Conformer-Large, one block
     for the hypermixing and Branchformer YAMLs, and one profiled
     Conformer-Large call. S2S RTFx of Conformer-Small
     at B8 x 30 s with its YAML's decode stanza (beam 66, CTC 0.4, 96
@@ -3060,7 +3528,7 @@ def phase_conformer_recognize(exps, states):
     result = {"phase": "conformer_recognize", "ctc": {}, "s2s": {}}
     batch = [noise(30.0, 500 + i) for i in range(32)]
     iters = 10
-    for path, count in zip(CONFORMER_CTC, (5, 1, 1)):
+    for path, count in zip(CONFORMER_CTC, (CONFORMER_CTC_BLOCKS, 1, 1)):
         exp = exps[path]
         rec = Recognizer(exp.model, exp.frontend, states[path], device="cuda", batch=32)
         lp = rec.eval_step(torch.from_numpy(np.stack(batch)),
@@ -3132,6 +3600,71 @@ def phase_conformer_recognize(exps, states):
     result["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     emit(result)
     return result
+
+
+def phase_conformer_train(exps, states):
+    """Conformer-Large CTC (hparams/CTC/conformer_large.yaml): one fp32
+    micro-step (TF32 and cuDNN off, dropout 0, SpecAugment off, train
+    parity's B2 x 4 s batch), card against CPU with train_parity's rule
+    (card_vs_cpu); then CONFORMER_TRAIN_STEPS micro-steps with the YAML's
+    settings (bf16, dropout 0.1, SpecAugment, accumulation 4) on B32 x 25 s
+    of noise with ~300-token targets: finite losses, the parameters
+    changing on every 4th micro-step only, audio-s per s over the
+    micro-steps after the first, peak memory. Plain torch on both devices
+    (JAX leaves this encoder to XLA): no kernel launches."""
+    from mamba_asr_torch.kernels import selective_scan as kernel
+    from mamba_asr_torch.training.trainer import Trainer
+
+    path = CONFORMER_CTC[0]
+    exp, state = exps[path], states[path]
+    cfg32, spec = fp32_step_setup(exp)
+    batch = char_batch(2, 4.0, 20, 3, exp.model.vocab_size)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        torch.backends.cudnn.enabled = dev != "cuda"
+        runs[dev] = dict(zip(("losses", "grads"),
+                             step_grads(exp, spec, cfg32, state, batch, dev)[:2]))
+    torch.backends.cudnn.enabled = True
+    torch.backends.cudnn.allow_tf32 = True  # back to PyTorch's defaults
+    loss_errs, worst, worst_name = card_vs_cpu("conformer_train", runs["cuda"], runs["cpu"])
+
+    tr = Trainer(exp.model, exp.frontend, exp.train, exp.specaug, state_dict=state,
+                 device="cuda")
+    batch = char_batch(32, TRAIN_SECONDS, 300, 4, exp.model.vocab_size)
+    k = exp.train.grad_accumulation_factor
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+    steps = []
+    for i in range(CONFORMER_TRAIN_STEPS):
+        before = [p.detach().clone() for p in tr.model.parameters()]
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        loss = m["loss"].item()  # syncs
+        wall = time.perf_counter() - t0
+        changed = sum(not torch.equal(a, p) for a, p in zip(before, tr.model.parameters()))
+        emit_step = i % k == k - 1
+        if not np.isfinite(loss) or bool(m["updated"]) != emit_step or \
+                (changed > 0) != emit_step:
+            raise AssertionError(f"conformer_train micro-step {i}: loss {loss}, {changed} "
+                                 f"parameters changed, emit step {emit_step}")
+        steps.append({"loss": loss, "grad_norm": m["grad_norm"].item(), "wall_s": wall,
+                      "params_changed": changed})
+    if kernel.LAUNCHES or kernel.BWD_LAUNCHES:
+        raise AssertionError("conformer_train: a ConMamba scan kernel launched")
+    audio = float(batch["wav_lens"].sum()) / 16000
+    rate = audio * (len(steps) - 1) / sum(s["wall_s"] for s in steps[1:])
+    emit({"phase": "conformer_train", "config": path, "d_model": exp.model.d_model,
+          "layers": exp.model.num_encoder_layers, "compute_dtype": exp.model.compute_dtype,
+          "dropout": exp.model.dropout, "specaug": exp.specaug.enabled, "accumulation": k,
+          "batch": 32, "seconds_each": TRAIN_SECONDS, "micro_steps": steps,
+          "audio_s_per_s": rate,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "parity": {"loss_cuda": runs["cuda"]["losses"]["loss"],
+                     "loss_cpu": runs["cpu"]["losses"]["loss"],
+                     "loss_rel_err": loss_errs["loss"], "params": len(runs["cpu"]["grads"]),
+                     "grad_max_rel_err": worst, "grad_worst_param": worst_name,
+                     "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad": TRAIN_GRAD_TOL}}})
 
 
 def phase_train_lm(work, floor):
@@ -3904,6 +4437,7 @@ def main() -> int:
         return 2
     from mamba_asr_torch.configs.loader import load_config
 
+    script_t0 = time.perf_counter()
     card = nvidia_smi("name,power.limit")
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     props = torch.cuda.get_device_properties(0)
@@ -3927,6 +4461,7 @@ def main() -> int:
     train_launches, tr, train_batch = timed(phase_train, exp, state)
     timed(phase_train_profile, tr, train_batch)
     del tr, train_batch, rec32, batch
+    dist = timed(phase_distributed_train, exp, state)
     s2s = load_config(S2S_CONFIG)
     k3 = timed(phase_kernel_ctc_dp, clock_hz, sms)
     k4 = timed(phase_kernel_beam_attn, s2s.model, clock_hz, sms)
@@ -3956,6 +4491,7 @@ def main() -> int:
         conf_states = {path: seeded_state(exp.model) for path, exp in conf.items()}
         timed(phase_conformer_parity, conf, conf_states)
         conf_search = timed(phase_conformer_recognize, conf, conf_states)
+        timed(phase_conformer_train, conf, conf_states)
         stream = timed(phase_streaming, exp, state, conf, conf_states, mam, mam_state,
                        clock_hz, sms)
         serving = timed(phase_serving, exp, state, s2s, s2s_state, mam, mam_state,
@@ -3964,18 +4500,29 @@ def main() -> int:
         corpus = timed(phase_data, work)
         timed(phase_ctc_beam, exp)
         recipe_launches = timed(phase_recipe, work, corpus)
+        timed(phase_distributed_recipe, work, corpus)
         floor = timed(phase_train_to_floor, work, corpus)
         timed(phase_bf16, floor)
         s2s_recipe_launches = timed(phase_s2s_recipe, work, corpus)
-        s2s_floor = timed(phase_s2s_train_to_floor, work, corpus)
+        # Two host-bound WER checks side by side: the Mamba floor run (its
+        # own corpus) in a process of its own beside the S2S floor run.
+        floor_beside = RankGroup("phase", work, nproc=1, args=("mamba_dec_train_to_floor",),
+                                 timeout=FLOOR_BESIDE_TIMEOUT_S)
+        try:
+            s2s_floor = timed(phase_s2s_train_to_floor, work, corpus)
+        except BaseException:
+            floor_beside.kill()
+            raise
+        mam_floor_launches = join_phase(floor_beside, work, "mamba_dec_train_to_floor",
+                                        "s2s_train_to_floor")
         mam_recipe_launches = timed(phase_mamba_dec_recipe, work, corpus)
-        mam_floor_launches = timed(phase_mamba_dec_train_to_floor, work)
         lm_path = timed(phase_train_lm, work, s2s_floor)
         lm_floor_launches = timed(phase_lm_floor, work, corpus, s2s_floor, lm_path)
         timed(phase_recognize_cli, work, corpus, floor, s2s_floor)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    emit({"script_wall_s": time.perf_counter() - script_t0})
     full = k["cases"][0]
     fwd_train = kb["fwd_train"]
     emit({"kernels": [{
@@ -4010,6 +4557,7 @@ def main() -> int:
         "ms": fwd_train["kernel_ms"], "plain_ms": k["plain_ms"],
         "bound_ms": fwd_train["bound_ms"], "bound_by": fwd_train["bound_by"],
         "library_ms": None, "s2s_train_launches": s2s_train_launches["K1"],
+        "sp_train_launches": dist["sp_train_launches"]["K1"],
         "mamba_dec_train_launches": mam_train_launches["K1"],
         "mamba_dec": {name: {"shape": mk[name]["shape"], "ms": mk[name]["fwd_train_ms"],
                              "plain_ms": mk[name]["fwd_plain_ms"],
@@ -4025,6 +4573,7 @@ def main() -> int:
         "bound_by": kb["bound_by"], "library_ms": None, "wrapper_ms": kb["wrapper_ms"],
         "recipe_launches": recipe_launches["K2"],
         "s2s_train_launches": s2s_train_launches["K2"],
+        "sp_train_launches": dist["sp_train_launches"]["K2"],
         "s2s_recipe_launches": s2s_recipe_launches["K2"],
         "mamba_dec_train_launches": mam_train_launches["K2"],
         "mamba_dec_recipe_launches": mam_recipe_launches["K2"],
@@ -4103,4 +4652,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--rank-worker":
+        sys.exit(rank_worker(sys.argv[2:]))
     sys.exit(main())

@@ -13,8 +13,9 @@ CTC/attention beam search over the Transformer decoder
 (`Recognizer(..., search="s2s")`, `decoding.s2s_beam`), and the
 scan-attribution tools (`tools.scan_variants`, `tools.peak_probe`).
 Later slices: the recipes, the other encoders and the LM, recognition's
-entry points and streaming, and serving (`serving.engine`,
-`serving.server`, `python -m mamba_asr_torch.serve`).
+entry points and streaming, serving (`serving.engine`,
+`serving.server`, `python -m mamba_asr_torch.serve`), and multi-process
+training with sequence parallelism (`parallel`, `--distributed`).
 """
 
 __all__ = ["resolve_device"]

@@ -18,7 +18,15 @@ checkpoints and the CTC prefix beam search (CTC) or the joint beam
 search (S2S, fusing the LM of `decode.lm_path` at test, when set),
 writing wer_<split>.txt. It runs on the CUDA card unless `--device cpu`
 (or another torch device) is given, and refuses to start without a card.
-`--distributed` (multi-process training) is not ported and raises.
+
+`--distributed` trains with one process per rank (JAX `cli.py:190-258`):
+each process calls `parallel.distributed.initialize()` (MASR_COORDINATOR,
+MASR_NUM_PROCESSES, MASR_PROCESS_ID, or torchrun's variables; NCCL on
+cards, gloo on the CPU, MASR_BACKEND=gloo for ranks sharing a card), the
+ranks form the (data, seq) grid of the `parallel` stanza, rank 0
+prepares the manifests and fits the tokenizer (and builds the CUDA
+kernels) with a barrier after each, and each rank loads its rows of every
+global batch, whose size is a multiple of lcm(data axis, process count).
 
 `restore_asr_state` gives recognition's entry points (recognize.py,
 evaluate.py) their model and normaliser: the averaged checkpoints of an
@@ -27,6 +35,7 @@ experiment, or a reference checkpoint.
 
 from __future__ import annotations
 
+import math
 import os
 import sys
 from typing import List, Optional, Tuple
@@ -40,6 +49,8 @@ from mamba_asr_torch.data.tokenizer import CharTokenizer, SubwordTokenizer, load
 from mamba_asr_torch.models import lm as lm_module
 from mamba_asr_torch.models import params_import
 from mamba_asr_torch.models.asr import ASRModel
+from mamba_asr_torch.parallel import distributed
+from mamba_asr_torch.parallel.mesh import make_mesh
 from mamba_asr_torch.training.checkpoint import CheckpointManager
 from mamba_asr_torch.training.loop import Trainer
 from mamba_asr_torch.training.normalizer import NormalizerState, init_normalizer
@@ -136,14 +147,17 @@ def pop_device(argv: List[str]) -> Tuple[List[str], Optional[str]]:
     return out, device
 
 
-def train_loader(cfg: ExperimentConfig, csv_path: str, tokenizer) -> BucketedLoader:
-    """The training set's loader: shuffled, speed perturbation per the config."""
+def train_loader(cfg: ExperimentConfig, csv_path: str, tokenizer, batch_divisor: int = 1,
+                 process_index: int = 0, process_count: int = 1) -> BucketedLoader:
+    """The training set's loader: shuffled, speed perturbation per the
+    config; in a multi-process run this process's rows of each batch."""
     return BucketedLoader(
         ASRDataset.from_csv(csv_path, tokenizer, cfg.data.sample_rate),
         num_buckets=cfg.data.num_buckets, max_batch_seconds=cfg.data.max_batch_seconds,
         max_batch_ex=cfg.data.max_batch_ex, shuffle=cfg.data.sorting == "random",
-        speed_perturb=cfg.data.speed_perturb, seed=cfg.seed,
-        num_workers=cfg.data.num_workers)
+        speed_perturb=cfg.data.speed_perturb, seed=cfg.seed, batch_divisor=batch_divisor,
+        num_workers=cfg.data.num_workers, process_index=process_index,
+        process_count=process_count)
 
 
 def eval_loader(cfg: ExperimentConfig, csv_path: str, tokenizer) -> BucketedLoader:
@@ -159,33 +173,59 @@ def run_training(argv: Optional[List[str]] = None) -> Trainer:
     argv = list(argv) if argv is not None else sys.argv[1:]
     if not argv:
         raise SystemExit("usage: python -m mamba_asr_torch.train_ctc|train_s2s "
-                         "<hparams.yaml> [--device cpu] [--key value ...]")
-    if "--distributed" in argv:
-        raise NotImplementedError(
-            "--distributed: multi-process training is not ported (ROADMAP slice 4 item 4)")
+                         "<hparams.yaml> [--distributed] [--device cpu] [--key value ...]")
+    multi = "--distributed" in argv
+    if multi:
+        argv.remove("--distributed")
     argv, device = pop_device(argv)
-    device = resolve_device(device)
     cfg = load_config(argv[0], parse_overrides(argv[1:]))
+    if multi:
+        device = distributed.initialize(device=device).device
+    else:
+        device = resolve_device(device)
+    main = distributed.is_main_process()
     lm = load_lm(cfg, device)
     os.makedirs(cfg.output_folder, exist_ok=True)
 
     manifest_dir = os.path.join(cfg.output_folder, "manifests")
-    prepare_librispeech(
-        data_folder=cfg.data.data_folder, save_folder=manifest_dir,
-        tr_splits=cfg.data.train_splits, dev_splits=cfg.data.dev_splits,
-        te_splits=cfg.data.test_splits, merge_lst=cfg.data.train_splits,
-        merge_name=cfg.data.train_csv, skip_prep=cfg.data.skip_prep)
+    if main:
+        prepare_librispeech(
+            data_folder=cfg.data.data_folder, save_folder=manifest_dir,
+            tr_splits=cfg.data.train_splits, dev_splits=cfg.data.dev_splits,
+            te_splits=cfg.data.test_splits, merge_lst=cfg.data.train_splits,
+            merge_name=cfg.data.train_csv, skip_prep=cfg.data.skip_prep)
+        if cfg.data.create_lexicon:
+            create_lexicon(manifest_dir, [cfg.data.train_csv])
+    distributed.barrier("librispeech_prep")
     train_csv = os.path.join(manifest_dir, cfg.data.train_csv)
-    if cfg.data.create_lexicon:
-        create_lexicon(manifest_dir, [cfg.data.train_csv])
-    tokenizer = build_tokenizer(cfg, train_csv)
-    trainer = Trainer(cfg, tokenizer, device=device, lm=lm)
+    tokenizer = build_tokenizer(cfg, train_csv) if main else None
+    distributed.barrier("tokenizer_fit")
+    if tokenizer is None:  # on disk now: load it
+        tokenizer = build_tokenizer(cfg, train_csv)
+    if multi and device.type == "cuda":
+        # One nvcc per source, by rank 0 alone; the others load its build.
+        if main:
+            from mamba_asr_torch.kernels import build
+
+            build.build_all()
+        distributed.barrier("kernel_build")
+    # A single process meets sequence_parallel > 1 here too: make_mesh raises.
+    sp = cfg.parallel.sequence_parallel
+    mesh = make_mesh(seq=sp) if multi or sp > 1 else None
+    trainer = Trainer(cfg, tokenizer, device=device, lm=lm, mesh=mesh)
 
     valid_loader = None
     if cfg.data.dev_splits:
         valid_loader = eval_loader(
             cfg, os.path.join(manifest_dir, cfg.data.dev_splits[0] + ".csv"), tokenizer)
-    trainer.fit(train_loader(cfg, train_csv, tokenizer), valid_loader)
+    if mesh is None:
+        loader = train_loader(cfg, train_csv, tokenizer)
+    else:  # the ranks of one seq line load the same rows
+        loader = train_loader(
+            cfg, train_csv, tokenizer,
+            batch_divisor=math.lcm(mesh.data.size, distributed.process_count()),
+            process_index=mesh.data.index, process_count=mesh.data.size)
+    trainer.fit(loader, valid_loader)
     for split in cfg.data.test_splits:
         test_loader = eval_loader(cfg, os.path.join(manifest_dir, split + ".csv"), tokenizer)
         decoder = trainer.s2s_decoder(test=True) if trainer.is_s2s else trainer.ctc_decoder()

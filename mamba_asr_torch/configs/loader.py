@@ -3,11 +3,12 @@ copy of the JAX package's FrontendConfig from training/trainer.py and of
 its DataConfig and DecodeConfig).
 
 The stanzas are `name`, `seed`, `model`, `frontend`, `train`, `specaug`,
-`data` and `decode`, with every field and default of the JAX package's.
-`--section.key value` overrides are applied to the YAML before it is
-read and are type-coerced from the dataclass fields. The `parallel`
-stanza (tensor, sequence and pipeline parallelism) is not ported: a YAML
-or an override that sets it raises.
+`data`, `decode` and `parallel`, with every field and default of the JAX
+package's. `--section.key value` overrides are applied to the YAML
+before it is read and are type-coerced from the dataclass fields. Of the
+`parallel` stanza, `sequence_parallel` is ported (ConMamba only, without
+dynamic chunks); `tensor_parallel > 1` and `pipeline_stages > 1` raise,
+naming the ROADMAP items that will take them.
 """
 
 from __future__ import annotations
@@ -21,7 +22,11 @@ import yaml
 
 from mamba_asr_torch.models.asr import ASRConfig
 from mamba_asr_torch.models.mamba import MambaConfig
+from mamba_asr_torch.parallel.encoder_parallel import check_sequence_parallel
 from mamba_asr_torch.training.trainer import SpecAugmentConfig, TrainConfig
+
+PIPELINE_ITEM = "ROADMAP Queue 1 item 10 (pipeline parallelism)"
+TENSOR_ITEM = "ROADMAP Queue 1 item 11 (tensor parallelism)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +107,23 @@ class DecodeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """The process grid of multi-process training (a copy of the JAX
+    package's ParallelConfig): data axis = ranks / sequence_parallel.
+    sequence_parallel shards the ConMamba encoder's time axis over that
+    many ranks (parallel/encoder_parallel.py). tensor_parallel and
+    min_shard_elements (tensor parallelism), pipeline_stages and
+    pipeline_microbatches (pipeline parallelism) load, but more than one
+    tensor shard or stage raises."""
+
+    tensor_parallel: int = 1
+    min_shard_elements: int = 16384
+    sequence_parallel: int = 1
+    pipeline_stages: int = 1
+    pipeline_microbatches: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     name: str = "experiment"
     seed: int = 3407
@@ -111,6 +133,7 @@ class ExperimentConfig:
     specaug: SpecAugmentConfig = SpecAugmentConfig()
     data: DataConfig = DataConfig()
     decode: DecodeConfig = DecodeConfig()
+    parallel: ParallelConfig = ParallelConfig()
 
     @property
     def output_folder(self) -> str:
@@ -119,7 +142,7 @@ class ExperimentConfig:
 
 _NESTED = {"model": ASRConfig, "frontend": FrontendConfig, "mamba": MambaConfig,
            "train": TrainConfig, "specaug": SpecAugmentConfig,
-           "data": DataConfig, "decode": DecodeConfig}
+           "data": DataConfig, "decode": DecodeConfig, "parallel": ParallelConfig}
 
 
 def _coerce(field_type, value):
@@ -163,10 +186,24 @@ def load_config(path: str, overrides: Optional[Dict[str, Any]] = None
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = value
-    if "parallel" in raw:
-        raise NotImplementedError(
-            "the parallel stanza is not ported (ROADMAP slice 4 item 4)")
-    return _build(ExperimentConfig, raw)
+    exp = _build(ExperimentConfig, raw)
+    check_parallel(exp)
+    return exp
+
+
+def check_parallel(exp: ExperimentConfig) -> None:
+    """Raise on a parallel stanza the port cannot train: tensor or
+    pipeline parallelism (not ported), or sequence parallelism on an
+    encoder other than ConMamba or with dynamic-chunk training."""
+    par = exp.parallel
+    if par.tensor_parallel > 1:
+        raise NotImplementedError(f"parallel.tensor_parallel={par.tensor_parallel}: {TENSOR_ITEM} "
+                                  "is not ported")
+    if par.pipeline_stages > 1:
+        raise NotImplementedError(f"parallel.pipeline_stages={par.pipeline_stages}: "
+                                  f"{PIPELINE_ITEM} is not ported")
+    if par.sequence_parallel > 1:
+        check_sequence_parallel(exp.model.encoder_module, exp.train.dynchunk_size)
 
 
 def parse_overrides(argv: Sequence[str]) -> Dict[str, Any]:

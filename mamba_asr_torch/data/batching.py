@@ -50,13 +50,13 @@ def make_bucket_plan(
     max_batch_seconds: float = 850.0,
     max_batch_ex: int = 128,
     sample_rate: int = 16000,
+    batch_divisor: int = 1,
 ) -> BucketPlan:
     """Bucket bounds at the durations' quantiles (bounds within 1 % of the
     previous one merged), each with a batch size of about
-    `max_batch_seconds` of audio, and labels padded to a multiple of 16.
-    The JAX package's `min_batch_size` and `batch_divisor` (for sharding a
-    batch over devices) are left at 1 until multi-device training is
-    ported (ROADMAP slice 4)."""
+    `max_batch_seconds` of audio (at most max_batch_ex), rounded up to a
+    multiple of batch_divisor (so that a batch splits evenly over the data
+    ranks), and labels padded to a multiple of 16."""
     durations = np.asarray(durations, np.float64)
     label_lengths = np.asarray(label_lengths, np.int64)
     bounds = np.quantile(durations, np.linspace(0, 1, num_buckets + 1)[1:])
@@ -68,6 +68,7 @@ def make_bucket_plan(
     buckets = []
     for b in uniq:
         bs = int(np.clip(max_batch_seconds // max(b, 0.1), 1, max_batch_ex))
+        bs = _round_up(bs, batch_divisor)
         in_bucket = label_lengths[durations <= b]
         max_lab = int(in_bucket.max()) if in_bucket.size else 16
         buckets.append(Bucket(max_seconds=math.ceil(b * 10) / 10,

@@ -81,8 +81,15 @@ class ASRDataset:
 class BucketedLoader:
     """Static-shape batches of a dataset; speed perturbation on training
     epochs. num_workers: decode/perturb threads (0: one per CPU). Partial
-    batches are padded, never dropped. process_count > 1 (a process's share
-    of each batch) is not ported."""
+    batches are padded (their repeats weighted 0), never dropped.
+    batch_divisor: every batch size a multiple of it.
+
+    Multi-process training (process_count > 1): every process builds the
+    same plan and sampler (same seed, same manifest) and keeps rows
+    [index * shard, (index + 1) * shard) of each global batch, shard =
+    batch / process_count; a batch that does not divide raises. The
+    perturbation factors are drawn for the whole global batch before the
+    slice, so the shards concatenate to the single process's batch."""
 
     def __init__(
         self,
@@ -93,16 +100,17 @@ class BucketedLoader:
         shuffle: bool = True,
         speed_perturb: bool = False,
         seed: int = 0,
+        batch_divisor: int = 1,
         num_workers: int = 0,
         process_index: int = 0,
         process_count: int = 1,
     ):
-        if process_count != 1 or process_index != 0:
-            raise NotImplementedError(
-                "multi-process loading is not ported (ROADMAP slice 4 item 4)")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} of {process_count}")
         self.ds = dataset
         self.speed_perturb = speed_perturb
         self.seed = seed
+        self.process_index, self.process_count = process_index, process_count
         self.num_workers = num_workers if num_workers > 0 else (os.cpu_count() or 1)
         self._pool: Optional[ThreadPoolExecutor] = None
         # Speed perturbation can lengthen audio by 1/0.95: plan with headroom.
@@ -111,7 +119,7 @@ class BucketedLoader:
         self.plan = make_bucket_plan(
             plan_durations, dataset.label_lengths, num_buckets=num_buckets,
             max_batch_seconds=max_batch_seconds, max_batch_ex=max_batch_ex,
-            sample_rate=dataset.sample_rate)
+            sample_rate=dataset.sample_rate, batch_divisor=batch_divisor)
         self.sampler = BucketSampler(plan_durations, self.plan, shuffle=shuffle, seed=seed)
 
     def num_batches(self) -> int:
@@ -125,14 +133,27 @@ class BucketedLoader:
 
     def epoch(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         rng = np.random.default_rng(self.seed * 7919 + epoch)
+        pc, pi = self.process_count, self.process_index
         for bucket_idx, indices, real in self.sampler.epoch(epoch):
-            # The whole batch's factors are drawn in index order before any
-            # row is loaded, so they do not depend on thread scheduling.
+            # The whole (global) batch's factors are drawn in index order
+            # before any row is loaded or sliced, so they depend neither on
+            # thread scheduling nor on the process count.
             if self.speed_perturb:
                 factors = [SPEED_FACTORS[rng.integers(len(SPEED_FACTORS))]
                            for _ in indices]
             else:
                 factors = [1.0] * len(indices)
+            if pc > 1:
+                bsz = len(indices)
+                if bsz % pc != 0:
+                    raise ValueError(
+                        f"batch size {bsz} not divisible by process count {pc}: "
+                        "construct the loader with batch_divisor = data-axis size")
+                shard = bsz // pc
+                lo = pi * shard
+                indices, factors = indices[lo:lo + shard], factors[lo:lo + shard]
+                # The pad rows are the global batch's trailing ones.
+                real = min(max(real - lo, 0), shard)
             yield self._collate(bucket_idx, indices, real, factors)
 
     def __iter__(self):

@@ -303,6 +303,22 @@ class ASRModel(nn.Module):
     def mamba_decoder(self) -> bool:
         return self.has_decoder and self.cfg.decoder_module == "mamba"
 
+    def encode_pre(self, feats: torch.Tensor,
+                   feat_lengths: Optional[torch.Tensor] = None):
+        """The front end and the projection: feats (B, T, n_mels) -> (x (B,
+        T', d_model), enc_lengths). The split point where the encoder stack
+        runs under sequence parallelism (JAX `asr.py:301-325`,
+        parallel/encoder_parallel.py); `encode` is this and the stack."""
+        x = self.frontend(feats)  # (B, T', F', C)
+        b, t, f, c = x.shape
+        x = dense(x.reshape(b, t, f * c), self.src_proj, self.cfg.dtype)
+        x = dropout(x, self.cfg.dropout, self.training)  # src_drop
+        if feat_lengths is not None:
+            enc_lengths = -(-feat_lengths // self.cfg.downsample)  # ceil div
+        else:
+            enc_lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
+        return x, enc_lengths
+
     def encode(self, feats: torch.Tensor,
                feat_lengths: Optional[torch.Tensor] = None,
                chunk_size: Optional[int] = None,
@@ -314,14 +330,8 @@ class ASRModel(nn.Module):
         the padding mask, and the conv modules (ConMamba's, the
         Conformer's, the Branchformer's CSGU) convolve chunk by chunk; the
         Transformer encoder takes the mask alone."""
-        x = self.frontend(feats)  # (B, T', F', C)
-        b, t, f, c = x.shape
-        x = dense(x.reshape(b, t, f * c), self.src_proj, self.cfg.dtype)
-        x = dropout(x, self.cfg.dropout, self.training)  # src_drop
-        if feat_lengths is not None:
-            enc_lengths = -(-feat_lengths // self.cfg.downsample)  # ceil div
-        else:
-            enc_lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
+        x, enc_lengths = self.encode_pre(feats, feat_lengths)
+        b, t = x.shape[:2]
         cfg = self.cfg
         if cfg.encoder_module == "conmamba":
             return self.encoder(x, chunk_size), enc_lengths
@@ -345,6 +355,14 @@ class ASRModel(nn.Module):
                 left_context_chunks: Optional[int] = None
                 ) -> Dict[str, torch.Tensor]:
         enc, enc_lengths = self.encode(feats, feat_lengths, chunk_size, left_context_chunks)
+        return self.forward_from_enc(enc, enc_lengths, tokens_bos)
+
+    def forward_from_enc(self, enc: torch.Tensor, enc_lengths: torch.Tensor,
+                         tokens_bos: Optional[torch.Tensor] = None
+                         ) -> Dict[str, torch.Tensor]:
+        """The heads (and the teacher-forced decoder) on an encoder output:
+        the tail of `forward`, on its own where the stack ran outside it
+        (sequence parallelism; JAX `asr.py:539-575`)."""
         ctc_logits = dense(enc.float(), self.ctc_head, torch.float32)
         out = {
             "enc_out": enc,

@@ -47,6 +47,7 @@ from mamba_asr_torch.models.layers import (
     swish,
 )
 from mamba_asr_torch.models.mamba import BiMambaBlock, Cache, MambaBlock, MambaConfig
+from mamba_asr_torch.parallel.mesh import Axis
 
 FFN_RESIDUAL_SCALE = 0.5  # Conmamba.py ConMambaConstants.FFN_RESIDUAL_SCALE
 
@@ -81,11 +82,12 @@ class ConmambaEncoderLayer(nn.Module):
         out = ffn["1"](layer_norm(x, ffn["0"], self.dtype))
         return dropout(out, self.dropout, self.training)
 
-    def forward(self, x: torch.Tensor, chunk_size: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, chunk_size: Optional[int] = None,
+                seq: Optional[Axis] = None) -> torch.Tensor:
         dt = self.dtype
         x = x + FFN_RESIDUAL_SCALE * self._ffn(self.ffn_module1, x)
-        x = self.mamba(layer_norm(x, self.norm1.norm, dt)) + x
-        x = x + self.convolution_module(x, chunk_size=chunk_size)
+        x = self.mamba(layer_norm(x, self.norm1.norm, dt), seq=seq) + x
+        x = x + self.convolution_module(x, chunk_size=chunk_size, seq=seq)
         x = x + FFN_RESIDUAL_SCALE * self._ffn(self.ffn_module2, x)
         return layer_norm(x, self.norm2.norm, dt)
 
@@ -122,12 +124,16 @@ class ConmambaEncoder(nn.Module):
         self.norm = SBLayerNorm(d_model)
         self.dtype = dtype
 
-    def forward(self, src: torch.Tensor, chunk_size: Optional[int] = None) -> torch.Tensor:
+    def forward(self, src: torch.Tensor, chunk_size: Optional[int] = None,
+                seq: Optional[Axis] = None) -> torch.Tensor:
         """chunk_size: dynamic-chunk training's conv chunks (JAX
-        `conmamba.py:195-204`); the Mamba blocks still scan every frame."""
+        `conmamba.py:195-204`); the Mamba blocks still scan every frame.
+        seq: src is this rank's time shard of a sequence sharded over the
+        seq axis (parallel/encoder_parallel.py); every layer's Mamba block
+        and conv module reach the neighbouring shards through it."""
         out = src
         for layer in self.layers:
-            out = layer(out, chunk_size)
+            out = layer(out, chunk_size, seq)
         return layer_norm(out, self.norm.norm, self.dtype)
 
     def init_stream_state(self, batch: int, device=None) -> list:

@@ -266,10 +266,21 @@ class ConvolutionModule(nn.Module):
         return dropout(out, self.dropout, self.training)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                chunk_size: Optional[int] = None) -> torch.Tensor:
+                chunk_size: Optional[int] = None, seq=None) -> torch.Tensor:
+        """seq: the axis the time axis is sharded over (sequence
+        parallelism): the depthwise conv reads a (p, p) halo of the
+        neighbouring shards, (p, 0) when causal (JAX `layers.py:172-183`)."""
         p = self.padding_amount
         out = self._pre(x)
-        if chunk_size is not None:
+        if seq is not None:
+            from mamba_asr_torch.parallel.sequence import sp_halo_exchange
+
+            if chunk_size is not None:
+                raise ValueError("dynamic-chunk convolution cannot take sequence "
+                                 "parallelism: a chunk would straddle two shards")
+            out = self._depthwise(sp_halo_exchange(out, p, 0 if self.causal else p, seq),
+                                  (0, 0))
+        elif chunk_size is not None:
             if self.causal:
                 raise ValueError("dynamic-chunk convolution needs a non-causal conv module")
             dt = self.dtype

@@ -8,7 +8,10 @@ mamba_asr_tpu/models/mamba.py).
 - `BiMambaBlock`: shared in_proj/out_proj, a second set of scan
   parameters (reference suffix `_b`), and
   out = out_proj(0.5 * fwd + 0.5 * flip(bwd(flip(x)))). The flip is over
-  the whole padded length, as in the JAX package.
+  the whole padded length, as in the JAX package. Under sequence
+  parallelism (`forward(x, seq)`, the time axis sharded over the seq
+  axis) both heads run parallel/sequence.py's halo conv and chained scan,
+  the backward one with reverse=True in place of the flips.
 
 Parameter names are the reference's (`conv1d`, `x_proj`, `dt_proj`,
 `A_log`, `D`, and `conv1d_b`, `x_proj_b`, `dt_proj_b`, `A_b_log`, `D_b`).
@@ -45,6 +48,8 @@ import torch.nn as nn
 from mamba_asr_torch.models.layers import dense
 from mamba_asr_torch.ops.causal_conv1d import causal_conv1d, causal_conv1d_step
 from mamba_asr_torch.ops.selective_scan import selective_scan, ssm_step
+from mamba_asr_torch.parallel.mesh import Axis
+from mamba_asr_torch.parallel.sequence import sp_causal_conv1d, sp_selective_scan
 
 Cache = Tuple[torch.Tensor, torch.Tensor]  # (conv_state, ssm_state)
 
@@ -54,7 +59,8 @@ class MambaConfig:
     """Hyperparameters of a Mamba mixer (reference bimamba.py:40-61).
 
     The JAX package's `scan_impl` and `seq_axis` are absent: the port
-    picks the scan by device, and sequence parallelism is a later slice.
+    picks the scan by device, and the blocks take the seq axis of
+    sequence parallelism as a forward argument.
     """
 
     d_state: int = 16
@@ -141,7 +147,21 @@ class _ScanHead:
         return (-torch.exp(self.A_log)).float(), self.D.float(), self.dt_proj.bias.float()
 
     def __call__(self, x: torch.Tensor, z: torch.Tensor,
-                 return_last_state: bool = False):
+                 return_last_state: bool = False, seq: Optional[Axis] = None,
+                 reverse: bool = False):
+        """seq: the time axis is sharded over it (JAX `mamba.py:167-188`):
+        the halo conv and the chained scan of parallel/sequence.py, which
+        with reverse run right to left on inputs in their natural order."""
+        if seq is not None:
+            x = sp_causal_conv1d(x, self.taps, self.conv1d.bias, axis=seq, reverse=reverse)
+            delta, b_mat, c_mat = self._dt_bc(x)
+            a, d, bias = self._a_d_bias()
+            return sp_selective_scan(
+                x, delta, a, b_mat.contiguous(), c_mat.contiguous(), D=d,
+                z=z.contiguous(), delta_bias=bias, delta_softplus=True,
+                return_last_state=return_last_state, axis=seq, reverse=reverse)
+        if reverse:
+            raise ValueError("reverse scans need a seq axis (BiMamba flips the data)")
         x = causal_conv1d(x, self.taps, self.conv1d.bias)
         delta, b_mat, c_mat = self._dt_bc(x)
         a, d, bias = self._a_d_bias()
@@ -213,10 +233,11 @@ class MambaBlock(nn.Module):
         _add_scan_params(self, self.d_inner, cfg.resolved_dt_rank(d_model), cfg, "")
         self.out_proj = nn.Linear(self.d_inner, d_model, bias=cfg.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, L, d_model) -> (B, L, d_model)."""
+    def forward(self, x: torch.Tensor, seq: Optional[Axis] = None) -> torch.Tensor:
+        """x: (B, L, d_model) -> (B, L, d_model); seq: the axis the time
+        axis is sharded over (sequence parallelism), or None."""
         x_in, z = dense(x, self.in_proj, self.dtype).chunk(2, dim=-1)
-        return dense(_head(self, "")(x_in, z), self.out_proj, self.dtype)
+        return dense(_head(self, "")(x_in, z, seq=seq), self.out_proj, self.dtype)
 
     def init_cache(self, batch: int, dtype: torch.dtype = torch.float32,
                    device=None) -> Cache:
@@ -285,11 +306,16 @@ class BiMambaBlock(nn.Module):
         _add_scan_params(self, self.d_inner, dt_rank, cfg, "")
         _add_scan_params(self, self.d_inner, dt_rank, cfg, "_b")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, L, d_model) -> (B, L, d_model)."""
+    def forward(self, x: torch.Tensor, seq: Optional[Axis] = None) -> torch.Tensor:
+        """x: (B, L, d_model) -> (B, L, d_model). With seq (the time axis
+        sharded over it) the backward direction runs through the sp ops'
+        reverse flag instead of flips of the shard (JAX `mamba.py:402-406`)."""
         x_in, z = dense(x, self.in_proj, self.dtype).chunk(2, dim=-1)
-        y_f = _head(self, "")(x_in, z)
-        y_b = _head(self, "_b")(x_in.flip(1), z.flip(1)).flip(1)
+        y_f = _head(self, "")(x_in, z, seq=seq)
+        if seq is not None:
+            y_b = _head(self, "_b")(x_in, z, seq=seq, reverse=True)
+        else:
+            y_b = _head(self, "_b")(x_in.flip(1), z.flip(1)).flip(1)
         return dense(0.5 * y_f + 0.5 * y_b, self.out_proj, self.dtype)
 
     def init_stream_state(self, batch: int, dtype: torch.dtype, device=None) -> Cache:

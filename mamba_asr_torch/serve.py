@@ -34,7 +34,7 @@ import time
 from typing import List, Optional
 
 BUNDLE_ITEM = "ROADMAP Queue 1 item 9 (exported bundles)"
-DATA_PARALLEL_ITEM = "ROADMAP Queue 1 item 6 (multi-process and multi-card)"
+DATA_PARALLEL_ITEM = "ROADMAP Queue 1 item 12 (multi-card serving)"
 
 
 def run_client(addr: str, paths, realtime: bool, chunk_ms: float,

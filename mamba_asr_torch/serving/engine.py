@@ -28,7 +28,7 @@ decoding/rescore.py) or the joint CTC/attention search ("s2s").
 Every public method runs under torch.no_grad and on the engine's device
 (both are per thread in PyTorch, and a server calls the engine from
 several threads). Multi-device serving (JAX's `mesh`) is not ported:
-ROADMAP Queue 1 item 6.
+ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations

@@ -28,15 +28,20 @@ _STATE = "state.pt"
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 10):
+    def __init__(self, directory: str, keep: int = 10, create: bool = True):
+        """create: make the directory now (the ranks of a multi-process run
+        but rank 0 only read it; `save` makes it where it is missing)."""
         self.directory = directory
         self.keep = keep
-        os.makedirs(directory, exist_ok=True)
+        if create:
+            os.makedirs(directory, exist_ok=True)
 
     def _entries(self, include_averaged: bool = False) -> List[dict]:
         """The checkpoints' metadata, by name; averaged ones left out
         unless asked for."""
         out = []
+        if not os.path.isdir(self.directory):
+            return out
         for name in sorted(os.listdir(self.directory)):
             meta_path = os.path.join(self.directory, name, _META)
             if os.path.isfile(meta_path):

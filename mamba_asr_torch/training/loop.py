@@ -28,6 +28,15 @@ only, at lm_weight and temperature_lm; the validation search has none
 (JAX `loop.py:121-127, 189`). Its bf16 copy is made once per Trainer:
 the LM does not change during training. `train.use_wandb` raises (no
 network on the card machine).
+
+Multi-process (`mesh`, one process per rank; cli.py `--distributed`):
+the training loader is process-sharded by the caller, the evaluation
+loaders are not, and every rank validates and tests on them (as every
+JAX process does), so each holds the same metrics. Rank 0 alone writes
+train_log.txt, steps.jsonl, the checkpoints (it alone creates save/) and
+wer_<split>.txt, with a barrier after each write; a checkpoint holds
+every rank's generator states (`rng`, by world rank), and each rank
+resumes from the same checkpoint with its own.
 """
 
 from __future__ import annotations
@@ -47,6 +56,9 @@ from mamba_asr_torch.decoding.ctc_greedy import ctc_greedy_decode, tokens_to_lis
 from mamba_asr_torch.decoding.s2s_beam import S2SBeamSearcher, strip_special
 from mamba_asr_torch.models.asr import ASRModel
 from mamba_asr_torch.models.lm import TransformerLM, cast_lm_weights
+from mamba_asr_torch.parallel.collectives import gather_bytes
+from mamba_asr_torch.parallel.distributed import barrier
+from mamba_asr_torch.parallel.mesh import Mesh
 from mamba_asr_torch.serving.recognizer import eval_step
 from mamba_asr_torch.training.checkpoint import CheckpointManager
 from mamba_asr_torch.training.logger import FileTrainLogger, JsonlLogger
@@ -68,20 +80,23 @@ class Trainer:
     device: None means the CUDA card (raises without one), "cpu" the plain
     versions; state_dict: initial weights in the port's names (None:
     seeded from cfg.seed, as the JAX package seeds its init); lm: the
-    TransformerLM the test search fuses (on the same device), or None.
+    TransformerLM the test search fuses (on the same device), or None;
+    mesh: this rank's place in a multi-process run, or None.
     """
 
     def __init__(self, cfg: ExperimentConfig, tokenizer,
                  device: Optional[Union[str, torch.device]] = None,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                 lm: Optional[TransformerLM] = None):
+                 lm: Optional[TransformerLM] = None, mesh: Optional[Mesh] = None):
         if cfg.train.use_wandb:
             raise NotImplementedError("train.use_wandb: the wandb logger is not ported")
         self.cfg = cfg
         self.tokenizer = tokenizer
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main_process()
         self.step = StepTrainer(cfg.model, cfg.frontend,
                                 dataclasses.replace(cfg.train, seed=cfg.seed),
-                                cfg.specaug, state_dict=state_dict, device=device)
+                                cfg.specaug, state_dict=state_dict, device=device, mesh=mesh)
         self.device = self.step.device
         self.is_s2s = cfg.model.num_decoder_layers > 0
         self.lm = None if lm is None else cast_lm_weights(lm)
@@ -89,7 +104,7 @@ class Trainer:
         self.step_keys = STEP_KEYS + (S2S_KEYS if self.is_s2s else ())
         out_dir = cfg.output_folder
         self.ckpt = CheckpointManager(os.path.join(out_dir, "save"),
-                                      keep=cfg.train.keep_checkpoints)
+                                      keep=cfg.train.keep_checkpoints, create=self.is_main)
         self.logger = FileTrainLogger(os.path.join(out_dir, "train_log.txt"))
         self.steps_logger = JsonlLogger(os.path.join(out_dir, "steps.jsonl"))
         self.start_epoch = 1
@@ -112,24 +127,40 @@ class Trainer:
         mean, m2), the micro-step count and the dropout and SpecAugment
         random state (JAX derives each step's key from the seed, the epoch
         and the step, so its resume is exact; restoring the generators
-        makes the port's so)."""
+        makes the port's so): `rng` lists every rank's, by world rank.
+        Collective in a multi-process run: every rank calls it."""
         tr = self.step
         return {"model": {k: v.detach().cpu() for k, v in tr.model.state_dict().items()},
                 "optimizer": tr.optimizer.state_dict(),
                 "normalizer": {k: v.cpu() for k, v in tr.normalizer._asdict().items()},
-                "step": self.micro_steps, "rng": tr.rng_state()}
+                "step": self.micro_steps, "rng": self._all_rng_states()}
+
+    def _all_rng_states(self) -> List[Dict[str, torch.Tensor]]:
+        mine = self.step.rng_state()
+        if self.mesh is None:
+            return [mine]
+        by_key = {k: gather_bytes(v, self.mesh.world, self.device) for k, v in mine.items()}
+        return [{k: rows[r] for k, rows in by_key.items()} for r in range(self.mesh.world.size)]
 
     def load_state(self, state: dict) -> None:
+        """Restore a checkpoint; this rank's generators from its own entry
+        of `rng` (a run resumed on more ranks than it saved seeds the
+        others' anew). A checkpoint of a single-process port before
+        multi-process training holds one rank's generators as a dict."""
         tr = self.step
         tr.model.load_state_dict(state["model"], strict=True)
         tr.optimizer.load_state_dict(state["optimizer"])
         tr.normalizer = NormalizerState(**{k: v.to(self.device)
                                            for k, v in state["normalizer"].items()})
-        tr.set_rng_state(state["rng"])
+        rank = 0 if self.mesh is None else self.mesh.world.index
+        rngs = [state["rng"]] if isinstance(state["rng"], dict) else state["rng"]
+        if rank < len(rngs):
+            tr.set_rng_state(rngs[rank])
 
     def init_state(self) -> None:
         """Resume from the training checkpoint of the highest epoch, if any
         (averaged checkpoints carry no epoch and are never candidates)."""
+        barrier("resume")
         candidates = [e for e in self.ckpt._entries() if "epoch" in e.get("metrics", {})]
         if candidates:
             meta = max(candidates, key=lambda e: e["metrics"]["epoch"])
@@ -152,7 +183,7 @@ class Trainer:
                                      update_norm=update_norm)
             losses.append(m["loss"])
             samples += int(batch["wav_lens"][batch["weight"] > 0].sum())
-            if i % 50 == 0:
+            if i % 50 == 0 and self.is_main:
                 self.steps_logger.log(epoch=epoch, step=self.micro_steps,
                                       loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
         losses = torch.stack(losses).tolist() if losses else []
@@ -172,12 +203,15 @@ class Trainer:
             valid_stats = self.validate(valid_loader, epoch) if valid_loader is not None else {}
             meta = {"epoch": epoch, "steps": self.micro_steps,
                     "epoch_sec": round(time.time() - t0, 1)}
-            self.logger.log_stats(meta, train_stats=train_stats, valid_stats=valid_stats)
+            if self.is_main:
+                self.logger.log_stats(meta, train_stats=train_stats, valid_stats=valid_stats)
             if valid_stats:
                 rank = "max_keys" if self.is_s2s else "min_keys"
-                self.ckpt.save({**self.state(), "epoch": epoch},
-                               metrics={**valid_stats, "epoch": epoch},
-                               **{rank: (self.metric_key,)})
+                state = {**self.state(), "epoch": epoch}
+                if self.is_main:
+                    self.ckpt.save(state, metrics={**valid_stats, "epoch": epoch},
+                                   **{rank: (self.metric_key,)})
+                barrier("checkpoint")
             self.epoch_log.append({
                 **meta, "epoch_sec": time.time() - t0, "train_sec": train_sec,
                 "train_audio_s": audio_s, "train": train_stats, "valid": valid_stats})
@@ -299,13 +333,15 @@ class Trainer:
                                             for k, v in best["normalizer"].items()})
         wer, cer = self._decode_set(model, normalizer, loader, decoder)
         summary = {"WER": wer.summarize()["WER"], "CER": cer.summarize()["WER"]}
-        if use_averaged:
-            self.ckpt.save(state, metrics={**summary, "averaged": True},
-                           name=f"averaged_{test_name}")
-        out_path = os.path.join(self.cfg.output_folder, f"wer_{test_name}.txt")
-        os.makedirs(os.path.dirname(out_path), exist_ok=True)
-        with open(out_path, "w", encoding="utf-8") as f:
-            wer.write_stats(f)
-        self.logger.log_stats({"test_set": test_name}, test_stats=summary)
+        if self.is_main:
+            if use_averaged:
+                self.ckpt.save(state, metrics={**summary, "averaged": True},
+                               name=f"averaged_{test_name}")
+            out_path = os.path.join(self.cfg.output_folder, f"wer_{test_name}.txt")
+            os.makedirs(os.path.dirname(out_path), exist_ok=True)
+            with open(out_path, "w", encoding="utf-8") as f:
+                wer.write_stats(f)
+            self.logger.log_stats({"test_set": test_name}, test_stats=summary)
+        barrier("evaluate")
         self.test_stats[test_name] = summary
         return summary

@@ -1,6 +1,6 @@
 """The training step (port of mamba_asr_tpu/training/trainer.py:
-make_train_step and init_train_state, without the sequence- and
-pipeline-parallel branches).
+make_train_step and init_train_state, with its sequence-parallel branch
+and without the pipeline one).
 
     fbank -> masked normaliser update -> normalise -> SpecAugment (time
     warp, time and frequency drops) -> model in train mode (dropout) ->
@@ -16,11 +16,37 @@ default generator for the device, SpecAugment (the warp's draws too) from
 the Trainer's own `torch.Generator`; both are seeded from
 `TrainConfig.seed`. They are not the JAX package's bits. The epoch loop
 (`training/loop.py`) drives it.
+
+Given a mesh (`parallel/mesh.py`, one process per rank), a micro-step
+takes this rank's rows of the global batch:
+- the ranks' batch statistics are merged over the data axis in rank
+  order before they enter the normaliser (JAX updates it from the whole
+  batch; `update_normalizer` is a Chan merge, so this is the same up to
+  rounding);
+- the batchmean losses divide by the weight summed over the data axis,
+  not by each rank's own (ranks of a partial batch hold unequal real
+  rows, where an average of the ranks' means would be wrong);
+- with a seq axis of n > 1 ranks (`parallel.sequence_parallel`), the
+  ConMamba stack runs on this rank's time shard (`encode_pre` ->
+  `parallel/encoder_parallel.py:sp_encoder_apply` -> `forward_from_enc`)
+  and each rank's copy of the loss is scaled by 1 / n, since every
+  gather's backward sums over the ranks;
+- after the backward the gradients are summed over the world, before the
+  global norm and the clip; the returned losses are the global ones.
+The port sums with its own flat all-reduce (parallel/collectives.py), not
+DDP: the loss is normalised by the global weight, so the gradients must
+be summed, not averaged; the sp forward is split around a module call DDP
+would wrap; and one world-size-1 step is bit-equal to the plain one.
+Random draws: the dropout and SpecAugment generators are seeded from the
+data rank (rank 0's are a single process's), so the ranks of a seq line,
+which hold the same rows, draw the same masks outside the stack; inside
+it dropout draws from a stream that also folds in the seq rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -29,10 +55,19 @@ from mamba_asr_torch.data.augment import spec_augment
 from mamba_asr_torch.models.asr import ASRConfig, ASRModel, init_params_
 from mamba_asr_torch.ops.ctc import ctc_loss
 from mamba_asr_torch.ops.fbank import log_mel_spectrogram
+from mamba_asr_torch.parallel import collectives
+from mamba_asr_torch.parallel.encoder_parallel import (
+    DeviceRngStream,
+    check_sequence_parallel,
+    sp_encoder_apply,
+)
+from mamba_asr_torch.parallel.mesh import Mesh
 from mamba_asr_torch.training.normalizer import (
     NormalizerState,
     apply_normalizer,
+    batch_stats,
     init_normalizer,
+    merge_stats,
     update_normalizer,
 )
 from mamba_asr_torch.training.losses import joint_ctc_attention_loss, kldiv_loss
@@ -93,6 +128,16 @@ class TrainConfig:
 REPLICATED_KEYS = ("tokens", "token_lens", "tokens_bos", "tokens_eos", "eos_lens", "weight")
 
 
+def fold_seed(seed: int, *keys) -> int:
+    """A seed for the coordinates `keys` (e.g. the data rank): `seed`
+    itself where every key is 0, so rank 0 draws what one process draws;
+    otherwise a hash of (seed, keys)."""
+    if not any(keys):
+        return seed
+    digest = hashlib.sha256(repr((seed,) + tuple(keys)).encode()).digest()
+    return int.from_bytes(digest[:8], "little") >> 1
+
+
 class Trainer:
     """One ConMamba model (CTC, or CTC + Transformer decoder) in training
     on its device.
@@ -103,7 +148,8 @@ class Trainer:
     for seeded weights (the JAX package's init rules, from train.seed).
     normalizer: (count, mean, m2) to start from, or None for empty
     statistics. device: None means the CUDA card (raises without one);
-    "cpu" runs the plain versions.
+    "cpu" runs the plain versions. mesh: this rank's place in a
+    multi-process run (see the module doc), or None for one process.
     """
 
     def __init__(
@@ -115,9 +161,15 @@ class Trainer:
         state_dict: Optional[Mapping[str, torch.Tensor]] = None,
         normalizer: Optional[Sequence] = None,
         device: Optional[Union[str, torch.device]] = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.device = resolve_device(device)
-        torch.manual_seed(train.seed)  # dropout masks
+        self.mesh = mesh
+        self.n_seq = 1 if mesh is None else mesh.seq.size
+        if self.n_seq > 1:
+            check_sequence_parallel(cfg.encoder_module, train.dynchunk_size)
+        d, s = (0, 0) if mesh is None else (mesh.data.index, mesh.seq.index)
+        torch.manual_seed(fold_seed(train.seed, d))  # dropout masks
         model = ASRModel(cfg)
         if state_dict is None:
             init_params_(model, torch.Generator().manual_seed(train.seed))
@@ -129,7 +181,11 @@ class Trainer:
             self.normalizer = init_normalizer(frontend.n_mels, self.device)
         else:
             self.normalizer = NormalizerState.from_arrays(*normalizer, device=self.device)
-        self.generator = torch.Generator(device=self.device).manual_seed(train.seed + 1)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            fold_seed(train.seed + 1, d))
+        # Dropout inside the sharded stack: its own stream per (data, seq) rank.
+        self.stack_rng = (DeviceRngStream(self.device, fold_seed(train.seed + 2, d, s + 1))
+                          if self.n_seq > 1 else None)
         self.frontend, self.specaug, self.train = frontend, specaug, train
 
     def rng_state(self) -> Dict[str, torch.Tensor]:
@@ -141,7 +197,10 @@ class Trainer:
             dropout = torch.cuda.get_rng_state(self.device)
         else:
             dropout = torch.get_rng_state()
-        return {"dropout": dropout, "specaug": self.generator.get_state()}
+        out = {"dropout": dropout, "specaug": self.generator.get_state()}
+        if self.stack_rng is not None:
+            out["stack"] = self.stack_rng.state.clone()
+        return out
 
     def set_rng_state(self, state: Mapping[str, torch.Tensor]) -> None:
         if self.device.type == "cuda":
@@ -149,6 +208,8 @@ class Trainer:
         else:
             torch.set_rng_state(state["dropout"])
         self.generator.set_state(state["specaug"])
+        if self.stack_rng is not None and "stack" in state:
+            self.stack_rng.state = state["stack"].clone()
 
     def _features(self, wav: torch.Tensor, wav_lens: torch.Tensor):
         fe = self.frontend
@@ -194,7 +255,7 @@ class Trainer:
         loss, loss_ctc (and loss_att with a decoder), grad_norm (the global
         norm of this micro-step's gradients) and updated (whether the
         parameters changed)."""
-        dev = self.device
+        dev, mesh = self.device, self.mesh
         b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         weight = b["weight"].float()
         with torch.no_grad():
@@ -203,7 +264,11 @@ class Trainer:
                 t = feats.shape[1]
                 fmask = ((torch.arange(t, device=dev)[None, :] < flens[:, None])
                          & (weight[:, None] > 0))
-                self.normalizer = update_normalizer(self.normalizer, feats, fmask)
+                if mesh is None:
+                    self.normalizer = update_normalizer(self.normalizer, feats, fmask)
+                else:
+                    self.normalizer = merge_stats(self.normalizer,
+                                                  self._global_stats(feats, fmask))
             feats = apply_normalizer(self.normalizer, feats)
             if self.specaug.enabled:
                 feats, flens, b = self._augment(feats, flens, b)
@@ -211,25 +276,65 @@ class Trainer:
         self.model.train()
         use_decoder = self.model.has_decoder
         tc = self.train
-        out = self.model(feats, flens, b["tokens_bos"] if use_decoder else None,
-                         chunk_size=tc.dynchunk_size,
-                         left_context_chunks=tc.dynchunk_left_context)
+        tokens_bos = b["tokens_bos"] if use_decoder else None
+        if self.n_seq > 1:
+            x, enc_lengths = self.model.encode_pre(feats, flens)
+            with self.stack_rng.swapped():
+                enc = sp_encoder_apply(self.model.encoder, x, mesh.seq)
+            out = self.model.forward_from_enc(enc, enc_lengths, tokens_bos)
+        else:
+            out = self.model(feats, flens, tokens_bos, chunk_size=tc.dynchunk_size,
+                             left_context_chunks=tc.dynchunk_left_context)
+        if mesh is None:
+            reduction, denom = "batchmean", None
+        else:  # this rank's share of the global batchmean
+            reduction = "sum"
+            denom = torch.clamp_min(collectives.reduce_(weight.sum(), mesh.data), 1.0)
         loss_ctc = ctc_loss(out["ctc_log_probs"], b["tokens"], out["enc_lengths"],
-                            b["token_lens"], reduction="batchmean", weight=weight)
+                            b["token_lens"], reduction=reduction, weight=weight)
+        if denom is not None:
+            loss_ctc = loss_ctc / denom
         metrics = {"loss_ctc": loss_ctc}
         if use_decoder:
             loss_att = kldiv_loss(out["seq_log_probs"], b["tokens_eos"], b["eos_lens"],
                                   label_smoothing=self.train.label_smoothing,
-                                  reduction="batchmean", weight=weight)
+                                  reduction=reduction, weight=weight)
+            if denom is not None:
+                loss_att = loss_att / denom.to(loss_att)
             loss = joint_ctc_attention_loss(loss_ctc, loss_att, self.train.ctc_weight)
             metrics["loss_att"] = loss_att
         else:
             loss = loss_ctc
+        metrics = {"loss": loss, **metrics}
         self.model.zero_grad(set_to_none=True)
-        loss.backward()
+        (loss / self.n_seq if self.n_seq > 1 else loss).backward()
+        if mesh is not None:
+            collectives.reduce_grads_(self.optimizer.params, mesh.world)
+            metrics = self._global_metrics(metrics)
         grad_norm = global_norm([p.grad for p in self.optimizer.params
                                  if p.grad is not None]).float()
         updated = self.optimizer.step()
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return {"loss": loss.detach(), **metrics, "grad_norm": grad_norm,
-                "updated": torch.tensor(updated)}
+        return {**metrics, "grad_norm": grad_norm, "updated": torch.tensor(updated)}
+
+    def _global_stats(self, feats: torch.Tensor, fmask: torch.Tensor) -> NormalizerState:
+        """The batch statistics of the data axis's ranks, merged in rank
+        order (rank 0's as they are)."""
+        mine = batch_stats(feats, fmask)
+        rows = collectives.all_gather(torch.cat([mine.count[None], mine.mean, mine.m2]),
+                                      self.mesh.data)
+        f = mine.mean.shape[0]
+        stats = None
+        for row in rows:
+            part = NormalizerState(row[0], row[1:1 + f], row[1 + f:])
+            stats = part if stats is None else merge_stats(stats, part)
+        return stats
+
+    def _global_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each rank's losses summed over the world: the global batch's
+        (each rank of a seq line holds the whole loss, hence the 1 / n)."""
+        vals = torch.stack([v.detach().float() for v in metrics.values()])
+        if self.n_seq > 1:
+            vals = vals / self.n_seq
+        vals = collectives.reduce_(vals, self.mesh.world)
+        return dict(zip(metrics, vals.unbind()))

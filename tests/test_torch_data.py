@@ -246,12 +246,19 @@ def test_bucketed_loader_matches_jax(corpus, tmp_path, perturb):
 
 
 def test_loader_refuses_process_sharding(corpus, tmp_path):
+    """Process sharding is ported (tests/test_torch_parallel.py); what the
+    loader still refuses: an index outside the process count, and a batch
+    that does not split over the processes."""
     out = str(tmp_path / "m")
     librispeech.prepare_librispeech(corpus, out, tr_splits=["dev-clean"])
     ds = dataset.ASRDataset.from_csv(os.path.join(out, "dev-clean.csv"),
                                      tokenizer.CharTokenizer(list("ABC")))
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        dataset.BucketedLoader(ds, process_index=0, process_count=2)
+    with pytest.raises(ValueError, match="process_index"):
+        dataset.BucketedLoader(ds, process_index=2, process_count=2)
+    loader3 = dataset.BucketedLoader(ds, batch_divisor=3, num_workers=1, process_index=0,
+                                     process_count=2)
+    with pytest.raises(ValueError, match="not divisible"):
+        list(loader3.epoch(0))
 
 
 def test_prefetch_iterator_keeps_order_and_raises():

@@ -120,7 +120,7 @@ def test_serve_refuses_what_is_not_ported():
     yaml = str(REPO / "hparams" / "CTC" / "conmamba_small.yaml")
     with pytest.raises(SystemExit, match="Queue 1 item 9"):
         serve.main([yaml, "--bundle", "b"])
-    with pytest.raises(SystemExit, match="Queue 1 item 6"):
+    with pytest.raises(SystemExit, match="Queue 1 item 12"):
         serve.main([yaml, "--data_parallel", "2", "--device", "cpu"])
 
 

@@ -255,19 +255,29 @@ def test_cli_matches_jax_end_to_end_and_resumes(corpus, tmp_path, monkeypatch, c
     assert {e["name"] for e in again.ckpt._entries(include_averaged=True)} >= {"averaged_test-clean"}
 
 
-def test_resumed_run_draws_what_an_uninterrupted_one_draws(corpus, tmp_path):
+@pytest.mark.parametrize("rng_format", ["per_rank", "single_dict"])
+def test_resumed_run_draws_what_an_uninterrupted_one_draws(corpus, tmp_path, rng_format):
     """Dropout 0.1 and SpecAugment on, speed perturbation on: 2 epochs and
     then a resumed third give the third epoch's losses and the final
     parameters of 3 epochs in one run, exactly (the same float32 ops on
     the same CPU). Without the checkpoint's random state the resumed run
-    would redraw epoch 1's dropout and SpecAugment masks."""
+    would redraw epoch 1's dropout and SpecAugment masks. single_dict
+    rewrites the checkpoints' `rng` to the older single-process form (one
+    dict of generator states, not a list by rank) before resuming."""
     def run(out, epochs):
         args = _cli_args(corpus, str(tmp_path / out), epochs)
         return run_training(args + ["--data.test_splits", "[]", "--model.dropout", "0.1",
                                     "--specaug.enabled", "true", "--device", "cpu"])
 
     whole = run("whole", 3)
-    run("parts", 2)
+    parts = run("parts", 2)
+    if rng_format == "single_dict":
+        for entry in parts.ckpt._entries():
+            path = os.path.join(parts.ckpt.directory, entry["name"], "state.pt")
+            state = torch.load(path, weights_only=True)
+            assert isinstance(state["rng"], list) and len(state["rng"]) == 1
+            state["rng"] = state["rng"][0]
+            torch.save(state, path)
     resumed = run("parts", 3)
     assert resumed.start_epoch == 3 and resumed.micro_steps == whole.micro_steps
     n = len(resumed.loss_history)
@@ -278,8 +288,13 @@ def test_resumed_run_draws_what_an_uninterrupted_one_draws(corpus, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        run_training([CONFIG, "--distributed"])
+    # Multi-process training is ported (tests/test_torch_distributed.py):
+    # --distributed now refuses only a run that names no rendezvous, and
+    # pipeline parallelism is refused naming its ROADMAP item.
+    with pytest.raises(RuntimeError, match="MASR_COORDINATOR"):
+        run_training([CONFIG, "--distributed", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 10"):
+        run_training([CONFIG, "--device", "cpu", "--parallel.pipeline_stages", "2"])
     s2s = str(REPO / "hparams" / "S2S" / "conmamba_small.yaml")
     with pytest.raises(NotImplementedError, match="slice 3b item 5"):
         loop.Trainer(load_config(s2s, {"data.output_folder": str(tmp_path),
