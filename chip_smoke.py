@@ -32,7 +32,8 @@ exits non-zero; it prints no result without a CUDA card):
              N(0, 0.1) noise) through Recognizer(batch=32): RTFx as the
              median of 5 blocks
   profile    one B32 x 30 s forward under torch.profiler: device time by
-             kernel
+             kernel; one more through utils.profile_trace, whose Chrome
+             trace must parse and hold K1's kernel once per launch
   kernel_bwd the selective-scan adjoint (K2) against its plain version at
              the training shape (B32 x 25 s -> L626, D288, N16, bf16) and
              on a ragged fp32 case with h0 and d(h_last); K1's training
@@ -186,6 +187,15 @@ exits non-zero; it prints no result without a CUDA card):
              on B32 x 25 s, 60 to 80 random targets: 8 checked micro-steps
              (K1 train and K2 32 each), audio-s per s (median of 3 blocks),
              peak memory, one profiled micro-step
+  conmamba_large_parity, conformer_decoder_parity  (after
+             s2s_train_to_floor, while the Mamba floor run goes on: they
+             read no time) one fp32 micro-step of each ConMamba-Large YAML
+             (B2 x 4 s), card against CPU as train_parity holds it; the
+             Conformer decoder in fp32 (TF32 and cuDNN off), card against
+             CPU: the teacher-forced seq log-probs (B2 x 4 s), the joint
+             search at beam 4 on B2 x 2 s (eos banned for the first half)
+             without and with a seeded full-width LM (tokens equal; K4
+             only for the LM), one S2S micro-step held alike
   mamba_dec_recipe  as s2s_recipe, on hparams/S2S/conmambamamba_small.yaml
              for MAMBA_RECIPE_EPOCHS epochs (K4 must not launch)
   mamba_dec_train_to_floor  (in a process of its own beside
@@ -219,7 +229,12 @@ exits non-zero; it prints no result without a CUDA card):
   lm_floor   the S2S floor run (Transformer decoder) again through the CLI
              with --decode.lm_path <that lm.pt>: it resumes, only tests, and
              fuses the LM; test WER <= 2.0 % beside the WER without it
-  conformer_kernels  (after lm_recognize) K4 at the Conformer-Large
+  conformer_decoder  (after lm_recognize) S2S/conmamba_small.yaml with
+             model.decoder_module=conformer, seeded: bf16 searches with
+             the YAML's decode stanza at B8 x 30 s (the prefix re-score),
+             a first (cold) and a second search in turn: S2S RTFx of each,
+             K1 24, K3 per step, K4 0
+  conformer_kernels  (after conformer_decoder) K4 at the Conformer-Large
              decoder's heads (hparams/S2S/conformer_large.yaml: H 8, dh 64,
              S 320, N 528, bf16 and fp32 at pos 255 on a random and a
              beam-shaped table; bf16 at pos 1,023 on both) against its
@@ -245,7 +260,13 @@ exits non-zero; it prints no result without a CUDA card):
              micro-steps with the YAML's settings (bf16, dropout 0.1,
              SpecAugment, accumulation 4) at B32 x 25 s: finite losses,
              updates on every 4th only, audio-s per s, peak memory
-  streaming  (after conformer_recognize) K1 at the streaming shapes (B1
+  conmamba_large  (after mamba_dec_train_to_floor) CTC/conmamba_large,
+             S2S/conmamba_large and S2S/conmambamamba_large, seeded: one
+             bf16 recognise each as one timed block (CTC: LARGE_CTC_CALLS
+             calls at B32 x 30 s after one warm-up call; S2S: a first (cold)
+             and a second search at B8 x 30 s, the YAML's decode stanza,
+             each timed), RTFx, launches and peak memory
+  streaming  (after conformer_train) K1 at the streaming shapes (B1
              and B4, L 1, 2, 3, 16, D288 N16, bf16 and fp32, h0 in, h_last
              out) against its plain version, timed at B1 L16; a causal
              ConMamba-Small (fp32) streamed at 3,000, 2,999 and 2,997
@@ -281,7 +302,10 @@ exits non-zero; it prints no result without a CUDA card):
              to the trainer's CTC-beam test pass, --timestamps word times,
              --streaming transcripts; --s2s on the S2S floor run: tokens
              equal to its test pass; `python -m mamba_asr_torch.evaluate`
-             reproduces the CTC floor's test WER
+             reproduces the CTC floor's test WER; `python -m
+             mamba_asr_torch.export_torch` of each floor run's save dir,
+             then recognize --torch_ckpt --torch_normalizer on the export:
+             the same lines as the test pass
 
 Each phase also prints its wall seconds (the Mamba floor run's overlap
 the S2S floor run's; the script's wall seconds follow the phases). Then
@@ -291,6 +315,7 @@ the kernels line, the card's name and power limit, and last
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -446,6 +471,15 @@ DIST_RECIPE_RTOL = 1e-4
 CONFORMER_TRAIN_STEPS = 8
 # The Mamba floor run's timeout in its process beside the S2S floor run.
 FLOOR_BESIDE_TIMEOUT_S = 600
+# The Conformer decoder (no YAML sets it).
+CONFORMER_DECODER = {"model.decoder_module": "conformer"}
+PARITY_BEAM = 4  # conformer_decoder_parity's searches, card against CPU
+# ... on a 2 s batch with eos banned for the first half of its 51 steps: the
+# seeded decoders would otherwise end their best hypotheses at once.
+PARITY_MIN_DECODE_RATIO = 0.5
+CONMAMBA_LARGE = ("hparams/CTC/conmamba_large.yaml", "hparams/S2S/conmamba_large.yaml",
+                  "hparams/S2S/conmambamamba_large.yaml")
+LARGE_CTC_CALLS = 10  # the CTC Large YAML's one timed block
 
 
 def scans_per_step(cfg) -> int:
@@ -814,11 +848,36 @@ def device_profile(fn, top: int, named=()):
 
 
 def phase_profile(rec32, batch):
+    """One B32 x 30 s forward under device_profile, then one more through
+    the public hook `utils.profile_trace`: its Chrome trace parses and
+    holds K1's kernel once per launch of that forward."""
+    from mamba_asr_torch.kernels import selective_scan as kernel
+    from mamba_asr_torch.utils import profile_trace
+    from mamba_asr_torch.utils.profiling import TRACE_FILE
+
     wav = torch.from_numpy(np.stack(batch))
     lens = torch.full((32,), 480000, dtype=torch.int32)
     wall_ms, total_ms, top = device_profile(lambda: rec32.eval_step(wav, lens), 12)
+    logdir = tempfile.mkdtemp(prefix="profile_trace_")
+    try:
+        kernel.LAUNCHES = 0
+        with profile_trace(logdir):
+            rec32.eval_step(wav, lens)
+        launches = kernel.LAUNCHES
+        path = os.path.join(logdir, TRACE_FILE)
+        trace_mb = os.path.getsize(path) / 1e6
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    k1_events = sum(e.get("cat") == "kernel" and "fwd_kernel" in e.get("name", "")
+                    for e in events)
+    if launches != 2 * rec32.model.cfg.num_encoder_layers or k1_events != launches:
+        raise AssertionError(f"profile_trace: {k1_events} K1 kernel events for {launches} "
+                             "launches")
     emit({"phase": "profile", "wall_ms": wall_ms, "device_kernel_ms": total_ms,
-          "top": top})
+          "top": top, "profile_trace": {"events": len(events), "k1_kernel_events": k1_events,
+                                        "mb": trace_mb}})
 
 
 # "bwd_kernel<V, NS, T>" in a mangled name: variant, states per lane, dtype.
@@ -4300,6 +4359,269 @@ def phase_serving(exp, state, s2s, s2s_state, mam, mam_state, clock_hz, sms):
     return result
 
 
+# -- the Conformer decoder, ConMamba-Large -----------------------------------------
+
+
+def parity_batch(seed, seconds=(4.0, 3.1)):
+    """B2 of noise at `seconds` each, zero-padded (the parity phases' batch)."""
+    n = [int(x * 16000) for x in seconds]
+    wav = np.zeros((2, n[0]), np.float32)
+    wav[0] = noise(seconds[0], seed)
+    wav[1, :n[1]] = noise(seconds[1], seed + 1)
+    return torch.from_numpy(wav), torch.tensor(n)
+
+
+def parity_search(model, out, d, lm=None):
+    """The joint search at PARITY_BEAM with the decode stanza's CTC weight,
+    candidates and temperatures (and LM weight, with `lm`), eos banned for
+    PARITY_MIN_DECODE_RATIO of the frames, over the encoder outputs `out`:
+    ([tokens, lengths, scores] on the CPU, steps, launches {K1, K3, K4})."""
+    from mamba_asr_torch.decoding.s2s_beam import S2SBeamSearcher
+
+    reset, read = s2s_launch_counters()
+    searcher = S2SBeamSearcher(
+        model, beam_size=PARITY_BEAM, ctc_weight=d.ctc_weight_decode,
+        ctc_candidates=d.ctc_candidates, temperature=d.temperature,
+        min_decode_ratio=PARITY_MIN_DECODE_RATIO,
+        lm_weight=d.lm_weight if lm is not None else 0.0,
+        temperature_lm=d.temperature_lm, lm_model=lm)
+    reset()
+    found = [x.cpu() for x in searcher(out["enc_out"], out["enc_lengths"],
+                                       out["ctc_log_probs"])]
+    launches = read()
+    del launches["K2"]
+    return found, searcher.last_steps, launches
+
+
+def same_search(name, got, ref):
+    """Tokens equal and best scores within S2S_PARITY_TOL; the scores' max
+    |d|."""
+    if not torch.equal(got[0], ref[0]):
+        rows = [first_difference(a, b) for a, b in zip(got[0], ref[0])]
+        raise AssertionError(f"{name}: tokens differ (first step per row {rows})")
+    return check_close(f"{name} best scores", got[2], ref[2], S2S_PARITY_TOL, 0.0)
+
+
+def timed_searches(rec, batch):
+    """Two searches in turn of the 30 s requests `batch` through
+    rec.transcribe, the first on a fresh Recognizer: {rtfx_cold, rtfx (the
+    second's), launches per search, steps}. Both must launch alike."""
+    reset, read = s2s_launch_counters()
+    rtfx, launches = [], []
+    for _ in range(2):
+        reset()
+        t0 = time.perf_counter()
+        rec.transcribe(batch)
+        rtfx.append(len(batch) * 30.0 / (time.perf_counter() - t0))
+        launches.append(read())
+        del launches[-1]["K2"]
+    if launches[0] != launches[1]:
+        raise AssertionError(f"two searches of one batch launched {launches}")
+    return {"rtfx_cold": rtfx[0], "rtfx": rtfx[1], "launches_per_search": launches[1],
+            "steps": rec.searcher.last_steps}
+
+
+@torch.no_grad()
+def phase_conformer_decoder(cd, state):
+    """S2S/conmamba_small.yaml with model.decoder_module=conformer (seeded,
+    full width) in bf16 with the YAML's decode stanza: two B8 x 30 s
+    searches in turn (the prefix re-score, the decoder's only path), the
+    S2S RTFx of each and K1 / K3 / K4 per search. Its checks against the
+    CPU are `conformer_decoder_parity`'s."""
+    from mamba_asr_torch.serving.recognizer import Recognizer
+
+    d = cd.decode
+    if (d.s2s_test_beam_size, d.ctc_weight_decode, d.ctc_candidates) != (66, 0.4, 96):
+        raise AssertionError(f"conformer_decoder: not the YAML's decode stanza {d}")
+    rec8 = Recognizer(cd.model, cd.frontend, state, device="cuda", batch=8, decode=d,
+                      search="s2s")
+    timed = timed_searches(rec8, [noise(30.0, 500 + i) for i in range(8)])
+    st = timed["steps"]
+    if timed["launches_per_search"] != {"K1": 2 * cd.model.num_encoder_layers, "K3": st,
+                                        "K4": 0}:
+        raise AssertionError(f"conformer_decoder launches per search {timed}")
+    result = {"phase": "conformer_decoder", "config": S2S_CONFIG,
+              "override": CONFORMER_DECODER, "batch": 8, "seconds_each": 30.0,
+              "beam": d.s2s_test_beam_size, "ctc": [d.ctc_weight_decode, d.ctc_candidates],
+              "compute_dtype": cd.model.compute_dtype, **timed}
+    emit(result)
+    return result
+
+
+@torch.no_grad()
+def phase_conformer_decoder_parity(cd, state):
+    """The Conformer decoder (as `conformer_decoder`) in fp32 (TF32 off,
+    cuDNN off), card against CPU: the teacher-forced seq log-probs of a
+    padded B2 x 4 s batch; the joint search at beam PARITY_BEAM on a B2 x 2 s
+    batch without and with a seeded full-width LM (tokens equal, scores
+    within S2S_PARITY_TOL; K4 only for the LM); one S2S micro-step
+    (dropout 0, SpecAugment off) held as train_parity holds it. No timing
+    is read: it runs while this process waits for the Mamba floor run."""
+    from mamba_asr_torch.kernels import selective_scan as k1
+    from mamba_asr_torch.serving.recognizer import Recognizer, eval_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.enabled = False
+    d, vocab = cd.decode, cd.model.vocab_size
+    cfg32 = dataclasses.replace(cd.model, compute_dtype="float32")
+    recs = {dev: Recognizer(cfg32, cd.frontend, state, device=dev) for dev in ("cuda", "cpu")}
+    wav, lens = parity_batch(51)
+    rng = np.random.default_rng(SEED + 13)
+    bos = torch.from_numpy(rng.integers(3, vocab, (2, 21))).long()
+    bos[:, 0] = 1
+    bos[1, 15:] = 0
+    seq = {dev: eval_step(rec.model, cd.frontend, rec.normalizer, wav, lens, bos)
+           ["seq_log_probs"].cpu() for dev, rec in recs.items()}
+    seq_err = check_close("conformer_decoder_parity seq_log_probs", seq["cuda"], seq["cpu"],
+                          S2S_PARITY_TOL, 0.0)
+
+    lm_cpu = seeded_lm(d, vocab, SEED + 14)
+    lms = {"cpu": lm_cpu, "cuda": copy.deepcopy(lm_cpu).to("cuda")}
+    req, req_lens = parity_batch(53, (2.0, 1.55))
+    search = {}
+    for fused in (False, True):
+        found = {}
+        for dev, rec in recs.items():
+            out = rec.eval_step(req, req_lens)
+            found[dev] = parity_search(rec.model, out, d, lms[dev] if fused else None)
+        got, steps, launches = found["cuda"]
+        want = {"K1": 0, "K3": steps, "K4": d.lm_layers * steps if fused else 0}
+        if launches != want:
+            raise AssertionError(f"conformer_decoder_parity search launches {launches}, "
+                                 f"want {want}")
+        name = "lm" if fused else "no_lm"
+        search[name] = {"score_max_abs_err": same_search(f"conformer_decoder_parity {name}",
+                                                         got, found["cpu"][0]),
+                        "scores": got[2].tolist(), "lengths": got[1].tolist(),
+                        "steps": steps, "launches": launches}
+    del recs, lms, lm_cpu
+
+    with torch.enable_grad():
+        cfg32t, spec = fp32_step_setup(cd)
+        batch = s2s_batch(char_batch(2, 4.0, 20, 3, vocab))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            torch.backends.cudnn.enabled = dev != "cuda"
+            k1.LAUNCHES = k1.BWD_LAUNCHES = 0
+            runs[dev] = dict(zip(("losses", "grads"),
+                                 step_grads(cd, spec, cfg32t, state, batch, dev)[:2]))
+            if dev == "cuda" and (k1.LAUNCHES, k1.BWD_LAUNCHES) != (scans_per_step(cfg32t),) * 2:
+                raise AssertionError(f"conformer_decoder_parity micro-step launched K1, K2 "
+                                     f"{(k1.LAUNCHES, k1.BWD_LAUNCHES)} times")
+    torch.backends.cudnn.enabled = True
+    torch.backends.cudnn.allow_tf32 = True  # back to PyTorch's defaults
+    loss_errs, worst, worst_name = card_vs_cpu("conformer_decoder_parity", runs["cuda"],
+                                               runs["cpu"])
+    losses = {dev: r["losses"] for dev, r in runs.items()}
+    del runs
+
+    result = {"phase": "conformer_decoder_parity", "tol": S2S_PARITY_TOL,
+              "seq_log_probs_max_abs_err": seq_err, "search_beam": PARITY_BEAM, "search": search,
+              "train": {"losses": losses, "loss_rel_errs": loss_errs,
+                        "grad_max_rel_err": worst, "grad_worst_param": worst_name,
+                        "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad": TRAIN_GRAD_TOL}}}
+    emit(result)
+    return result
+
+
+def large_experiments():
+    """The ConMamba-Large YAMLs' configs and seeded weights (CPU)."""
+    from mamba_asr_torch.configs.loader import load_config
+
+    exps = {path: load_config(path) for path in CONMAMBA_LARGE}
+    return exps, {path: seeded_state(exp.model) for path, exp in exps.items()}
+
+
+@torch.no_grad()
+def phase_conmamba_large(exps, states):
+    """The ConMamba-Large YAMLs (CTC/conmamba_large, S2S/conmamba_large,
+    S2S/conmambamamba_large), seeded at full width: one bf16 recognise
+    each on the card as one timed block (CTC: LARGE_CTC_CALLS calls at
+    B32 x 30 s after one warm-up call; S2S: a first and a second search
+    at B8 x 30 s with the YAML's decode stanza, each timed), RTFx,
+    launches and peak memory. Their
+    micro-steps are `conmamba_large_parity`'s."""
+    from mamba_asr_torch.kernels import selective_scan as k1
+    from mamba_asr_torch.serving.recognizer import Recognizer
+
+    result = {"phase": "conmamba_large"}
+    for path in CONMAMBA_LARGE:
+        cfg, exp = exps[path].model, exps[path]
+        torch.cuda.reset_peak_memory_stats()
+        if cfg.num_decoder_layers > 0:
+            d = exp.decode
+            rec = Recognizer(cfg, exp.frontend, states[path], device="cuda", batch=8, decode=d,
+                             search="s2s")
+            entry = timed_searches(rec, [noise(30.0, 600 + i) for i in range(8)])
+            st = entry["steps"]
+            mamba = cfg.decoder_module == "mamba"
+            want = {"K1": 2 * cfg.num_encoder_layers + (cfg.num_decoder_layers if mamba else 0),
+                    "K3": st, "K4": 0 if mamba else cfg.num_decoder_layers * st}
+            if entry["launches_per_search"] != want:
+                raise AssertionError(f"conmamba_large {path}: launches {entry}, want {want}")
+            entry = {"batch": 8, "seconds_each": 30.0, "beam": d.s2s_test_beam_size, **entry}
+        else:
+            rec = Recognizer(cfg, exp.frontend, states[path], device="cuda", batch=32)
+            batch = [noise(30.0, 600 + i) for i in range(32)]
+            rec.transcribe(batch)  # warm-up
+            k1.LAUNCHES = 0
+            t0 = time.perf_counter()
+            for _ in range(LARGE_CTC_CALLS):
+                rec.transcribe(batch)
+            rtfx = 32 * 30.0 * LARGE_CTC_CALLS / (time.perf_counter() - t0)
+            if k1.LAUNCHES != 2 * cfg.num_encoder_layers * LARGE_CTC_CALLS:
+                raise AssertionError(f"conmamba_large {path}: K1 {k1.LAUNCHES}")
+            entry = {"batch": 32, "seconds_each": 30.0, "calls": LARGE_CTC_CALLS, "rtfx": rtfx,
+                     "k1_launches_per_call": k1.LAUNCHES // LARGE_CTC_CALLS}
+        del rec
+        result[yaml_name(path)] = {
+            "d_model": cfg.d_model, "layers": [cfg.num_encoder_layers, cfg.num_decoder_layers],
+            "decoder": cfg.decoder_module if cfg.num_decoder_layers else None,
+            "compute_dtype": cfg.compute_dtype, **entry,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(result)
+    return result
+
+
+def phase_conmamba_large_parity(exps, states):
+    """One fp32 micro-step of each ConMamba-Large YAML (TF32 and cuDNN off,
+    dropout 0, SpecAugment off, B2 x 4 s), card against CPU as
+    train_parity holds it. No timing is read: it runs while this process
+    waits for the Mamba floor run."""
+    from mamba_asr_torch.kernels import selective_scan as k1
+
+    result = {"phase": "conmamba_large_parity",
+              "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad": TRAIN_GRAD_TOL}}
+    for path in CONMAMBA_LARGE:
+        exp = exps[path]
+        cfg32, spec = fp32_step_setup(exp)
+        batch = char_batch(2, 4.0, 20, 3, exp.model.vocab_size)
+        if exp.model.num_decoder_layers > 0:
+            batch = s2s_batch(batch)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            torch.backends.cudnn.enabled = dev != "cuda"
+            k1.LAUNCHES = k1.BWD_LAUNCHES = 0
+            runs[dev] = dict(zip(("losses", "grads"),
+                                 step_grads(exp, spec, cfg32, states[path], batch, dev)[:2]))
+            want = (scans_per_step(cfg32),) * 2
+            if dev == "cuda" and (k1.LAUNCHES, k1.BWD_LAUNCHES) != want:
+                raise AssertionError(f"conmamba_large_parity {path}: K1, K2 "
+                                     f"{(k1.LAUNCHES, k1.BWD_LAUNCHES)}, want {want}")
+        torch.backends.cudnn.enabled = True
+        torch.backends.cudnn.allow_tf32 = True  # back to PyTorch's defaults
+        loss_errs, worst, worst_name = card_vs_cpu(f"conmamba_large_parity {path}",
+                                                   runs["cuda"], runs["cpu"])
+        result[yaml_name(path)] = {
+            "losses": {dev: r["losses"] for dev, r in runs.items()},
+            "loss_rel_errs": loss_errs, "params": len(runs["cpu"]["grads"]),
+            "grad_max_rel_err": worst, "grad_worst_param": worst_name,
+            "launches": {"K1": scans_per_step(cfg32), "K2": scans_per_step(cfg32)}}
+    emit(result)
+    return result
+
+
 def cli_lines(main_fn, argv):
     """stdout lines of an entry point's main(argv), called in this process."""
     import contextlib
@@ -4326,6 +4648,28 @@ def capture_test_pass(trainer, loader, decoder):
     return got
 
 
+def export_round_trip(work, name, config, save, files, overrides, expect):
+    """`python -m mamba_asr_torch.export_torch` (in-process) of a save
+    dir's averaged checkpoints, then `recognize --torch_ckpt
+    --torch_normalizer` on the export: its lines must be `expect`."""
+    from mamba_asr_torch import export_torch, recognize
+
+    out_dir = os.path.join(work, f"export_{name}")
+    t0 = time.perf_counter()
+    wrote = cli_lines(export_torch.main, [config, "--ckpt_dir", save, "--out_dir", out_dir,
+                                          "--device", "cuda", *overrides])
+    export_s = time.perf_counter() - t0
+    lines = cli_lines(recognize.main, [
+        config, *files, "--torch_ckpt", os.path.join(out_dir, "model.ckpt"),
+        "--torch_normalizer", os.path.join(out_dir, "normalizer.ckpt"), "--device", "cuda",
+        *overrides])
+    if lines != expect:
+        raise AssertionError(f"recognize_cli: {name} export --torch_ckpt lines {lines} != "
+                             f"the test pass's {expect}")
+    return {"tokens_equal_test_pass": True, "export_s": export_s, "wrote": wrote[-1],
+            "files": sorted(os.listdir(out_dir))}
+
+
 def phase_recognize_cli(work, corpus, floor_tr, s2s_floor):
     """Recognition's CLIs on the card, in-process, on the floor runs'
     checkpoints and test files: `python -m mamba_asr_torch.recognize
@@ -4335,7 +4679,8 @@ def phase_recognize_cli(work, corpus, floor_tr, s2s_floor):
     allowed), --streaming (transcripts reported beside the greedy ones);
     --s2s on the S2S floor run (tokens equal to its test pass's joint
     search); `python -m mamba_asr_torch.evaluate` on the CTC floor
-    experiment (its test WER)."""
+    experiment (its test WER); each floor run's averaged checkpoints
+    exported (`export_round_trip`) and recognised from the export."""
     from mamba_asr_torch import cli, evaluate, recognize
     from mamba_asr_torch.configs.loader import load_config, parse_overrides
     from mamba_asr_torch.data.librispeech import load_manifest
@@ -4385,6 +4730,9 @@ def phase_recognize_cli(work, corpus, floor_tr, s2s_floor):
             raise AssertionError(f"recognize_cli: word times of {u.path}: {w} "
                                  f"({u.duration} s, '{greedy[u.path]}')")
     streamed = cli_lines(recognize.main, [CONFIG, *paths, *save, "--streaming", *ctc_over])
+    exported = {"ctc": export_round_trip(work, "ctc", CONFIG, os.path.join(out_dir, "save"),
+                                         [*paths, "--beam", "100", "--batch", "8"], ctc_over,
+                                         expect)}
     result["ctc"] = {
         "files": len(paths), "beam_tokens_equal_test_pass": True, "beam_s": beam_s,
         "beam_transcripts": [ln.split("\t")[1] for ln in beam],
@@ -4419,6 +4767,10 @@ def phase_recognize_cli(work, corpus, floor_tr, s2s_floor):
     result["s2s"] = {"files": len(lines), "tokens_equal_test_pass": True, "s": s2s_s,
                      "beam": s2s_cfg.decode.s2s_test_beam_size,
                      "transcripts": [ln.split("\t")[1] for ln in lines]}
+    exported["s2s"] = export_round_trip(
+        work, "s2s", S2S_CONFIG, os.path.join(s2s_cfg.output_folder, "save"),
+        [*[u.path for u in s2s_utts], "--s2s"], s2s_over, expect)
+    result["export"] = exported
 
     t0 = time.perf_counter()
     lines = cli_lines(evaluate.main, [CONFIG, *ctc_over, "--device", "cuda"])
@@ -4486,6 +4838,9 @@ def main() -> int:
         timed(phase_lm_parity, s2s, s2s_state, mam, mam_state)
         lm_search = timed(phase_lm_recognize, s2s, s2s_state, mam, mam_state, work,
                           s2s_search)
+        cd = load_config(S2S_CONFIG, CONFORMER_DECODER)
+        cd_state = seeded_state(cd.model)
+        cdr = timed(phase_conformer_decoder, cd, cd_state)
         conf = {path: load_config(path) for path in CONFORMER_CTC + CONFORMER_S2S}
         ck = timed(phase_conformer_kernels, conf[CONFORMER_S2S[1]].model, clock_hz, sms)
         conf_states = {path: seeded_state(exp.model) for path, exp in conf.items()}
@@ -4510,11 +4865,17 @@ def main() -> int:
                                  timeout=FLOOR_BESIDE_TIMEOUT_S)
         try:
             s2s_floor = timed(phase_s2s_train_to_floor, work, corpus)
+            # While the Mamba floor run goes on, checks that read no time.
+            large_exps, large_states = large_experiments()
+            timed(phase_conmamba_large_parity, large_exps, large_states)
+            cd_parity = timed(phase_conformer_decoder_parity, cd, cd_state)
         except BaseException:
             floor_beside.kill()
             raise
         mam_floor_launches = join_phase(floor_beside, work, "mamba_dec_train_to_floor",
                                         "s2s_train_to_floor")
+        large = timed(phase_conmamba_large, large_exps, large_states)
+        del large_states, cd_state
         mam_recipe_launches = timed(phase_mamba_dec_recipe, work, corpus)
         lm_path = timed(phase_train_lm, work, s2s_floor)
         lm_floor_launches = timed(phase_lm_floor, work, corpus, s2s_floor, lm_path)
@@ -4548,6 +4909,11 @@ def main() -> int:
             row["n_slots"]: row["k1_launches_per_tick"] for row in serving["capacity"]["rows"]},
         **{f"serving_{key}": serving["kernel"][key] for key in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+        "conformer_decoder_launches_per_search":
+            cdr["launches_per_search"]["K1"],
+        "conmamba_large_launches": {
+            name: e["launches_per_search"]["K1"] if "launches_per_search" in e
+            else e["k1_launches_per_call"] for name, e in large.items() if name != "phase"},
     }, {
         "name": "selective_scan_fwd_train", "route": "cuda",
         "source": "mamba_asr_torch/csrc/selective_scan_fwd.cu",
@@ -4597,6 +4963,9 @@ def main() -> int:
             name: e["launches_per_search"]["K3"] for name, e in conf_search["s2s"].items()},
         "serving_final_launches": {name: serving["finals"][name]["launches"]["K3"]
                                    for name in ("s2s", "s2s_mamba_decoder")},
+        "conformer_decoder_launches_per_search": {
+            "beam66_no_lm": cdr["launches_per_search"]["K3"],
+            "beam4_lm": cd_parity["search"]["lm"]["launches"]["K3"]},
     }, {
         "name": "beam_attention", "route": "cuda",
         "source": "mamba_asr_torch/csrc/beam_attention.cu",
@@ -4627,6 +4996,9 @@ def main() -> int:
         "conformer_large_shape_library_ms": ck["library_ms"],
         "conformer_large_shape_beam_table_ms": ck["timing"]["beam"]["kernel_ms"],
         "serving_final_launches": {"s2s": serving["finals"]["s2s"]["launches"]["K4"]},
+        "conformer_decoder_launches_per_search": {
+            "beam66_no_lm": cdr["launches_per_search"]["K4"],
+            "beam4_lm": cd_parity["search"]["lm"]["launches"]["K4"]},
     }] + [{
         "name": f"scan_variants_{part}", "route": "cuda",
         "source": "mamba_asr_torch/csrc/scan_variants.cu",

@@ -29,8 +29,8 @@ kernels) with a barrier after each, and each rank loads its rows of every
 global batch, whose size is a multiple of lcm(data axis, process count).
 
 `restore_asr_state` gives recognition's entry points (recognize.py,
-evaluate.py) their model and normaliser: the averaged checkpoints of an
-experiment, or a reference checkpoint.
+evaluate.py) and export_torch.py their model and normaliser: the
+averaged checkpoints of an experiment, or a reference checkpoint.
 """
 
 from __future__ import annotations
@@ -117,9 +117,11 @@ def restore_asr_state(cfg: ExperimentConfig, ckpt_dir: str = "", torch_ckpt: str
         if os.path.isfile(os.path.join(ckpt_dir, name, "state.msgpack")):
             raise SystemExit(
                 f"{ckpt_dir}/{name} is a flax msgpack checkpoint of the JAX package; the "
-                "port reads torch checkpoints only: export it with "
-                "mamba_asr_tpu.models.torch_export.save_torch_asr (and "
-                "export_normalizer_stats) and pass --torch_ckpt (--torch_normalizer)")
+                "port reads torch checkpoints only: export it with the JAX package's "
+                "scripts/export_torch.py (mamba_asr_tpu.models.torch_export."
+                "save_torch_asr and export_normalizer_stats) and pass --torch_ckpt "
+                "(--torch_normalizer); a save dir of the port exports with python -m "
+                "mamba_asr_torch.export_torch")
     rank = {"max_key": "ACC"} if cfg.model.num_decoder_layers > 0 else {"min_key": "WER"}
     restored = CheckpointManager(ckpt_dir, keep=cfg.train.keep_checkpoints).restore_averaged(
         k=cfg.train.avg_checkpoints, **rank)

@@ -1,8 +1,7 @@
-"""Joint CTC/attention beam search over the Transformer or the Mamba
-decoder, with optional LM shallow fusion (port of
-mamba_asr_tpu/decoding/s2s_beam.py, its path with the cached decoder and
-the ancestor table; SpeechBrain's S2STransformerBeamSearcher with its
-ScorerBuilder).
+"""Joint CTC/attention beam search over the Transformer, the Mamba or the
+Conformer decoder, with optional LM shallow fusion (port of
+mamba_asr_tpu/decoding/s2s_beam.py; SpeechBrain's
+S2STransformerBeamSearcher with its ScorerBuilder).
 
 Each step, for N = B * beam hypotheses:
 
@@ -21,6 +20,13 @@ Each step, for N = B * beam hypotheses:
   when every hypothesis has finished; unfinished ones count the full
   length. With length normalization the final score is divided by the
   length (eos included), and the best hypothesis of each utterance wins.
+- The decoder's kind picks its way (JAX's `use_cache=None`,
+  `s2s_beam.py:120-124`). The Transformer and Mamba decoders step
+  through their decode cache, one position a step. The Conformer decoder
+  has no cache, so each step re-scores the prefix (`s2s_beam.py:298-313`):
+  `model.decode` of tokens[:, :s+1], position s through seq_head. JAX
+  decodes the whole padded buffer; the decoder is causal, so position s
+  reads nothing past it and the prefix alone gives the same logits.
 - The Transformer decoder's and the LM's self-attention K/V are
   append-only buffers read through the ancestor table anc (S, N)
   (`models/attention.py:step_beam`, K4 on the card): row s is reset to
@@ -30,6 +36,9 @@ Each step, for N = B * beam hypotheses:
   (`s2s_beam.py:128-132`). The cache length is s_max + 1 rounded up to
   64, as in the JAX package. The cross K/V are projected once per search;
   the LM's K/V (12 layers of (H, S, N, dh)) are allocated once per search.
+  JAX's A/B switches, `use_cache=False` for the cached decoders and
+  `beam_gather=False` (heads-major caches gathered after each selection),
+  are not ported (ROADMAP, departures).
 - The Mamba decoder's cache is a (conv, ssm) state per Mamba block and
   hypothesis: every layer's cross-Mamba is primed once per search from
   the memory repeated to N rows (K1's h_last form on the card), and
@@ -94,8 +103,8 @@ def cast_decode_weights(model):
 
 @dataclasses.dataclass
 class S2SBeamSearcher:
-    """Beam search over an ASRModel's Transformer or Mamba decoder, with an
-    optional TransformerLM fused at lm_weight."""
+    """Beam search over an ASRModel's Transformer, Mamba or Conformer
+    decoder, with an optional TransformerLM fused at lm_weight."""
 
     model: object               # models.asr.ASRModel with a decoder
     beam_size: int = 10
@@ -115,10 +124,8 @@ class S2SBeamSearcher:
 
     def __post_init__(self):
         cfg = self.model.cfg
-        if cfg.num_decoder_layers <= 0 or cfg.decoder_module not in ("transformer", "mamba"):
-            raise NotImplementedError(
-                "the S2S search runs the Transformer and Mamba decoders; the "
-                "Conformer decoder comes with ROADMAP slice 3b item 5")
+        if cfg.num_decoder_layers <= 0:
+            raise ValueError("the S2S search needs a model with a decoder")
         self.decode_model = cast_decode_weights(self.model)
         self.decode_lm = None if self.lm_model is None else cast_lm_weights(self.lm_model)
         self.last_steps = 0  # steps the last search ran
@@ -137,23 +144,25 @@ class S2SBeamSearcher:
         dev = enc_out.device
         s_max = min(self.max_steps_cap, int(self.max_decode_ratio * t_enc) + 1)
         min_steps = int(self.min_decode_ratio * t_enc)
-        mamba, lm = model.mamba_decoder, self.decode_lm
+        mamba, lm, prefix = model.mamba_decoder, self.decode_lm, model.conformer_decoder
+        transformer = not (mamba or prefix)
+        enc_lens = enc_lens.to(dev)
 
         scorer = state = None
         if self.ctc_weight > 0.0 and ctc_log_probs is not None:
             scorer = CTCPrefixScorer(ctc_log_probs, enc_lens, k, self.blank_id, eos)
             state = scorer.init_state()
         rows = torch.arange(n, dtype=torch.int32, device=dev)
-        anc = lm_cache = None
+        anc = lm_cache = cache = None
         s_cache = -(-(s_max + 1) // ANC_CHUNK) * ANC_CHUNK
-        if lm is not None or not mamba:
+        if lm is not None or transformer:
             anc = rows.repeat(s_cache, 1)  # (S, N): anc[j, n] = row holding position j
         if mamba:
             cache = model.prime_decoder_cache(enc_out.repeat_interleave(k, dim=0),
                                               model.init_decoder_cache(n))
-        else:
+        elif transformer:
             cache = model.prime_decoder_cache(
-                enc_out, model.init_decoder_cache(n, s_cache), enc_lens.to(dev))
+                enc_out, model.init_decoder_cache(n, s_cache), enc_lens)
         if lm is not None:
             lm_cache = lm.init_cache(n, s_cache, dev)
         tokens = torch.zeros(n, s_max + 1, dtype=torch.long, device=dev)
@@ -172,8 +181,12 @@ class S2SBeamSearcher:
         while s < s_max and not bool(finished.all()):
             if anc is not None:
                 anc[s] = rows
-            logits, cache = model.decode_step(tokens[:, s], s, cache,
-                                              None if mamba else anc)
+            if prefix:
+                logits = model.seq_logits(model.decode(tokens[:, :s + 1], enc_out,
+                                                       enc_lens)[:, s])
+            else:
+                logits, cache = model.decode_step(tokens[:, s], s, cache,
+                                                  anc if transformer else None)
             total = torch.log_softmax(logits / self.temperature, dim=-1)
             if lm is not None:
                 lm_logits = lm.step(tokens[:, s], s, lm_cache, anc)

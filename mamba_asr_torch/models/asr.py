@@ -1,11 +1,12 @@
 """Top-level ASR model (port of mamba_asr_tpu/models/asr.py): an encoder
 (`encoder_module`) with the CTC head and, for S2S configs, the
-Transformer or the Mamba decoder (`decoder_module`):
+Transformer, the Mamba or the Conformer decoder (`decoder_module`):
 
     feats -> Conv2d front end -> flatten (B, T', F'*C) -> src_proj ->
     dropout -> encoder -> ctc_head (float32) -> log_softmax
-    tokens_bos -> NormalizedEmbedding + sinusoidal PE -> TransformerDecoder
-           or MambaDecoder -> seq_head (float32) -> log_softmax  (S2S configs)
+    tokens_bos -> NormalizedEmbedding + sinusoidal PE -> TransformerDecoder,
+           MambaDecoder or ConformerDecoder -> seq_head (float32)
+           -> log_softmax  (S2S configs)
 
 The encoders (JAX `asr.py:345-388`): ConMamba (no mask: padded frames
 are scanned, as in JAX), and the Conformer, the Branchformer and the
@@ -24,7 +25,8 @@ which), and in train() mode the decoder's self-attention also masks the
 targets' padding (tokens == 0, `asr.py:419`); eval() has neither. The
 memory's padding mask applies in both. The Mamba decoder masks nothing
 (`asr.py:406`): it scans padded frames and targets, as the JAX package
-does.
+does. The Conformer decoder masks the memory's padding alone, in both
+modes (`asr.py:408-417`).
 
 The module tree is the reference's saved ModuleList, so the state dict
 has the names that `export_asr_params` writes and `params_import`
@@ -32,8 +34,8 @@ produces: `0` the CNN front end, `1` the TransformerASR (its
 `custom_src_module` holds src_proj, `encoder` the encoder stack,
 `custom_tgt_module` the embedding, `decoder` the decoder), then the
 heads: `2` the CTC head without a decoder; `2` the seq head and `3` the
-CTC head with one (`torch_export.py:296-310`). The Conformer decoder
-waits for ROADMAP slice 3b item 5.
+CTC head with one (`torch_export.py:296-310`). The Conformer decoder has
+no reference layout; its names are the port's own (models/conformer.py).
 
 Streaming: `init_streaming_state`, `forward_chunk` (a chunk of the
 streamed front end's output through src_proj and the encoder's chunk),
@@ -43,11 +45,18 @@ them.
 The decode cache dispatches on the decoder: the Transformer's takes an
 s_max and an ancestor table (append-only K/V), the Mamba decoder's
 neither (a (conv, ssm) state per Mamba block, reordered by the search).
+The Conformer decoder has no cache (JAX has none, `conformer.py:289,
+:371`): the search re-scores its prefix through `decode`.
+
+`xavier_reinit_` is the JAX package's `xavier_parity_init`
+(`training/trainer.py:555-588`): the Trainer applies it after
+`init_params_` when the config sets it, never to imported weights.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -56,7 +65,7 @@ import torch.nn.functional as F
 
 from mamba_asr_torch.models.attention import rel_pos_encoding
 from mamba_asr_torch.models.branchformer import BranchformerEncoder
-from mamba_asr_torch.models.conformer import ConformerEncoder
+from mamba_asr_torch.models.conformer import ConformerDecoder, ConformerEncoder
 from mamba_asr_torch.models.conmamba import ConmambaEncoder, MambaDecoder
 from mamba_asr_torch.models.layers import (
     ConvolutionFrontEnd,
@@ -104,14 +113,17 @@ _ACTIVATIONS = {
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 STREAMING_ENCODERS = ("conmamba", "conformer", "branchformer")
+DECODERS = ("transformer", "mamba", "conformer")
 
 
 @dataclasses.dataclass(frozen=True)
 class ASRConfig:
     """Model hyperparameters, a copy of the JAX package's ASRConfig so that
-    every hparams YAML loads. `scan_layers` and `remat_layers` are JAX
-    compile-time devices and change nothing here; `params_import` accepts
-    params of either layout."""
+    every hparams YAML loads. `scan_layers` is a JAX compile-time device
+    and changes nothing here (`params_import` accepts params of either
+    layout). `remat_layers` (recompute the encoder layers' activations in
+    the backward) is not ported yet and does nothing: a model that sets it
+    keeps every activation (ROADMAP Queue 1 item 14)."""
 
     vocab_size: int = 31
     n_mels: int = 80
@@ -225,6 +237,11 @@ class _TransformerASR(nn.Module):
                     cfg.num_decoder_layers, cfg.d_model, cfg.d_ffn,
                     cfg.activation_fn(), cfg.mamba, cfg.dtype, cfg.dropout,
                 )
+            elif cfg.decoder_module == "conformer":
+                self.decoder = ConformerDecoder(
+                    cfg.num_decoder_layers, cfg.d_model, cfg.d_ffn, cfg.nhead,
+                    cfg.kernel_size, cfg.activation_fn(), cfg.bias, cfg.dtype, cfg.dropout,
+                )
             else:
                 self.decoder = TransformerDecoder(
                     cfg.num_decoder_layers, cfg.d_model, cfg.d_ffn, cfg.nhead,
@@ -244,14 +261,9 @@ class ASRModel(nn.Module):
             raise ValueError(
                 "attention_type=hypermixing mixes every frame: a causal model cannot "
                 "take it (the JAX package mixes the future without a word)")
-        if cfg.num_decoder_layers > 0 and cfg.decoder_module not in ("transformer", "mamba"):
-            raise NotImplementedError(
-                f"decoder_module={cfg.decoder_module!r}: the Transformer and "
-                "Mamba decoders are ported; the Conformer decoder comes with "
-                "ROADMAP slice 3b item 5"
-            )
-        if cfg.xavier_parity_init:
-            raise NotImplementedError("xavier_parity_init is not ported")
+        if cfg.num_decoder_layers > 0 and cfg.decoder_module not in DECODERS:
+            raise ValueError(f"unknown decoder_module {cfg.decoder_module!r} "
+                             f"(decoders: {', '.join(DECODERS)})")
         self.cfg = cfg
         self.add_module("0", ConvolutionFrontEnd(
             out_channels=cfg.frontend_channels,
@@ -296,12 +308,16 @@ class ASRModel(nn.Module):
         return self._modules["1"].custom_tgt_module.layers[0]
 
     @property
-    def decoder(self) -> Union[TransformerDecoder, MambaDecoder]:
+    def decoder(self) -> Union[TransformerDecoder, MambaDecoder, ConformerDecoder]:
         return self._modules["1"].decoder
 
     @property
     def mamba_decoder(self) -> bool:
         return self.has_decoder and self.cfg.decoder_module == "mamba"
+
+    @property
+    def conformer_decoder(self) -> bool:
+        return self.has_decoder and self.cfg.decoder_module == "conformer"
 
     def encode_pre(self, feats: torch.Tensor,
                    feat_lengths: Optional[torch.Tensor] = None):
@@ -414,14 +430,18 @@ class ASRModel(nn.Module):
         """Teacher-forced: tokens (B, S) -> decoder states (B, S, d_model).
         In train() mode the Transformer decoder masks the target's padding
         (tokens == 0) too; the Mamba decoder ignores enc_lengths and
-        padding."""
+        padding. The Conformer decoder also takes a memory of fewer rows
+        than tokens, when tokens' rows are each utterance's beam rows in
+        order (B' = g * B: the S2S search's prefix re-score)."""
         s = tokens.shape[1]
         tgt = self.tgt_embed(tokens) + self.dec_pe[:s].to(self.cfg.dtype)
         if self.mamba_decoder:
             return self.decoder(tgt, enc_out)
-        tgt_kpm = tokens == 0 if self.training else None
         mem_kpm = (None if enc_lengths is None
                    else lengths_to_padding_mask(enc_lengths, enc_out.shape[1]))
+        if self.conformer_decoder:
+            return self.decoder(tgt, enc_out, mem_kpm)
+        tgt_kpm = tokens == 0 if self.training else None
         return self.decoder(tgt, enc_out, get_lookahead_mask(s, tokens.device),
                             tgt_key_padding_mask=tgt_kpm, memory_key_padding_mask=mem_kpm)
 
@@ -429,10 +449,17 @@ class ASRModel(nn.Module):
         """seq_head in float32 (its logits, before any softmax)."""
         return dense(dec.float(), self.seq_head, torch.float32)
 
+    def _refuse_conformer_cache(self):
+        if self.conformer_decoder:
+            raise ValueError("the Conformer decoder has no decode cache (nor has the JAX "
+                             "package's): the S2S search re-scores its prefix through "
+                             "decode")
+
     def init_decoder_cache(self, n: int, s_max: Optional[int] = None):
         """The decode cache of n hypotheses: for the Transformer decoder
         append-only self K/V buffers of length s_max; for the Mamba decoder
         zero (conv, ssm) states (no s_max)."""
+        self._refuse_conformer_cache()
         device = self.seq_head.weight.device
         if self.mamba_decoder:
             return self.decoder.init_cache(n, device=device)
@@ -446,6 +473,7 @@ class ASRModel(nn.Module):
         cross K/V once; the cache's hypotheses are the B utterances' beams,
         in order. Mamba: scan enc_out (one row per hypothesis) into every
         layer's cross-Mamba state; enc_lengths is not used."""
+        self._refuse_conformer_cache()
         if self.mamba_decoder:
             return self.decoder.prime_cache(enc_out, cache)
         mem_kpm = (None if enc_lengths is None
@@ -457,6 +485,7 @@ class ASRModel(nn.Module):
         """One decode step: token_t (N,) at position `pos` -> (raw seq-head
         logits (N, V) float32, cache). `anc`, the ancestor table, is the
         Transformer decoder's alone."""
+        self._refuse_conformer_cache()
         tgt = self.tgt_embed(token_t) + self.dec_pe[pos].to(self.cfg.dtype)
         if self.mamba_decoder:
             dec, cache = self.decoder.step(tgt, cache)
@@ -494,4 +523,41 @@ def init_params_(model: ASRModel, generator: torch.Generator) -> ASRModel:
                                          dt_proj.weight.shape[1], mcfg,
                                          generator)
                     init_dt_bias_(dt_proj.bias, mcfg, generator)
+    return model
+
+
+def xavier_fans(module: nn.Module, name: str, p: torch.Tensor):
+    """[(rows of p, fan_in, fan_out)] of a parameter with ndim > 1, the
+    fans of the JAX leaf it is imported from (models/params_import.py):
+    JAX takes fan_in as the product of every axis but the last and fan_out
+    as the last. A Linear or Conv weight is stored out-first, (out, in,
+    *taps), where JAX's leaf is (*taps, in, out) (a depthwise conv's (K,
+    D), the conv module's pointwise Dense (D, 2D)); the stacked
+    `in_proj_weight` (3D, D) is three leaves q, k, v of (D, D); any other
+    tensor (A_log, pos_bias_u/v, an embedding, HyperMixing's weights) has
+    JAX's layout."""
+    if name == "in_proj_weight":
+        d = p.shape[0] // 3
+        return [(slice(i * d, (i + 1) * d), p.shape[1], d) for i in range(3)]
+    if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+        return [(slice(None), math.prod(p.shape[1:]), p.shape[0])]
+    return [(slice(None), math.prod(p.shape[:-1]), p.shape[-1])]
+
+
+@torch.no_grad()
+def xavier_reinit_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The reference's init quirk (JAX `trainer.py:565-588`,
+    `xavier_parity_init`): every parameter with ndim > 1 drawn anew from
+    N(0, 2 / (fan_in + fan_out)) with the fans of its JAX leaf
+    (`xavier_fans`), from `generator` (a CPU generator; not JAX's bits).
+    It overwrites S4D's A_log, the dt projection and RelPosMHAXL's u and v,
+    as the reference does; 1-D tensors stay as they are."""
+    for module in model.modules():
+        for name, p in module.named_parameters(recurse=False):
+            if p.ndim <= 1:
+                continue
+            for rows, fan_in, fan_out in xavier_fans(module, name, p):
+                part = p[rows]
+                draw = torch.randn(part.shape, generator=generator, dtype=torch.float32)
+                part.copy_(draw * (2.0 / (fan_in + fan_out)) ** 0.5)
     return model

@@ -1,5 +1,5 @@
-"""Conformer encoder (port of mamba_asr_tpu/models/conformer.py, encoder
-side; reference Conformer.py:1511-1630, 1737-2175).
+"""Conformer encoder and decoder (port of mamba_asr_tpu/models/
+conformer.py; reference Conformer.py:1511-1630, 1737-2175, 2178-2479).
 
 ConformerEncoderLayer, the Macaron structure:
 
@@ -24,6 +24,24 @@ LEFT_CONTEXT_FRAMES pre-MHA activations with a count of the filled
 ones, and the conv module's tail. A chunk attends over [left context,
 chunk] with the unfilled slots masked and `rel_pos_encoding` over that
 window, and keeps the chunk's rows; the conv sees zeros to its right.
+
+ConformerDecoderLayer (JAX `conformer.py:289-385`), the Macaron skeleton
+with cross-attention over the encoder memory in the attention slot and a
+causal conv module as the only mixer over the targets (no
+self-attention):
+
+    tgt = tgt + 0.5 * ffn1(LN(tgt))
+    x = tgt + MHA(LN1(tgt), memory)    regularMHA, the memory's padding masked
+    x = x + CausalConvModule(x)
+    x = LN2(x + 0.5 * ffn2(LN(x)))
+
+Dropout sits where the encoder layer's does. ConformerDecoder is the
+stack and a final LN. It has no decode cache (JAX has none either,
+`conformer.py:289, :371`): the search re-scores its prefix every step.
+`export_asr_params` has no layout for it, so its names are the port's
+own, the encoder layer's: ffn_module{1,2}.{0, 1}, mha_layer (a
+MultiheadAttention: `att.in_proj_*`, `att.out_proj`),
+convolution_module, norm1.norm, norm2.norm; the stack's `norm.norm`.
 """
 
 from __future__ import annotations
@@ -33,7 +51,11 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
-from mamba_asr_torch.models.attention import rel_pos_encoding, self_attention
+from mamba_asr_torch.models.attention import (
+    MultiheadAttention,
+    rel_pos_encoding,
+    self_attention,
+)
 from mamba_asr_torch.models.layers import (
     Activation,
     ConvolutionModule,
@@ -164,3 +186,65 @@ class ConformerEncoder(nn.Module):
         state)."""
         return stream_stack(self, x, state)
 
+
+class ConformerDecoderLayer(nn.Module):
+    def __init__(self, d_model: int, d_ffn: int, nhead: int, kernel_size: int = 31,
+                 activation: Activation = swish, bias: bool = True, causal: bool = True,
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+        super().__init__()
+        if not causal:
+            raise ValueError("a Conformer decoder layer must be causal: its conv "
+                             "module is its only mixer over the targets")
+        self.ffn_module1 = nn.ModuleDict({
+            "0": make_layer_norm(d_model),
+            "1": PositionalwiseFeedForward(d_model, d_ffn, activation, dtype, dropout),
+        })
+        self.ffn_module2 = nn.ModuleDict({
+            "0": make_layer_norm(d_model),
+            "1": PositionalwiseFeedForward(d_model, d_ffn, activation, dtype, dropout),
+        })
+        self.norm1 = SBLayerNorm(d_model)
+        self.norm2 = SBLayerNorm(d_model)
+        self.mha_layer = MultiheadAttention(d_model, nhead, dtype, dropout)
+        self.convolution_module = ConvolutionModule(
+            d_model, kernel_size, bias, activation, True, dtype, dropout)
+        self.dtype = dtype
+        self.dropout = dropout
+
+    def _ffn(self, ffn: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
+        out = ffn["1"](layer_norm(x, ffn["0"], self.dtype))
+        return dropout(out, self.dropout, self.training)
+
+    def forward(self, tgt: torch.Tensor, cross_kv,
+                memory_key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tgt (B', S, D); cross_kv: the memory projected by
+        `mha_layer.precompute_kv` (B rows; B' may be a multiple of B, the
+        beam rows of each utterance)."""
+        tgt = tgt + MACARON_FFN_SCALE * self._ffn(self.ffn_module1, tgt)
+        x = self.mha_layer(layer_norm(tgt, self.norm1.norm, self.dtype), static_kv=cross_kv,
+                           key_padding_mask=memory_key_padding_mask) + tgt
+        x = x + self.convolution_module(x)
+        x = x + MACARON_FFN_SCALE * self._ffn(self.ffn_module2, x)
+        return layer_norm(x, self.norm2.norm, self.dtype)
+
+
+class ConformerDecoder(nn.Module):
+    def __init__(self, num_layers: int, d_model: int, d_ffn: int, nhead: int,
+                 kernel_size: int = 31, activation: Activation = swish, bias: bool = True,
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+        super().__init__()
+        self.layers = nn.ModuleList([
+            ConformerDecoderLayer(d_model, d_ffn, nhead, kernel_size, activation, bias,
+                                  True, dtype, dropout)
+            for _ in range(num_layers)
+        ])
+        self.norm = SBLayerNorm(d_model)
+        self.dtype = dtype
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
+                memory_key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Teacher-forced: tgt (B', S, D), memory (B, T, D) -> (B', S, D)."""
+        out = tgt
+        for layer in self.layers:
+            out = layer(out, layer.mha_layer.precompute_kv(memory), memory_key_padding_mask)
+        return layer_norm(out, self.norm.norm, self.dtype)

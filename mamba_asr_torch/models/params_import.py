@@ -3,15 +3,16 @@ the port.
 
 The port's own copy of mamba_asr_tpu/models/torch_export.py for every
 encoder (ConMamba, Conformer, Transformer, Branchformer; RelPosMHAXL,
-regularMHA or hypermixing), the front end, the heads, the Transformer and
-Mamba decoders and the TransformerLM (with params_convert.py's scanned ->
+regularMHA or hypermixing), the front end, the heads, the Transformer,
+Mamba and Conformer decoders and the TransformerLM (with params_convert.py's scanned ->
 unrolled step): a nested dict of arrays, as `ASRModel.init` or
 `TransformerLM.init` gives it, becomes a state dict of float32 tensors
 under the reference names, which the port's `ASRModel` and
 `models.lm.TransformerLM` take with `load_state_dict(strict=True)`.
-HyperMixing, the Branchformer and the 1-D CNN FFN have no reference
-layout (`export_asr_params` refuses them); they map to the port's own
-names (models/hypermixing.py, models/branchformer.py,
+HyperMixing, the Branchformer, the Conformer decoder and the 1-D CNN FFN
+have no reference layout (`export_asr_params` refuses the Branchformer
+and cannot map the Conformer decoder); they map to the port's own names
+(models/hypermixing.py, models/branchformer.py, models/conformer.py,
 models/layers.py:CNNFeedForward).
 
 Orientations: Dense kernels (in, out) -> Linear (out, in); attention's
@@ -236,6 +237,12 @@ def _mamba_decoder_layer(t: _Tree, path: str, key: str, out):
         _layer_norm(t, f"{path}/norm{i}", f"{key}.norm{i}.norm", out)
 
 
+def _conformer_decoder_layer(t: _Tree, path: str, key: str, out):
+    """The JAX tree onto the port's own names (models/conformer.py:
+    ConformerDecoderLayer), the encoder layer's with regularMHA."""
+    _conformer_layer(t, path, key, "regularMHA", out)
+
+
 def _transformer_encoder_layer(t: _Tree, path: str, key: str, out,
                                attention_type: str = "regularMHA"):
     """torch_export.py:_transformer_encoder_layer, with RelPosMHAXL or
@@ -281,11 +288,6 @@ def _frontend(t: _Tree, path: str, key: str, num_blocks: int, out):
 def import_asr_params(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
     """JAX ASRModel params (unrolled or scanned layout; numpy or JAX
     arrays) -> the port's ASRModel state dict for `cfg`."""
-    if cfg.num_decoder_layers > 0 and cfg.decoder_module not in ("transformer", "mamba"):
-        raise NotImplementedError(
-            "params import covers the Transformer and Mamba decoders; the "
-            "Conformer decoder comes with ROADMAP slice 3b item 5"
-        )
     if "stack" in params.get("encoder", {}):
         params = _unroll_encoder(params, cfg.num_encoder_layers)
     t = _Tree(params)
@@ -299,7 +301,8 @@ def import_asr_params(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]
     if cfg.num_decoder_layers > 0:
         out["1.custom_tgt_module.layers.0.emb.Embedding.weight"] = t.take(
             "tgt_embed/embed/embedding")
-        layer = _mamba_decoder_layer if cfg.decoder_module == "mamba" else _decoder_layer
+        layer = {"mamba": _mamba_decoder_layer,
+                 "conformer": _conformer_decoder_layer}.get(cfg.decoder_module, _decoder_layer)
         for i in range(cfg.num_decoder_layers):
             layer(t, f"decoder/layer_{i}", f"1.decoder.layers.{i}", out)
         _layer_norm(t, "decoder/norm", "1.decoder.norm.norm", out)

@@ -51,8 +51,9 @@ the decoder's append-only K/V and ancestor table, without cross
 attention (regularMHA only, as in JAX).
 
 The JAX package's heads-major reorder cache (`beam_gather=False`) and
-the search's full-prefix re-score (`use_cache=False`) are A/B switches of
-the TPU search and are not ported.
+the full-prefix re-score of a cached decoder (`use_cache=False`) are A/B
+switches of the TPU search and are not ported (the Conformer decoder,
+which has no cache, re-scores its prefix: decoding/s2s_beam.py).
 """
 
 from __future__ import annotations

@@ -52,7 +52,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 import torch
 
 from mamba_asr_torch.data.augment import spec_augment
-from mamba_asr_torch.models.asr import ASRConfig, ASRModel, init_params_
+from mamba_asr_torch.models.asr import ASRConfig, ASRModel, init_params_, xavier_reinit_
 from mamba_asr_torch.ops.ctc import ctc_loss
 from mamba_asr_torch.ops.fbank import log_mel_spectrogram
 from mamba_asr_torch.parallel import collectives
@@ -172,7 +172,10 @@ class Trainer:
         torch.manual_seed(fold_seed(train.seed, d))  # dropout masks
         model = ASRModel(cfg)
         if state_dict is None:
-            init_params_(model, torch.Generator().manual_seed(train.seed))
+            init = torch.Generator().manual_seed(train.seed)
+            init_params_(model, init)
+            if cfg.xavier_parity_init:  # JAX's init_train_state: fresh weights only
+                xavier_reinit_(model, init)
         else:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).train()

@@ -296,13 +296,19 @@ def test_cli_refuses_what_is_not_ported(corpus, tmp_path):
     with pytest.raises(NotImplementedError, match="item 10"):
         run_training([CONFIG, "--device", "cpu", "--parallel.pipeline_stages", "2"])
     s2s = str(REPO / "hparams" / "S2S" / "conmamba_small.yaml")
-    with pytest.raises(NotImplementedError, match="slice 3b item 5"):
+    # The Conformer decoder is ported: the loop builds with it, and an
+    # unknown decoder is refused.
+    tr = loop.Trainer(load_config(s2s, {"data.output_folder": str(tmp_path),
+                                        "model.decoder_module": "conformer"}),
+                      CharTokenizer(list("AB")), device="cpu")
+    assert tr.step.model.conformer_decoder
+    with pytest.raises(ValueError, match="decoder_module"):
         loop.Trainer(load_config(s2s, {"data.output_folder": str(tmp_path),
-                                       "model.decoder_module": "conformer"}),
+                                       "model.decoder_module": "lstm"}),
                      CharTokenizer(list("AB")), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3b item 5"):
+    with pytest.raises(ValueError, match="decoder_module"):
         train_to_floor.run_mode("s2s", corpus, str(tmp_path), 1, device="cpu",
-                                extra=["--model.decoder_module", "conformer"])
+                                extra=["--model.decoder_module", "lstm"])
     with pytest.raises(ValueError, match="save_torch_lm"):  # a flax msgpack LM
         run_training([s2s, "--decode.lm_path", "lm.msgpack", "--device", "cpu",
                       "--data.output_folder", str(tmp_path / "lm")])

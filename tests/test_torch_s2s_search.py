@@ -9,7 +9,7 @@ tests/test_torch_s2s_ops.py (float32).
   recognize.py --s2s (make_eval_step + the JAX searcher on each request
   unpadded): tokens equal. At batch=2 the requests are grouped and padded
   as in the CTC mode.
-- What is not ported raises: the Conformer decoder, a flax msgpack
+- What is not ported raises: an unknown decoder, a flax msgpack
   `decode.lm_path`, a search other than "ctc", "beam" and "s2s";
   search="beam" gives the CTC recipe's test decoder's tokens.
 """
@@ -147,8 +147,10 @@ def test_recognizer_s2s_groups_and_pads_like_the_ctc_mode(tiny):
 
 def test_what_is_not_ported_raises(tiny):
     _, _, _, pm = tiny
-    with pytest.raises(NotImplementedError, match="slice 3b item 5"):
-        asr.ASRModel(port_cfg(s2s_cfg(decoder_module="conformer")))
+    # The Conformer decoder is ported (tests/test_torch_conformer_decoder.py):
+    # an unknown decoder is what the model refuses now.
+    with pytest.raises(ValueError, match="decoder_module"):
+        asr.ASRModel(port_cfg(s2s_cfg(decoder_module="lstm")))
     with pytest.raises(ValueError, match="save_torch_lm"):
         Recognizer(pm.cfg, FrontendConfig(n_mels=20), pm.state_dict(), device="cpu",
                    decode=DecodeConfig(lm_path="lm.msgpack"), search="s2s")
