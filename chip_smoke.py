@@ -187,9 +187,8 @@ exits non-zero; it prints no result without a CUDA card):
              on B32 x 25 s, 60 to 80 random targets: 8 checked micro-steps
              (K1 train and K2 32 each), audio-s per s (median of 3 blocks),
              peak memory, one profiled micro-step
-  conmamba_large_parity, conformer_decoder_parity  (after
-             s2s_train_to_floor, while the Mamba floor run goes on: they
-             read no time) one fp32 micro-step of each ConMamba-Large YAML
+  conmamba_large_parity, conformer_decoder_parity  (beside the
+             chains of BESIDE: they read no time) one fp32 micro-step of each ConMamba-Large YAML
              (B2 x 4 s), card against CPU as train_parity holds it; the
              Conformer decoder in fp32 (TF32 and cuDNN off), card against
              CPU: the teacher-forced seq log-probs (B2 x 4 s), the joint
@@ -198,8 +197,8 @@ exits non-zero; it prints no result without a CUDA card):
              only for the LM), one S2S micro-step held alike
   mamba_dec_recipe  as s2s_recipe, on hparams/S2S/conmambamamba_small.yaml
              for MAMBA_RECIPE_EPOCHS epochs (K4 must not launch)
-  mamba_dec_train_to_floor  (in a process of its own beside
-             s2s_train_to_floor; its output printed after it) tools.
+  mamba_dec_train_to_floor  (a chain of BESIDE, in a process of its
+             own; its output printed after it) tools.
              train_to_floor --mode s2s at its default
              config (the Mamba decoder) on 160 / 16 / 16 tone utterances,
              --epochs 30 (90; the JAX regime proof's 150, cut in PR 12):
@@ -220,7 +219,7 @@ exits non-zero; it prints no result without a CUDA card):
              per search (K4 (4 + 12) per step), one profiled search;
              s2s_recognize's no-LM RTFx and one Mamba-decoder + LM search
              beside it
-  train_lm   (after mamba_dec_train_to_floor) mamba_asr_torch.train_lm's
+  train_lm   (chain s2s_floor_lm, after the S2S floor run) train_lm's
              loop at full LM width in fp32 on the 160-utterance tone
              training transcripts, vocab 5000, LM_TRAIN settings: tokens
              per s, ms per step, ppl per log line (the last below
@@ -260,7 +259,7 @@ exits non-zero; it prints no result without a CUDA card):
              micro-steps with the YAML's settings (bf16, dropout 0.1,
              SpecAugment, accumulation 4) at B32 x 25 s: finite losses,
              updates on every 4th only, audio-s per s, peak memory
-  conmamba_large  (after mamba_dec_train_to_floor) CTC/conmamba_large,
+  conmamba_large  (after the chains of BESIDE) CTC/conmamba_large,
              S2S/conmamba_large and S2S/conmambamamba_large, seeded: one
              bf16 recognise each as one timed block (CTC: LARGE_CTC_CALLS
              calls at B32 x 30 s after one warm-up call; S2S: a first (cold)
@@ -297,7 +296,26 @@ exits non-zero; it prints no result without a CUDA card):
              full-width LM, s2s on S2S/conmamba_small and on the Mamba
              decoder), each equal to its search run directly on the same
              encoder output, with finish_final ms and launches
-  recognize_cli  (last) `python -m mamba_asr_torch.recognize` on the CTC
+  bundles    `python -m mamba_asr_torch.export_model --device cuda` of the
+             seeded full-width YAMLs (bf16), the four exports in processes
+             of their own at once, started beside the chains of BESIDE; after
+             conformer_decoder_parity, the checks: CTC at B32 x 30 s
+             (log-probs within 1e-3 of the live Recognizer's, greedy tokens
+             equal, K1 24 per forward); S2S at B8 x 30 s with the decode
+             stanzas, S2S/conmamba_small with the seeded LM of lm_recognize
+             and the Mamba decoder without (tokens and lengths equal to the
+             live searcher's on the same padded batch, K1/K3/K4 per search);
+             the streaming engine of ConMamba-Small made causal and
+             unidirectional at 32 slots (8 streams of 6 s: transcripts equal
+             to the live engine's); export seconds, bundle sizes, each
+             program's mamba_asr::* nodes
+  bundles_timed  (after the chains of BESIDE) bundle against live, in turn:
+             CTC wall ms (5 calls each), one S2S+LM search each, 12 steady
+             ticks each at 32 slots; K1 kernel events in a profiled bundle
+             CTC call and tick; the K4 op's host us per call against its
+             wrapper's
+  recognize_cli  (last of chain recipes, once chain s2s_floor_lm has
+             ended) `python -m mamba_asr_torch.recognize` on the CTC
              floor run's test files and save dir: --beam 100 tokens equal
              to the trainer's CTC-beam test pass, --timestamps word times,
              --streaming transcripts; --s2s on the S2S floor run: tokens
@@ -307,8 +325,17 @@ exits non-zero; it prints no result without a CUDA card):
              then recognize --torch_ckpt --torch_normalizer on the export:
              the same lines as the test pass
 
-Each phase also prints its wall seconds (the Mamba floor run's overlap
-the S2S floor run's; the script's wall seconds follow the phases). Then
+The phases run in three stretches. Every phase that reads time runs
+alone on the card, before `data` or after the chains. From `data` on,
+four chains (BESIDE) run side by side in processes of their own:
+`parities` (parity, train_parity, s2s_parity, s2s_train_parity,
+mamba_dec_parity, lm_parity, conformer_parity), the Mamba floor run,
+`s2s_floor_lm` (s2s_train_to_floor, train_lm, lm_floor) and `recipes`
+(recipe, train_to_floor, bf16, s2s_recipe, mamba_dec_recipe,
+recognize_cli). Beside them this process runs distributed_recipe, the
+two parity phases above and `bundles`. A chain's output is printed when
+it ends; the walls of its runs are those of a shared host. Each phase
+also prints its wall seconds (the script's follow the phases). Then
 the kernels line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
@@ -1480,18 +1507,20 @@ class RankGroup:
     rank's process group, when a rank fails or DIST_TIMEOUT_S passes,
     with the ranks' logs; `kill()` ends them."""
 
-    def __init__(self, kind, work, nproc=2, args=(), timeout=None):
+    def __init__(self, kind, work, nproc=2, args=(), timeout=None, threads=None):
         env = {k: v for k, v in os.environ.items() if not k.startswith("MASR_")}
+        # the host's cores split between the ranks and this process, which
+        # works beside them (torchrun gives each rank 1), unless `threads`
+        threads = threads or max(1, (os.cpu_count() or 1) // (nproc + 1))
         env.update(MASR_COORDINATOR=f"localhost:{free_port()}", MASR_NUM_PROCESSES=str(nproc),
                    MASR_BACKEND="gloo", MASR_TIMEOUT_S=str(DIST_TIMEOUT_S),
-                   # the host's cores split between the ranks and this process,
-                   # which works beside them (torchrun gives each rank 1)
-                   OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // (nproc + 1))))
+                   OMP_NUM_THREADS=str(threads))
         self.kind, self.logs, self.procs = kind, [], []
         self.timeout = DIST_TIMEOUT_S if timeout is None else timeout
         self.t0 = time.perf_counter()
+        label = args[0] if kind == "phase" else kind  # phase groups run side by side
         for rank in range(nproc):
-            path = os.path.join(work, f"{kind}_rank{rank}.log")
+            path = os.path.join(work, f"{label}_rank{rank}.log")
             self.logs.append(path)
             with open(path, "w") as log:
                 self.procs.append(subprocess.Popen(
@@ -1661,8 +1690,10 @@ def rank_worker(argv) -> int:
         worker_recipe(work, argv[2])
     elif kind == "phase":  # a phase in a process of its own (`join_phase`)
         result = timed(globals()["phase_" + argv[2]], work)
-        with open(os.path.join(work, f"{argv[2]}.json"), "w") as f:
+        path = os.path.join(work, f"{argv[2]}.json")
+        with open(path + ".tmp", "w") as f:
             json.dump(result, f)
+        os.replace(path + ".tmp", path)  # whole when it appears: another phase may wait for it
     else:
         raise ValueError(f"no rank worker {kind!r}")
     return 0
@@ -1679,6 +1710,26 @@ def join_phase(group, work, name, beside):
     emit({"phase_beside": name, "beside": beside, "waited_s": time.perf_counter() - t0})
     with open(os.path.join(work, f"{name}.json")) as f:
         return json.load(f)
+
+
+def join_beside(groups, work, beside):
+    """Wait for every phase group of `groups` ({phase name: RankGroup})
+    together, joining each (`join_phase`) as it ends, so that the first to
+    fail ends them all. Returns {phase name: result}."""
+    results, pending = {}, dict(groups)
+    try:
+        while pending:
+            for name, group in list(pending.items()):
+                late = time.perf_counter() > group.t0 + group.timeout
+                if late or all(p.poll() is not None for p in group.procs):
+                    del pending[name]
+                    results[name] = join_phase(group, work, name, beside)
+            time.sleep(0.2)
+    except BaseException:
+        for group in groups.values():
+            group.kill()
+        raise
+    return results
 
 
 def world_of_one_nccl(exp, state):
@@ -3196,15 +3247,25 @@ def phase_mamba_dec_recipe(work, corpus):
     return s2s_recipe("mamba_dec_recipe", MAMBA_CONFIG, MAMBA_RECIPE_EPOCHS, work, corpus)
 
 
+def floor160_corpus(work):
+    """The Mamba floor run's corpus (MAMBA_FLOOR_CORPUS utterances), built
+    once: train_lm reads its transcripts too."""
+    from mamba_asr_torch.tools.train_to_floor import build_corpus
+
+    corpus = os.path.join(work, "corpus160")
+    if not os.path.isdir(corpus):
+        n_train, n_dev, n_test = MAMBA_FLOOR_CORPUS
+        build_corpus(corpus, n_train=n_train, n_dev=n_dev, n_test=n_test)
+    return corpus
+
+
 def phase_mamba_dec_train_to_floor(work):
     """tools.train_to_floor --mode s2s at its default config (the Mamba
     decoder) on the JAX regime proof's corpus: 160 / 16 / 16 utterances,
     --epochs MAMBA_FLOOR_EPOCHS (x 3), test WER <= 2.0 %."""
     from mamba_asr_torch.tools import train_to_floor
 
-    corpus = os.path.join(work, "corpus160")
-    n_train, n_dev, n_test = MAMBA_FLOOR_CORPUS
-    train_to_floor.build_corpus(corpus, n_train=n_train, n_dev=n_dev, n_test=n_test)
+    corpus = floor160_corpus(work)
     reset, read = s2s_launch_counters()
     reset()
     epochs = 3 * MAMBA_FLOOR_EPOCHS  # the tool's S2S rule
@@ -3737,7 +3798,7 @@ def phase_train_lm(work, floor):
     from mamba_asr_torch.models.lm import TransformerLM, init_params_
     from mamba_asr_torch.train_lm import corpus_stream, train_lm
 
-    trans = os.path.join(work, "corpus160", "train-clean-100", "1", "2", "1-2.trans.txt")
+    trans = os.path.join(floor160_corpus(work), "train-clean-100", "1", "2", "1-2.trans.txt")
     corpus = os.path.join(work, "lm_corpus.txt")
     with open(trans) as f, open(corpus, "w") as g:
         g.writelines(line.split(" ", 1)[1] for line in f if line.strip())
@@ -4783,6 +4844,495 @@ def phase_recognize_cli(work, corpus, floor_tr, s2s_floor):
     return result
 
 
+# -- exported bundles -------------------------------------------------------------------
+
+BUNDLE_CTC = (32, 30.0)      # the CTC bucket: B32 x 30 s
+BUNDLE_S2S = (8, 30.0)       # the S2S buckets: B8 x 30 s
+BUNDLE_SLOTS = 32            # the streaming bundle's slots (its checks use 8 streams)
+BUNDLE_STREAMS = (8, 6.0)    # streams of 6 s noise through both engines
+BUNDLE_TICKS = 12            # steady ticks each, bundle and live engine in turn
+BUNDLE_CTC_CALLS = 5         # CTC calls each, in turn
+BUNDLE_LP_TOL = 1e-3         # CTC log-probs, bundle against the live forward (bf16)
+BUNDLE_EXPORT_TIMEOUT_S = 400
+CAUSAL = {"model.causal": True, "model.bidirectional": False}
+
+
+def bundle_batch(bsz, seconds, seed):
+    """Noise rows of seconds * (0.7 .. 1.0), the longest full: numpy (B, T)
+    zero-padded, lengths (B,) int32."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * 16000)
+    lens = np.sort(rng.integers(int(0.7 * n), n, bsz)).astype(np.int32)[::-1].copy()
+    lens[0] = n
+    wav = np.zeros((bsz, n), np.float32)
+    for i, m in enumerate(lens):
+        wav[i, :m] = noise(m / 16000, seed * 100 + i)
+    return wav, lens
+
+
+def start_export(work, name, config, state, flags, overrides=()):
+    """Start `python -m mamba_asr_torch.export_model <config> --torch_ckpt
+    <the seeded state> --out <work>/<name> --device cuda <flags>` in a
+    process of its own: (bundle dir, the process, its log's path)."""
+    ckpt = os.path.join(work, f"{name}_model.pt")
+    torch.save(state, ckpt)
+    out, log = os.path.join(work, name), os.path.join(work, f"{name}_export.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mamba_asr_torch.export_model", config, "--torch_ckpt",
+             ckpt, "--out", out, "--device", "cuda", *flags, *overrides],
+            stdout=f, stderr=subprocess.STDOUT, env={**os.environ, "OMP_NUM_THREADS": "2"})
+    return out, proc, log
+
+
+def finish_export(out, proc, log, timeout):
+    """Wait for an export: (its seconds as the CLI printed them, MB by file)."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    with open(log) as f:
+        text = f.read()
+    done = re.search(r"exported a \w+ bundle .* in ([0-9.]+) s", text)
+    if rc != 0 or not done:
+        raise AssertionError(f"bundles: export_model exited {rc}:\n{text[-3000:]}")
+    sizes = {f: os.path.getsize(os.path.join(out, f)) / 1e6 for f in sorted(os.listdir(out))}
+    return float(done.group(1)), sizes
+
+
+def restored(config, work, name, overrides=None):
+    """The model and normaliser `cli.restore_asr_state` gives from the same
+    state dict the export read (on the card)."""
+    from mamba_asr_torch.cli import restore_asr_state
+    from mamba_asr_torch.configs.loader import load_config
+
+    cfg = load_config(config, overrides or {})
+    model, norm = restore_asr_state(cfg, torch_ckpt=os.path.join(work, f"{name}_model.pt"),
+                                    device="cuda")
+    return cfg, model, norm
+
+
+def check_search(name, got, ref):
+    toks, lens, scores = (np.asarray(x) for x in got)
+    rtoks, rlens, rscores = (x.cpu().numpy() for x in ref)
+    if not (np.array_equal(toks, rtoks) and np.array_equal(lens, rlens)):
+        raise AssertionError(f"bundles {name}: tokens differ from the live search "
+                             f"(lengths {lens.tolist()} against {rlens.tolist()})")
+    return float(np.abs(scores - rscores).max())
+
+
+def start_bundle_exports(work, s2s, states):
+    """Start the four exports of phase `bundles` at once, a process each
+    (an export is host-bound): CTC at BUNDLE_CTC, S2S/conmamba_small with
+    the seeded LM of lm_recognize and the Mamba decoder at BUNDLE_S2S, the
+    causal unidirectional ConMamba-Small's engine at BUNDLE_SLOTS slots.
+    states: the seeded state dicts of the CTC, S2S and Mamba-decoder
+    YAMLs. Returns {name: (bundle dir, process, log)}."""
+    from mamba_asr_torch.configs.loader import load_config
+
+    lm_path = os.path.join(work, "seeded_lm.pt")
+    if not os.path.exists(lm_path):
+        torch.save(seeded_lm(s2s.decode, s2s.model.vocab_size, SEED + 12).state_dict(),
+                   lm_path)
+    ctc_b, s2s_b = BUNDLE_CTC, BUNDLE_S2S
+    s2s_flags = ["--s2s", "--batches", str(s2s_b[0]), "--seconds", str(s2s_b[1])]
+    return {
+        "ctc": start_export(work, "bundle_ctc", CONFIG, states["ctc"],
+                            ["--batches", str(ctc_b[0]), "--seconds", str(ctc_b[1])]),
+        "s2s_lm": start_export(work, "bundle_s2s_lm", S2S_CONFIG, states["s2s"], s2s_flags,
+                               [f"--decode.lm_path={lm_path}"]),
+        "s2s_mamba": start_export(work, "bundle_s2s_mamba", MAMBA_CONFIG, states["mamba"],
+                                  s2s_flags),
+        "streaming": start_export(
+            work, "bundle_stream", CONFIG, seeded_state(load_config(CONFIG, CAUSAL).model),
+            ["--streaming", "--slots", str(BUNDLE_SLOTS), "--chunk_frames",
+             str(STREAM_CHUNK_FRAMES)], [f"--{k}={str(v).lower()}" for k, v in CAUSAL.items()]),
+    }
+
+
+def phase_bundles(work, exports):
+    """The three bundles that `start_bundle_exports` exported through python
+    -m mamba_asr_torch.export_model --device cuda from the full-width
+    seeded YAMLs (bf16), each checked against the port's live path on the
+    same inputs; no time is read here but the exports' (the exports run
+    beside the floor runs, the checks after the S2S floor run)."""
+    from mamba_asr_torch.decoding.ctc_greedy import ctc_greedy_decode
+    from mamba_asr_torch.serving.engine import StreamingServer
+    from mamba_asr_torch.serving.export import (ExportedASR, ExportedStreamingServer,
+                                                program_launches)
+    from mamba_asr_torch.serving.recognizer import Recognizer
+
+    reset, read = s2s_launch_counters()
+    ctx, result = {}, {"phase": "bundles"}
+    try:
+        done = {name: finish_export(*e, timeout=BUNDLE_EXPORT_TIMEOUT_S)
+                for name, e in exports.items()}
+    finally:
+        for _, proc, _ in exports.values():
+            if proc.poll() is None:
+                proc.kill()
+    lm_path = os.path.join(work, "seeded_lm.pt")
+
+    # CTC at B32 x 30 s.
+    bsz, seconds = BUNDLE_CTC
+    out = exports["ctc"][0]
+    export_s, sizes = done["ctc"]
+    asr = ExportedASR(out)
+    cfg, model, norm = restored(CONFIG, work, "bundle_ctc")
+    rec = Recognizer.from_model(model, norm, cfg.frontend, batch=bsz)
+    wav, lens = bundle_batch(bsz, seconds, 31)
+    reset()
+    lp, el = asr(wav, lens)
+    ctc_launches = read()["K1"]
+    live = rec.eval_step(torch.from_numpy(wav), torch.from_numpy(lens))
+    err = check_close("bundles ctc log-probs", torch.from_numpy(lp), live["ctc_log_probs"].cpu(),
+                      BUNDLE_LP_TOL, 0.0)
+    toks, tl = ctc_greedy_decode(torch.from_numpy(lp), torch.from_numpy(el))
+    rtoks, rtl = ctc_greedy_decode(live["ctc_log_probs"].cpu(), live["enc_lengths"].cpu())
+    if not (torch.equal(toks, rtoks) and torch.equal(tl, rtl)):
+        raise AssertionError("bundles ctc: greedy tokens differ from the live Recognizer's")
+    per_forward = scans_per_step(cfg.model)
+    graph = program_launches(asr)
+    if ctc_launches != per_forward or list(graph.values()) != [
+            {"selective_scan_fwd": per_forward}]:
+        raise AssertionError(f"bundles ctc: K1 {ctc_launches}, graph {graph}")
+    result["ctc"] = {"bucket": [bsz, seconds], "export_s": export_s, "mb": sizes,
+                     "logprob_max_abs_err": err, "k1_launches": ctc_launches, "graph": graph}
+    ctx["ctc"] = (asr, rec, wav, lens)
+
+    # S2S at B8 x 30 s: the Transformer decoder with the seeded LM, the Mamba
+    # decoder without, the YAML's decode stanzas; the same padded batch as
+    # the live searcher's.
+    bsz, seconds = BUNDLE_S2S
+    for name, config, lm in (("s2s_lm", S2S_CONFIG, lm_path), ("s2s_mamba", MAMBA_CONFIG, "")):
+        over = {"decode.lm_path": lm} if lm else {}
+        out = exports[name][0]
+        export_s, sizes = done[name]
+        asr = ExportedASR(out)
+        cfg, model, norm = restored(config, work, f"bundle_{name}", over)
+        rec = Recognizer.from_model(model, norm, cfg.frontend, batch=bsz, decode=cfg.decode,
+                                    search="s2s")
+        wav, lens = bundle_batch(bsz, seconds, 41)
+        reset()
+        got = asr(wav, lens)
+        launches = read()
+        o = rec.eval_step(torch.from_numpy(wav), torch.from_numpy(lens))
+        ref = rec.searcher(o["enc_out"], o["enc_lengths"], o["ctc_log_probs"])
+        score_err = check_search(name, got, ref)
+        st = asr.last_steps
+        if st != rec.searcher.last_steps:
+            raise AssertionError(f"bundles {name}: {st} steps against the live search's "
+                                 f"{rec.searcher.last_steps}")
+        lm_layers = cfg.decode.lm_layers if lm else 0
+        dec = cfg.model.num_decoder_layers
+        mamba = cfg.model.decoder_module == "mamba"
+        want = {"K1": scans_per_step(dataclasses.replace(cfg.model, num_decoder_layers=0))
+                + (dec if mamba else 0), "K2": 0, "K3": st,
+                "K4": ((0 if mamba else dec) + lm_layers) * st}
+        if launches != want:
+            raise AssertionError(f"bundles {name}: launches {launches}, expected {want}")
+        result[name] = {"bucket": [bsz, seconds], "export_s": export_s, "mb": sizes,
+                        "steps": st, "launches_per_search": launches,
+                        "score_max_abs_diff": score_err, "best_lengths": got[1].tolist(),
+                        "graph": program_launches(asr)}
+        ctx[name] = (asr, rec, wav, lens)
+
+    # Streaming: ConMamba-Small made causal and unidirectional, BUNDLE_SLOTS
+    # slots, 640 ms chunks; 8 streams of 6 s through the bundle and the
+    # live engine: transcripts equal.
+    out = exports["streaming"][0]
+    export_s, sizes = done["streaming"]
+    cfg, model, norm = restored(CONFIG, work, "bundle_stream", CAUSAL)
+    live = StreamingServer(model, cfg.frontend, norm, n_slots=BUNDLE_SLOTS,
+                           chunk_frames=STREAM_CHUNK_FRAMES)
+    bundle = ExportedStreamingServer(out)
+    count, secs = BUNDLE_STREAMS
+    wavs = [noise(secs, 700 + i) for i in range(count)]
+    reset()
+    got = drive_engine(bundle, wavs, 17)
+    stream_launches = read()["K1"]
+    want = drive_engine(live, wavs, 17)
+    if got != want or not any(want.values()):
+        raise AssertionError(f"bundles streaming: transcripts differ {got} / {want}")
+    graph = program_launches(bundle)
+    if any(g != {"selective_scan_fwd": per_forward // 2} for g in graph.values()):
+        raise AssertionError(f"bundles streaming: graphs {graph}")
+    result["streaming"] = {"slots": BUNDLE_SLOTS, "streams": [count, secs],
+                           "export_s": export_s, "mb": sizes, "k1_launches": stream_launches,
+                           "ticks": bundle.stats()["ticks_total"], "graph": graph,
+                           "clamped": bundle.clamped}
+    ctx["streaming"] = (bundle, live)
+    emit(result)
+    return result, ctx
+
+
+def filled(engine, seed):
+    """Every slot of `engine` holding a promoted noise stream (the bootstrap
+    and two ticks), and a feed() handing each stream its next chunk."""
+    rng = np.random.default_rng(seed)
+    sids = [engine.attach() for _ in range(engine.n_slots)]
+
+    def feed():
+        for sid in sids:
+            engine.feed(sid, rng.normal(0.0, 0.1, STREAM_CHUNK_FRAMES * 160).astype(np.float32))
+
+    for _ in range(3):
+        feed()
+        engine.tick()
+    return feed
+
+
+BUNDLE_STEP_AT = 128         # the S2S+LM steps run before the timed and profiled steps
+BUNDLE_STEPS = 8             # steps timed, then steps profiled, each side
+
+
+@torch.no_grad()
+def s2s_steps(side, asr, rec, wav, lens):
+    """The S2S+LM search of one side at step BUNDLE_STEP_AT, and a function
+    that runs its next n steps: the bundle's init and step programs
+    (ExportedASR's loop) or the live searcher's init and step."""
+    from mamba_asr_torch.ops.beam_attention import StepPos
+    from mamba_asr_torch.serving.export import _fn_file
+
+    wav_d, lens_d = torch.from_numpy(wav).cuda(), torch.from_numpy(lens).cuda()
+    if side == "bundle":
+        w = asr._weights()
+        state = asr.programs(_fn_file(*asr.buckets[0], "init"))(*w, wav_d, lens_d)
+        program = asr.programs(_fn_file(*asr.buckets[0], "step"))
+
+        def step(s, s_dev):
+            return program(*w, state, s, s_dev)
+    else:
+        o = rec.eval_step(torch.from_numpy(wav), torch.from_numpy(lens))
+        state = rec.searcher.init(o["enc_out"], o["enc_lengths"], o["ctc_log_probs"])
+
+        def step(s, s_dev):
+            return rec.searcher.step(state, StepPos(s, s_dev))
+    on_device = torch.arange(state["tokens"].shape[1], device="cuda")
+    at = [0]
+
+    def run(n):
+        for _ in range(n):
+            s = at[0]
+            state.update(step(torch.tensor(s), on_device[s]))
+            bool(state["finished"].all())  # the loop's one sync a step
+            at[0] += 1
+    run(BUNDLE_STEP_AT)
+    return run
+
+
+def step_profile(runs):
+    """runs: {side: a function that runs that side's next n steps}.
+    BUNDLE_STEPS steps of each side timed on the host's clock, one step of
+    each side in turn (step_ms: the median), then BUNDLE_STEPS more of
+    each side under torch.profiler (the host's operators and the card).
+    Per side and step: ATen and mamba_asr op calls, their self host ms, the
+    rest of the step's time (Python between the ops, against the
+    unprofiled step), the host's waits on the card (cudaStreamSynchronize,
+    cudaDeviceSynchronize, cudaEventSynchronize, cudaMemcpy calls) and
+    the card's kernel ms; the top ops by self host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mamba_asr_torch.tools.timing import device_kernel_times
+
+    n = BUNDLE_STEPS
+    walls = {side: [] for side in runs}
+    out = {}
+    with torch.no_grad():
+        for _ in range(n):
+            for side, run in runs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(1)
+                walls[side].append(1e3 * (time.perf_counter() - t0))
+        for side, run in runs.items():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run(n)
+                torch.cuda.synchronize()
+            ops, waits = {}, 0
+            for ev in prof.profiler.kineto_results.events():
+                if ev.device_type() != torch.autograd.DeviceType.CPU:
+                    continue
+                name = ev.name()
+                if name.startswith(("aten::", "mamba_asr::")):
+                    ops.setdefault(name, [0, 0.0])[0] += 1
+                elif name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                              "cudaEventSynchronize", "cudaMemcpy"):
+                    waits += 1
+            for avg in prof.key_averages():
+                if avg.key in ops:
+                    ops[avg.key][1] = avg.self_cpu_time_total / 1e3
+            wall = statistics.median(walls[side])
+            self_ms = sum(v[1] for v in ops.values()) / n
+            top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:8]
+            out[side] = {
+                "step_ms": wall, "steps_ms": walls[side],
+                "op_calls": sum(v[0] for v in ops.values()) / n,
+                "op_self_host_ms": self_ms, "other_host_ms": wall - self_ms,
+                "waits": waits / n,
+                "device_ms": sum(us for us, _ in device_kernel_times(prof).values()) / 1e3 / n,
+                "top": [{"op": k, "calls": c / n, "self_host_ms": t / n}
+                        for k, (c, t) in top]}
+    return out
+
+
+def phase_bundles_timed(checked, ctx):
+    """(after the floor runs) The bundles' wall times against the live
+    paths', each pair in turn: CTC calls at B32 x 30 s (padding, H2D, the
+    forward, the log-probs' D2H on both sides); one S2S+LM search each at
+    B8 x 30 s; BUNDLE_TICKS steady ticks each at BUNDLE_SLOTS slots; a
+    profiled CTC call and tick (K1 kernel events per program); S2S+LM
+    steps of the bundle's step program against the live searcher's step
+    (`step_profile`, the host's time per op); the
+    `mamba_asr::beam_attention` op's host cost per call against its
+    wrapper's."""
+    from mamba_asr_torch.kernels import beam_attention as k4
+    from mamba_asr_torch.kernels import ops as kernel_ops
+
+    reset, read = s2s_launch_counters()
+    asr, rec, wav, lens = ctx["ctc"]
+    wav_t, lens_t = torch.from_numpy(wav), torch.from_numpy(lens)
+    walls = {"bundle": [], "live": []}
+    for _ in range(BUNDLE_CTC_CALLS):
+        for side in ("bundle", "live"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if side == "bundle":
+                asr(wav, lens)
+            else:
+                rec.eval_step(wav_t, lens_t)["ctc_log_probs"].cpu()
+            walls[side].append(1e3 * (time.perf_counter() - t0))
+    ctc = {side: {"median_ms": statistics.median(v), "ms": v} for side, v in walls.items()}
+    reset()
+    _, ctc_device_ms, top = device_profile(lambda: asr(wav, lens), 5, ("scan_fwd",))
+    ctc["profile"] = {"k1_kernel_events": sum(r["calls"] for r in top if "scan_fwd" in r["kernel"]),
+                      "k1_launches": read()["K1"], "device_ms": ctc_device_ms}
+
+    asr, rec, wav, lens = ctx["s2s_lm"]
+    s2s = {}
+    for side in ("bundle", "live"):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if side == "bundle":
+            asr(wav, lens)
+        else:
+            o = rec.eval_step(torch.from_numpy(wav), torch.from_numpy(lens))
+            rec.searcher(o["enc_out"], o["enc_lengths"], o["ctc_log_probs"])[0].cpu()
+        s2s[side] = {"wall_ms": 1e3 * (time.perf_counter() - t0), "launches": read()}
+    steps = step_profile({side: s2s_steps(side, asr, rec, wav, lens)
+                          for side in ("bundle", "live")})
+    for side, row in steps.items():
+        s2s[side]["steps"] = row
+
+    bundle, live = ctx["streaming"]
+    feeds = {"bundle": filled(bundle, 5), "live": filled(live, 5)}
+    ticks = {"bundle": [], "live": []}
+    engines = {"bundle": bundle, "live": live}
+    for _ in range(BUNDLE_TICKS):
+        for side in ("bundle", "live"):
+            feeds[side]()
+            reset()
+            t0 = time.perf_counter()
+            engines[side].tick()
+            ticks[side].append((1e3 * (time.perf_counter() - t0), read()["K1"]))
+    stream = {side: {"median_ms": statistics.median(t for t, _ in v),
+                     "p95_ms": percentile([t for t, _ in v], 95),
+                     "k1_per_tick": sorted({k for _, k in v})} for side, v in ticks.items()}
+    feeds["bundle"]()
+    reset()
+    _, tick_device_ms, top = device_profile(bundle.tick, 5, ("scan_fwd",))
+    stream["profile"] = {"k1_kernel_events": sum(r["calls"] for r in top
+                                                 if "scan_fwd" in r["kernel"]),
+                         "k1_launches": read()["K1"], "device_ms": tick_device_ms}
+
+    # The op's dispatch against the wrapper's, at the S2S decoder's K4 shape.
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q, kb, vb = (torch.randn(*s, generator=g, device="cuda", dtype=torch.bfloat16)
+                 for s in ((528, 4, 36), (4, 320, 528, 36), (4, 320, 528, 36)))
+    anc = torch.randint(0, 528, (320, 528), generator=g, device="cuda", dtype=torch.int32)
+    pos = torch.tensor(255)
+    host_us = {}
+    for name, fn in (("op", lambda: kernel_ops.beam_attention(q, kb, vb, anc, pos)),
+                     ("wrapper", lambda: k4.beam_attention_fwd(q, kb, vb, anc, 255))):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        host_us[name] = 1e6 * (time.perf_counter() - t0) / 200
+        torch.cuda.synchronize()
+    result = {"phase": "bundles_timed", "ctc": ctc, "s2s_lm": s2s, "streaming_tick": stream,
+              "k4_call_us": host_us,
+              "export_s": {k: checked[k]["export_s"] for k in
+                           ("ctc", "s2s_lm", "s2s_mamba", "streaming")}}
+    emit(result)
+    return result
+
+
+# -- Phases side by side ---------------------------------------------------------
+# The host-bound runs and the checks that read no time, each chain in a
+# process of its own (`RankGroup("phase", ...)`, `join_beside`), beside
+# this process's own checks; every timed phase runs alone.
+
+
+def phase_parities(work):
+    """The card-against-CPU checks of the CTC, S2S, Mamba-decoder, LM and
+    Conformer paths on their YAMLs' seeded weights (`seeded_state` is the
+    same in every process)."""
+    from mamba_asr_torch.configs.loader import load_config
+
+    exp = load_config(CONFIG)
+    state = seeded_state(exp.model)
+    timed(phase_parity, exp.model, exp.frontend, state)
+    timed(phase_train_parity, exp, state)
+    s2s, mam = load_config(S2S_CONFIG), load_config(MAMBA_CONFIG)
+    s2s_state, mam_state = seeded_state(s2s.model), seeded_state(mam.model)
+    timed(phase_s2s_parity, s2s.model, s2s.frontend, s2s_state)
+    timed(phase_s2s_train_parity, s2s, s2s_state)
+    timed(phase_mamba_dec_parity, mam, mam_state)
+    timed(phase_lm_parity, s2s, s2s_state, mam, mam_state)
+    del exp, state, s2s_state, mam_state
+    conf = {path: load_config(path) for path in CONFORMER_CTC + CONFORMER_S2S}
+    timed(phase_conformer_parity, conf, {path: seeded_state(e.model) for path, e in conf.items()})
+    return {}
+
+
+def phase_s2s_floor_lm(work):
+    """The S2S floor run, then train_lm on its tokenizer and lm_floor on
+    its checkpoints."""
+    corpus = os.path.join(work, "corpus")
+    s2s_floor = timed(phase_s2s_train_to_floor, work, corpus)
+    lm_path = timed(phase_train_lm, work, s2s_floor)
+    return {"s2s_floor": s2s_floor,
+            "lm_floor_launches": timed(phase_lm_floor, work, corpus, s2s_floor, lm_path)}
+
+
+def phase_recipes(work):
+    """The CTC recipe, the CTC floor run and its bf16 check, the S2S
+    recipes of both decoders; then, once phase_s2s_floor_lm has ended (its
+    result file), recognition's CLIs on both floor runs."""
+    corpus = os.path.join(work, "corpus")
+    out = {"recipe": timed(phase_recipe, work, corpus)}
+    floor = timed(phase_train_to_floor, work, corpus)
+    timed(phase_bf16, floor)
+    out["s2s_recipe"] = timed(phase_s2s_recipe, work, corpus)
+    out["mamba_dec_recipe"] = timed(phase_mamba_dec_recipe, work, corpus)
+    path = os.path.join(work, "s2s_floor_lm.json")
+    wait_for_file(path, FLOOR_BESIDE_TIMEOUT_S)
+    with open(path) as f:
+        s2s_floor = json.load(f)["s2s_floor"]
+    timed(phase_recognize_cli, work, corpus, floor, s2s_floor)
+    return out
+
+
+# {chain: OpenMP threads}: the parities' CPU references take the most; the
+# host-bound runs are one Python thread each.
+BESIDE = {"parities": 4, "mamba_dec_train_to_floor": 2, "s2s_floor_lm": 2, "recipes": 2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4806,10 +5356,8 @@ def main() -> int:
     kb = timed(phase_kernel_bwd, cfg, clock_hz, sms)
     variants = timed(phase_scan_variants, clock_hz, sms)
     state = seeded_state(cfg)
-    timed(phase_parity, cfg, frontend, state)
     launches, rec32, batch = timed(phase_recognize, cfg, frontend, state)
     timed(phase_profile, rec32, batch)
-    timed(phase_train_parity, exp, state)
     train_launches, tr, train_batch = timed(phase_train, exp, state)
     timed(phase_train_profile, tr, train_batch)
     del tr, train_batch, rec32, batch
@@ -4818,24 +5366,20 @@ def main() -> int:
     k3 = timed(phase_kernel_ctc_dp, clock_hz, sms)
     k4 = timed(phase_kernel_beam_attn, s2s.model, clock_hz, sms)
     s2s_state = seeded_state(s2s.model)
-    timed(phase_s2s_parity, s2s.model, s2s.frontend, s2s_state)
     s2s_search, rec8, s2s_batch = timed(phase_s2s_recognize, s2s.model, s2s.frontend,
                                         s2s_state)
     per_search = s2s_search["launches_per_search"]
     timed(phase_s2s_profile, rec8, s2s_batch)
     del rec8, s2s_batch
-    timed(phase_s2s_train_parity, s2s, s2s_state)
     s2s_train_launches = timed(phase_s2s_train, s2s, s2s_state)
     mam = load_config(MAMBA_CONFIG)
     mk = timed(phase_mamba_dec_kernels, mam.model, clock_hz, sms)
     mam_state = seeded_state(mam.model)
-    timed(phase_mamba_dec_parity, mam, mam_state)
     mam_search = timed(phase_mamba_dec_recognize, mam, mam_state)
     mam_train_launches = timed(phase_mamba_dec_train, mam, mam_state)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         lmk = timed(phase_lm_kernels, s2s.decode, clock_hz, sms)
-        timed(phase_lm_parity, s2s, s2s_state, mam, mam_state)
         lm_search = timed(phase_lm_recognize, s2s, s2s_state, mam, mam_state, work,
                           s2s_search)
         cd = load_config(S2S_CONFIG, CONFORMER_DECODER)
@@ -4844,42 +5388,50 @@ def main() -> int:
         conf = {path: load_config(path) for path in CONFORMER_CTC + CONFORMER_S2S}
         ck = timed(phase_conformer_kernels, conf[CONFORMER_S2S[1]].model, clock_hz, sms)
         conf_states = {path: seeded_state(exp.model) for path, exp in conf.items()}
-        timed(phase_conformer_parity, conf, conf_states)
         conf_search = timed(phase_conformer_recognize, conf, conf_states)
         timed(phase_conformer_train, conf, conf_states)
         stream = timed(phase_streaming, exp, state, conf, conf_states, mam, mam_state,
                        clock_hz, sms)
         serving = timed(phase_serving, exp, state, s2s, s2s_state, mam, mam_state,
                         clock_hz, sms)
-        del conf_states, mam_state, s2s_state
+        del conf_states
+        torch.cuda.empty_cache()  # the card's memory is shared from here on
         corpus = timed(phase_data, work)
-        timed(phase_ctc_beam, exp)
-        recipe_launches = timed(phase_recipe, work, corpus)
-        timed(phase_distributed_recipe, work, corpus)
-        floor = timed(phase_train_to_floor, work, corpus)
-        timed(phase_bf16, floor)
-        s2s_recipe_launches = timed(phase_s2s_recipe, work, corpus)
-        # Two host-bound WER checks side by side: the Mamba floor run (its
-        # own corpus) in a process of its own beside the S2S floor run.
-        floor_beside = RankGroup("phase", work, nproc=1, args=("mamba_dec_train_to_floor",),
-                                 timeout=FLOOR_BESIDE_TIMEOUT_S)
+        floor160_corpus(work)
+        # The host-bound runs and the checks that read no time, side by
+        # side: four chains in processes of their own (BESIDE), the
+        # bundles' exports, and this process's own checks.
+        beside = {name: RankGroup("phase", work, nproc=1, args=(name,), threads=threads,
+                                  timeout=FLOOR_BESIDE_TIMEOUT_S)
+                  for name, threads in BESIDE.items()}
+        exports = start_bundle_exports(work, s2s, {"ctc": state, "s2s": s2s_state,
+                                                   "mamba": mam_state})
+        del mam_state, s2s_state
         try:
-            s2s_floor = timed(phase_s2s_train_to_floor, work, corpus)
-            # While the Mamba floor run goes on, checks that read no time.
+            timed(phase_distributed_recipe, work, corpus)
             large_exps, large_states = large_experiments()
             timed(phase_conmamba_large_parity, large_exps, large_states)
             cd_parity = timed(phase_conformer_decoder_parity, cd, cd_state)
+            bundles, bundle_ctx = timed(phase_bundles, work, exports)
         except BaseException:
-            floor_beside.kill()
+            for group in beside.values():
+                group.kill()
+            for _, proc, _ in exports.values():
+                if proc.poll() is None:
+                    proc.kill()
             raise
-        mam_floor_launches = join_phase(floor_beside, work, "mamba_dec_train_to_floor",
-                                        "s2s_train_to_floor")
+        side = join_beside(beside, work, "bundles")
+        recipe_launches = side["recipes"]["recipe"]
+        s2s_recipe_launches = side["recipes"]["s2s_recipe"]
+        mam_recipe_launches = side["recipes"]["mamba_dec_recipe"]
+        mam_floor_launches = side["mamba_dec_train_to_floor"]
+        lm_floor_launches = side["s2s_floor_lm"]["lm_floor_launches"]
+        # Every phase after this one reads time, alone on the card.
+        bundles_timed = timed(phase_bundles_timed, bundles, bundle_ctx)
+        del bundle_ctx
         large = timed(phase_conmamba_large, large_exps, large_states)
         del large_states, cd_state
-        mam_recipe_launches = timed(phase_mamba_dec_recipe, work, corpus)
-        lm_path = timed(phase_train_lm, work, s2s_floor)
-        lm_floor_launches = timed(phase_lm_floor, work, corpus, s2s_floor, lm_path)
-        timed(phase_recognize_cli, work, corpus, floor, s2s_floor)
+        timed(phase_ctc_beam, exp)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4914,6 +5466,11 @@ def main() -> int:
         "conmamba_large_launches": {
             name: e["launches_per_search"]["K1"] if "launches_per_search" in e
             else e["k1_launches_per_call"] for name, e in large.items() if name != "phase"},
+        "bundle_launches": {
+            "ctc_forward": bundles["ctc"]["k1_launches"],
+            "stream_tick": bundles_timed["streaming_tick"]["bundle"]["k1_per_tick"],
+            **{f"{name}_search": bundles[name]["launches_per_search"]["K1"]
+               for name in ("s2s_lm", "s2s_mamba")}},
     }, {
         "name": "selective_scan_fwd_train", "route": "cuda",
         "source": "mamba_asr_torch/csrc/selective_scan_fwd.cu",
@@ -4966,6 +5523,8 @@ def main() -> int:
         "conformer_decoder_launches_per_search": {
             "beam66_no_lm": cdr["launches_per_search"]["K3"],
             "beam4_lm": cd_parity["search"]["lm"]["launches"]["K3"]},
+        "bundle_launches_per_search": {name: bundles[name]["launches_per_search"]["K3"]
+                                       for name in ("s2s_lm", "s2s_mamba")},
     }, {
         "name": "beam_attention", "route": "cuda",
         "source": "mamba_asr_torch/csrc/beam_attention.cu",
@@ -4999,6 +5558,8 @@ def main() -> int:
         "conformer_decoder_launches_per_search": {
             "beam66_no_lm": cdr["launches_per_search"]["K4"],
             "beam4_lm": cd_parity["search"]["lm"]["launches"]["K4"]},
+        "bundle_launches_per_search": {name: bundles[name]["launches_per_search"]["K4"]
+                                       for name in ("s2s_lm", "s2s_mamba")},
     }] + [{
         "name": f"scan_variants_{part}", "route": "cuda",
         "source": "mamba_asr_torch/csrc/scan_variants.cu",

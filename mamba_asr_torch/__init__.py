@@ -14,8 +14,10 @@ CTC/attention beam search over the Transformer decoder
 scan-attribution tools (`tools.scan_variants`, `tools.peak_probe`).
 Later slices: the recipes, the other encoders and the LM, recognition's
 entry points and streaming, serving (`serving.engine`,
-`serving.server`, `python -m mamba_asr_torch.serve`), and multi-process
-training with sequence parallelism (`parallel`, `--distributed`).
+`serving.server`, `python -m mamba_asr_torch.serve`), multi-process
+training with sequence parallelism (`parallel`, `--distributed`), and the
+exported inference bundles (`serving.export`, `python -m
+mamba_asr_torch.export_model`, `serve --bundle`).
 """
 
 __all__ = ["resolve_device"]

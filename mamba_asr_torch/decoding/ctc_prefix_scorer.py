@@ -86,6 +86,25 @@ class CTCPrefixScorer:
         self.lpb_tn = self.lp_blank.T.contiguous()
         self.valid_tn = self.frame_valid.T.float().contiguous()
 
+    # What score and select read: a search's state carries these (an
+    # exported step program takes them as inputs, `from_tensors`).
+    TENSORS = ("lens", "bidx", "frame_valid", "p", "lp_t", "lpb_tn", "valid_tn")
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        return {name: getattr(self, name) for name in self.TENSORS}
+
+    @classmethod
+    def from_tensors(cls, tensors: Dict[str, torch.Tensor], beam: int, blank_id: int = 0,
+                     eos_id: int = 2) -> "CTCPrefixScorer":
+        """A scorer over `tensors()` of another: score and select alone."""
+        self = cls.__new__(cls)
+        for name in cls.TENSORS:
+            setattr(self, name, tensors[name])
+        self.beam, self.blank, self.eos = beam, blank_id, eos_id
+        self.n, self.t = self.frame_valid.shape
+        self.v = self.p.shape[2]
+        return self
+
     def init_state(self) -> CTCPrefixState:
         """The empty prefix: r_b(t) = the blanks' log-prob up to t."""
         cum_blank = torch.cumsum(self.lp_blank, dim=1)

@@ -73,6 +73,7 @@ from mamba_asr_torch.models.layers import (
     dense,
     dropout,
     flax_init_,
+    row_at,
     swish,
 )
 from mamba_asr_torch.models.transformer import (
@@ -480,13 +481,14 @@ class ASRModel(nn.Module):
                    else lengths_to_padding_mask(enc_lengths, enc_out.shape[1]))
         return self.decoder.prime_cache(enc_out, cache, mem_kpm)
 
-    def decode_step(self, token_t: torch.Tensor, pos: int, cache,
+    def decode_step(self, token_t: torch.Tensor, pos, cache,
                     anc: Optional[torch.Tensor] = None):
-        """One decode step: token_t (N,) at position `pos` -> (raw seq-head
-        logits (N, V) float32, cache). `anc`, the ancestor table, is the
-        Transformer decoder's alone."""
+        """One decode step: token_t (N,) at position `pos` (a host int or a
+        `ops.beam_attention.StepPos`) -> (raw seq-head logits (N,
+        V) float32, cache). `anc`, the ancestor table, is the Transformer
+        decoder's alone."""
         self._refuse_conformer_cache()
-        tgt = self.tgt_embed(token_t) + self.dec_pe[pos].to(self.cfg.dtype)
+        tgt = self.tgt_embed(token_t) + row_at(self.dec_pe, pos).to(self.cfg.dtype)
         if self.mamba_decoder:
             dec, cache = self.decoder.step(tgt, cache)
         else:

@@ -55,7 +55,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mamba_asr_torch.models.layers import dense, dropout
+from mamba_asr_torch.models.layers import dense, dropout, write_at
 from mamba_asr_torch.ops.beam_attention import beam_attention
 
 NEG_INF = -1e9
@@ -137,20 +137,21 @@ class MultiheadAttention(nn.Module):
         out = out.transpose(1, 2).reshape(bq, lq, d)
         return dense(out, self.att.out_proj, self.dtype)
 
-    def step_beam(self, x: torch.Tensor, cache: KV, pos: int,
+    def step_beam(self, x: torch.Tensor, cache: KV, pos,
                   anc: torch.Tensor) -> torch.Tensor:
         """One decode step of self-attention over the append-only cache.
 
         x (N, 1, D); cache (k_buf, v_buf), each (H, S, N, dh) in the
-        compute dtype, written in place at position `pos`; anc (S, N)
+        compute dtype, written in place at position `pos` (a host int or a
+        `ops.beam_attention.StepPos`); anc (S, N)
         int32, anc[j, n] = the buffer row that holds position j of
         hypothesis n. Returns (N, 1, D)."""
         n, _, d = x.shape
         h = self.nhead
         q, k, v = self._proj(x, 0, 3).reshape(n, 3, h, d // h).unbind(1)
         k_buf, v_buf = cache
-        k_buf[:, pos] = k.transpose(0, 1)
-        v_buf[:, pos] = v.transpose(0, 1)
+        write_at(k_buf, 1, pos, k.transpose(0, 1))
+        write_at(v_buf, 1, pos, v.transpose(0, 1))
         out = beam_attention(q.contiguous(), k_buf, v_buf, anc, pos)  # (N, H, dh)
         return dense(out.reshape(n, 1, d), self.att.out_proj, self.dtype)
 

@@ -27,6 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mamba_asr_torch.ops.beam_attention import StepPos
+
 Activation = Callable[[torch.Tensor], torch.Tensor]
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
@@ -54,6 +56,23 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.T
     y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
                      ln.bias.float(), ln.eps)
     return y.to(dtype)
+
+
+def row_at(table: torch.Tensor, pos) -> torch.Tensor:
+    """table[pos] for a host int `pos` or a `StepPos` (its `dev`, which
+    must be on the table's device)."""
+    if isinstance(pos, StepPos):
+        return table.index_select(0, pos.dev.reshape(1))[0]
+    return table[pos]
+
+
+def write_at(buf: torch.Tensor, dim: int, pos, value: torch.Tensor) -> None:
+    """buf's slice `pos` along `dim` set to value, in place; `pos` as in
+    `row_at`."""
+    if isinstance(pos, StepPos):
+        buf.index_copy_(dim, pos.dev.reshape(1), value.unsqueeze(dim))
+    else:
+        buf.select(dim, pos).copy_(value)
 
 
 def cast_copy(module, keys, dtype):

@@ -36,7 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mamba_asr_torch.models.attention import KV
-from mamba_asr_torch.models.layers import SBLinear, cast_copy, dense, flax_init_
+from mamba_asr_torch.models.layers import SBLinear, cast_copy, dense, flax_init_, row_at
 from mamba_asr_torch.models.params_import import NOT_WEIGHTS
 from mamba_asr_torch.models.transformer import (
     NormalizedEmbedding,
@@ -65,7 +65,9 @@ class TransformerLM(nn.Module):
         self.output_proj = SBLinear(d_model, vocab_size)
         self.vocab_size, self.d_model = vocab_size, d_model
         self.dtype = dtype
-        self._pe: Optional[torch.Tensor] = None
+        # The cached position table: a buffer (outside the state dict), so
+        # that an exported program takes it as an input, as it takes weights.
+        self.register_buffer("_pe", None, persistent=False)
 
     def position_table(self, length: int, device) -> torch.Tensor:
         """Rows 0..length-1 of the float32 sinusoidal table on `device`."""
@@ -90,12 +92,13 @@ class TransformerLM(nn.Module):
         dtype (zeros: the plain beam attention weighs unwritten rows by 0)."""
         return self.encoder.init_cache(n, s_cache, self.d_model, device)
 
-    def step(self, tokens: torch.Tensor, pos: int, cache: List[KV],
+    def step(self, tokens: torch.Tensor, pos, cache: List[KV],
              anc: torch.Tensor) -> torch.Tensor:
-        """tokens (N,) at position `pos` (a host int) -> logits (N, V)
+        """tokens (N,) at position `pos` (a host int or an
+        `ops.beam_attention.StepPos`; below the cache's length) -> logits (N, V)
         float32; writes this position's K/V into `cache`."""
-        x = (self.custom_src_module(tokens)
-             + self.position_table(pos + 1, tokens.device)[pos].to(self.dtype))
+        table = self.position_table(cache[0][0].shape[1], tokens.device)
+        x = self.custom_src_module(tokens) + row_at(table, pos).to(self.dtype)
         return self._logits(self.encoder.step(x, pos, cache, anc))
 
 

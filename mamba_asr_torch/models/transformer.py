@@ -243,8 +243,9 @@ class TransformerDecoder(nn.Module):
 
     def step(self, tgt_t: torch.Tensor, pos: int, cache: Cache,
              anc: torch.Tensor):
-        """One decode step: tgt_t (N, D) at position `pos` (a host int) ->
-        ((N, D), cache). The self K/V buffers are written in place."""
+        """One decode step: tgt_t (N, D) at position `pos` (a host int or a
+        `ops.beam_attention.StepPos`) -> ((N, D), cache). The self K/V
+        buffers are written in place."""
         x = tgt_t[:, None]
         for layer, c in zip(self.layers, cache["layers"]):
             x = layer(x, c["cross"], memory_key_padding_mask=cache["mem_mask"],

@@ -16,9 +16,11 @@ over positions j <= pos, in float32, returned in q's dtype.
   hypothesis' rows through the table, masked softmax over all S
   positions. Never-written rows must be finite (the caches are zero-
   filled): a masked position's zero weight times a NaN row is NaN.
-- `beam_attention`: the dispatch. CUDA tensors go to K4
-  (`kernels/beam_attention.py`, which replaces `_beam_attn_kernel`) at
-  every N, CPU tensors to the plain version. The TPU dispatch falls back
+- `beam_attention`: the `mamba_asr::beam_attention` op
+  (`kernels/ops.py`). CUDA tensors go to K4 (`kernels/beam_attention.py`,
+  which replaces `_beam_attn_kernel`) at every N, CPU tensors to the
+  plain version. `pos` is a host int or a `StepPos` (the search's step
+  index; the op takes its CPU tensor). The TPU dispatch falls back
   to the gather when its VMEM set does not fit (`_pick_h_block`); the
   Hopper kernel reads rows by gather and has no such limit.
 """
@@ -26,10 +28,25 @@ over positions j <= pos, in float32, returned in q's dtype.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
+from mamba_asr_torch.kernels import ops as kernel_ops
+
 NEG = -1e30
+
+
+class StepPos(NamedTuple):
+    """A beam step's position as two 0-d int64 tensors of one value, the
+    form an exported step program takes it in: `host` on the CPU (K4's
+    launch reads it on the host) and `dev` on the caches' device (the
+    writes and row reads index with it, `models.layers.row_at`, so no step
+    copies an index to the card, which would wait for the card's queue to
+    drain)."""
+
+    host: torch.Tensor
+    dev: torch.Tensor
 
 
 def beam_attention_ref(q: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.Tensor,
@@ -51,12 +68,10 @@ def beam_attention_ref(q: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.Tensor
 
 
 def beam_attention(q: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.Tensor,
-                   anc: torch.Tensor, pos: int) -> torch.Tensor:
-    """The plain version on a CPU tensor, K4 on a CUDA one."""
-    if q.device.type == "cpu":
-        return beam_attention_ref(q, k_buf, v_buf, anc, pos)
-    if q.device.type == "cuda":
-        from mamba_asr_torch.kernels.beam_attention import beam_attention_fwd
-
-        return beam_attention_fwd(q, k_buf, v_buf, anc, pos)
-    raise ValueError(f"no beam attention for device {q.device}")
+                   anc: torch.Tensor, pos) -> torch.Tensor:
+    """The plain version on a CPU tensor, K4 on a CUDA one: one
+    `mamba_asr::beam_attention` op. pos: a host int or a StepPos."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no beam attention for device {q.device}")
+    host = pos.host if isinstance(pos, StepPos) else torch.tensor(pos, dtype=torch.int64)
+    return kernel_ops.beam_attention(q, k_buf, v_buf, anc, host)

@@ -18,8 +18,9 @@ the scorer's finite stand-in for -inf.
   (`_linear_log_scan`); this is the same recurrence as a sequential loop
   over T. K3 composes chunks of frames (a two-level scan, as the TPU
   kernel), so the two agree to rounding in another order.
-- `ctc_dp`: the dispatch. CUDA tensors go to K3 (`kernels/ctc_dp.py`,
-  which replaces `_ctc_dp_kernel`), CPU tensors to the plain version.
+- `ctc_dp`: the `mamba_asr::ctc_dp` op (`kernels/ops.py`). CUDA tensors
+  go to K3 (`kernels/ctc_dp.py`, which replaces `_ctc_dp_kernel`), CPU
+  tensors to the plain version.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from mamba_asr_torch.kernels import ops as kernel_ops
 
 NEG = -1e30
 
@@ -54,11 +57,8 @@ def ctc_dp_ref(a_nb: torch.Tensor, grow: torch.Tensor, lpb: torch.Tensor,
 
 def ctc_dp(a_nb: torch.Tensor, grow: torch.Tensor, lpb: torch.Tensor,
            valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version on CPU tensors, K3 on CUDA ones."""
-    if a_nb.device.type == "cpu":
-        return ctc_dp_ref(a_nb, grow, lpb, valid)
-    if a_nb.device.type == "cuda":
-        from mamba_asr_torch.kernels.ctc_dp import ctc_dp_fwd
-
-        return ctc_dp_fwd(a_nb, grow, lpb, valid)
-    raise ValueError(f"no CTC prefix DP for device {a_nb.device}")
+    """The plain version on CPU tensors, K3 on CUDA ones: one
+    `mamba_asr::ctc_dp` op."""
+    if a_nb.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no CTC prefix DP for device {a_nb.device}")
+    return kernel_ops.ctc_dp(a_nb, grow, lpb, valid)

@@ -9,12 +9,13 @@ mamba_asr_tpu/ops/selective_scan.py).
 Layout is time-major (B, L, D), as in the JAX package. The scan math is
 float32 for any input dtype; the output takes u's dtype.
 
-`selective_scan` runs every call through `SelectiveScanFn`, which picks
-by device: on CPU tensors the plain versions, `selective_scan_ref`
-forward and `selective_scan_bwd_ref` backward; on CUDA tensors the
-Hopper kernels (`kernels/selective_scan.py`) or an error. Under
-`torch.no_grad()` (or when no input needs a gradient) a CUDA call is one
-inference launch of K1; with a gradient it is K1's training form, which
+`selective_scan` picks by device: on CPU tensors the plain versions,
+`selective_scan_ref` forward and `selective_scan_bwd_ref` backward; on
+CUDA tensors the Hopper kernels (`kernels/selective_scan.py`) or an
+error. Under `torch.no_grad()` (or when no input needs a gradient) a call
+is one `mamba_asr::selective_scan_fwd` op (`kernels/ops.py`): on the card
+one inference launch of K1, and the node an exported program holds. With
+a gradient it runs through `SelectiveScanFn`: K1's training form, which
 keeps the per-chunk states, and K2 in the backward.
 
 `ssm_step` is one token's update, for the decoder's cache.
@@ -26,6 +27,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from mamba_asr_torch.kernels import ops as kernel_ops
 
 Out = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -165,16 +168,17 @@ def selective_scan_bwd_ref(
 
 
 class SelectiveScanFn(torch.autograd.Function):
-    """The scan with its analytic adjoint. Forward: `selective_scan_ref`
-    on the CPU; on the card K1, in its training form when `train` (the
-    per-chunk states are the one extra residual). Backward: on the CPU
-    `selective_scan_bwd_ref`, on the card K2, given the cotangent of out
-    and, when the forward returned it, of h_last. Each gradient comes back
-    in its input's dtype; absent D, z, delta_bias or h0 get None."""
+    """The scan with its analytic adjoint, for calls that need a gradient.
+    Forward: `selective_scan_ref` on the CPU; on the card K1's training
+    form (the per-chunk states are the one extra residual). Backward: on
+    the CPU `selective_scan_bwd_ref`, on the card K2, given the cotangent
+    of out and, when the forward returned it, of h_last. Each gradient
+    comes back in its input's dtype; absent D, z, delta_bias or h0 get
+    None."""
 
     @staticmethod
     def forward(ctx, u, delta, A, B, C, D, z, delta_bias, h0,
-                delta_softplus: bool, return_last_state: bool, train: bool):
+                delta_softplus: bool, return_last_state: bool):
         args = (u, delta, A, B, C, D, z, delta_bias, delta_softplus, h0)
         h_chunks = None
         if u.device.type == "cpu":
@@ -182,19 +186,13 @@ class SelectiveScanFn(torch.autograd.Function):
         elif u.device.type == "cuda":
             from mamba_asr_torch.kernels import selective_scan as kernels
 
-            if train:
-                out, h_last, h_chunks = kernels.selective_scan_fwd_train(
-                    *args, return_last_state=return_last_state)
-            else:
-                res = kernels.selective_scan_fwd(
-                    *args, return_last_state=return_last_state)
-                out, h_last = res if return_last_state else (res, None)
+            out, h_last, h_chunks = kernels.selective_scan_fwd_train(
+                *args, return_last_state=return_last_state)
         else:
             raise ValueError(f"no selective scan for device {u.device}")
-        if train:
-            ctx.save_for_backward(u, delta, A, B, C, D, z, delta_bias, h0, h_chunks)
-            ctx.delta_softplus = delta_softplus
-            ctx.set_materialize_grads(False)
+        ctx.save_for_backward(u, delta, A, B, C, D, z, delta_bias, h0, h_chunks)
+        ctx.delta_softplus = delta_softplus
+        ctx.set_materialize_grads(False)
         if return_last_state:
             return out, h_last
         return out
@@ -217,7 +215,7 @@ class SelectiveScanFn(torch.autograd.Function):
                 u, delta, A, B, C, D, z, delta_bias, ctx.delta_softplus, h0,
                 dout, dh_last,
             )
-        return (*grads, None, None, None)
+        return (*grads, None, None)
 
 
 def selective_scan(
@@ -233,15 +231,17 @@ def selective_scan(
     h0: Optional[torch.Tensor] = None,
     return_last_state: bool = False,
 ) -> Out:
-    """Through `SelectiveScanFn`: CPU tensors -> the plain versions; CUDA
-    tensors -> the Hopper kernels, which raise on what they do not take.
-    The training form runs when grad mode is on and an input needs a
-    gradient."""
+    """CPU tensors -> the plain versions; CUDA tensors -> the Hopper
+    kernels, which raise on what they do not take. When grad mode is on
+    and an input needs a gradient, `SelectiveScanFn` (K1's training form,
+    K2 in the backward); else the `mamba_asr::selective_scan_fwd` op."""
     tensors = (u, delta, A, B, C, D, z, delta_bias, h0)
-    train = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
-    return SelectiveScanFn.apply(*tensors, delta_softplus, return_last_state,
-                                 train)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        return SelectiveScanFn.apply(*tensors, delta_softplus, return_last_state)
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no selective scan for device {u.device}")
+    out, h_last = kernel_ops.selective_scan_fwd(*tensors, delta_softplus, return_last_state)
+    return (out, h_last) if return_last_state else out
 
 
 def ssm_step(

@@ -17,13 +17,21 @@ prints `<path>\\t<transcript>` per file, with --timestamps also one
     python -m mamba_asr_torch.serve --connect HOST:PORT a.wav b.flac \\
         [--realtime] [--client_chunk_ms 320] [--timestamps]
 
+Serving an exported bundle (no model code; slots and chunk fixed at export
+by `python -m mamba_asr_torch.export_model --streaming`):
+
+    python -m mamba_asr_torch.serve --bundle <dir> [--tokenizer tok.json]
+        [--host ...] [--port ...] [--endpoint_silence S] [--device cpu]
+
 The server is `serving.engine.StreamingServer` behind
 `serving.server.AsrTcpServer`: one fixed-shape tick advances every ready
 stream. For a causal config the transcripts equal the offline greedy
 decode. `--final ctc_beam` with `decode.lm_path` set rescores the CTC
 n-best with that LM. The wire protocol is the JAX package's, so either
-package's client talks to either server. The server runs on the CUDA
-card unless --device names another, and refuses to start without one.
+package's client talks to either server. With --bundle it is
+`serving.export.ExportedStreamingServer` instead. The server runs on the
+CUDA card unless --device names another, and refuses to start without
+one.
 """
 
 from __future__ import annotations
@@ -33,7 +41,6 @@ import sys
 import time
 from typing import List, Optional
 
-BUNDLE_ITEM = "ROADMAP Queue 1 item 9 (exported bundles)"
 DATA_PARALLEL_ITEM = "ROADMAP Queue 1 item 12 (multi-card serving)"
 
 
@@ -77,7 +84,10 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--timestamps", action="store_true",
                    help="client: also print word times (a server with a final pass)")
     p.add_argument("--ckpt_dir", default="", help="experiment save dir (top-k averaged)")
-    p.add_argument("--bundle", default="", help="an exported bundle (not ported)")
+    p.add_argument("--bundle", default="",
+                   help="serve a streaming bundle (python -m mamba_asr_torch.export_model "
+                        "--streaming) with no model code; its slots and chunk are fixed "
+                        "at export")
     p.add_argument("--torch_ckpt", default="", help="reference model.ckpt")
     p.add_argument("--torch_normalizer", default="")
     p.add_argument("--tokenizer", default="")
@@ -100,11 +110,19 @@ def parser() -> argparse.ArgumentParser:
 
 def build_server(args: argparse.Namespace, extra: List[str]):
     """The AsrTcpServer of server mode, not yet started."""
-    if args.bundle:
-        raise SystemExit(f"--bundle: exported bundles are not ported ({BUNDLE_ITEM})")
     if args.data_parallel > 1:
         raise SystemExit(f"--data_parallel {args.data_parallel}: serving on several cards "
                          f"is not ported ({DATA_PARALLEL_ITEM})")
+    if args.bundle:
+        # Serving from a bundle: Python and numpy over its four programs.
+        from mamba_asr_torch.data.tokenizer import load_tokenizer
+        from mamba_asr_torch.serving.export import ExportedStreamingServer
+        from mamba_asr_torch.serving.server import AsrTcpServer
+
+        engine = ExportedStreamingServer(args.bundle, args.device)
+        tokenizer = load_tokenizer(args.tokenizer) if args.tokenizer else None
+        return AsrTcpServer(engine, tokenizer=tokenizer, host=args.host, port=args.port,
+                            endpoint_silence_s=args.endpoint_silence)
     if not args.config:
         raise SystemExit("server mode needs an hparams yaml (or --connect for client mode)")
 
@@ -153,7 +171,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         return
     server = build_server(args, extra)
     server.start()
-    print(f"serving {args.slots} slots on {server.host}:{server.port}", flush=True)
+    print(f"serving {server.engine.n_slots} slots on {server.host}:{server.port}", flush=True)
     try:
         while True:
             time.sleep(3600)

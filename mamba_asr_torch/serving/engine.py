@@ -20,8 +20,9 @@ engine.py): many independent real-time audio streams on one device.
 
 `feed` buffers audio on the host, `tick` consumes one chunk from every
 stream that has one and returns the new ids per stream id, `finish`
-flushes a stream and frees its slot, `finish_final` adds a whole-
-utterance pass over the stream's accumulated encoder output: the CTC
+flushes a stream and frees its slot (the host side of these is
+serving/slots.py's, which the exported engine shares), `finish_final`
+adds a whole-utterance pass over the stream's accumulated encoder output: the CTC
 prefix beam ("ctc_beam"; with an LM, its n-best rescored,
 decoding/rescore.py) or the joint CTC/attention search ("s2s").
 
@@ -33,10 +34,7 @@ ROADMAP Queue 1 item 12.
 
 from __future__ import annotations
 
-import contextlib
-import functools
-import time as _time
-from typing import Dict, List, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -52,6 +50,7 @@ from mamba_asr_torch.models.asr import ASRModel
 from mamba_asr_torch.models.layers import dense
 from mamba_asr_torch.models.streaming import StreamingASRSession
 from mamba_asr_torch.ops.fbank import log_mel_spectrogram
+from mamba_asr_torch.serving.slots import SlotEngine, _engine_call
 from mamba_asr_torch.training.normalizer import NormalizerState, apply_normalizer
 
 FINAL_BUCKET = 128  # finish_final pads the encoder output to a multiple of this
@@ -89,53 +88,7 @@ def tree_extract(state, idx: int):
     return tree_map(lambda a: a[idx:idx + 1].clone(), state)
 
 
-class _SlotBuffer:
-    """Host-side per-stream PCM buffer (float32 mono samples)."""
-
-    def __init__(self):
-        self.parts: List[np.ndarray] = []
-        self.size = 0
-
-    def push(self, samples: np.ndarray) -> None:
-        samples = np.asarray(samples, np.float32).reshape(-1)
-        if samples.size:
-            self.parts.append(samples)
-            self.size += samples.size
-
-    def pop(self, n: int) -> np.ndarray:
-        assert n <= self.size
-        out, got = [], 0
-        while got < n:
-            p = self.parts[0]
-            take = min(p.size, n - got)
-            out.append(p[:take])
-            if take == p.size:
-                self.parts.pop(0)
-            else:
-                self.parts[0] = p[take:]
-            got += take
-        self.size -= n
-        return np.concatenate(out) if len(out) != 1 else out[0]
-
-    def pop_all(self) -> np.ndarray:
-        if not self.parts:
-            return np.zeros((0,), np.float32)
-        out = np.concatenate(self.parts)
-        self.parts, self.size = [], 0
-        return out
-
-
-def _engine_call(fn):
-    """A public engine method: no autograd and the engine's device current,
-    in whatever thread calls it."""
-    @functools.wraps(fn)
-    def wrapped(self, *args, **kwargs):
-        with torch.no_grad(), self._device_context():
-            return fn(self, *args, **kwargs)
-    return wrapped
-
-
-class StreamingServer:
+class StreamingServer(SlotEngine):
     """Fixed-capacity slot-batched streaming recognizer.
 
     model: a streaming ASRModel (ConMamba, Conformer, Branchformer) in
@@ -168,14 +121,14 @@ class StreamingServer:
         if chunk_frames % model.cfg.downsample:
             raise ValueError("chunk_frames must be a multiple of the front end's "
                              f"downsampling factor {model.cfg.downsample}")
+        super().__init__(n_slots, chunk_frames * frontend.hop,
+                         chunk_frames // model.cfg.downsample, frontend.sample_rate,
+                         model.src_proj.weight.device)
         self.model = model
         self.frontend = frontend
         self.normalizer = normalizer
-        self.n_slots = n_slots
         self.chunk_frames = chunk_frames
-        self.device = model.src_proj.weight.device
         self.hop = frontend.hop
-        self.chunk_samples = chunk_frames * self.hop
         win = int(round(frontend.sample_rate * frontend.win_length_ms / 1000))
         self.win = min(win, frontend.n_fft)
         if self.chunk_samples < self.win:
@@ -212,14 +165,9 @@ class StreamingServer:
             assert not bad, f"state leaves without the slot dimension: {bad}"
         self._emits = self._emission_schedule([c.shape[1] for c in carries])
 
-        # Host-side slot bookkeeping.
+        # Each stream's batch-1 session (its first chunk and its flush).
         self._sessions: List[Optional[StreamingASRSession]] = [None] * n_slots
-        self._bufs: List[_SlotBuffer] = [_SlotBuffer() for _ in range(n_slots)]
-        self._promoted = [False] * n_slots
-        self._sid_of_slot: List[Optional[int]] = [None] * n_slots
-        self._slot_of_sid: Dict[int, int] = {}
-        self._next_sid = 0
-        self._pending: Dict[int, List[int]] = {}
+        self._last_enc: Optional[torch.Tensor] = None  # the last tick's encoder output
 
         # Final pass: every stream's encoder output, kept on the device.
         self.final_decode = final_decode
@@ -232,25 +180,7 @@ class StreamingServer:
             self._s2s_searcher = S2SBeamSearcher(model, beam_size=beam_size,
                                                  **self._decode_opts)
 
-        # Endpointing: the trailing blank run per slot (host bookkeeping over
-        # the argmax rows the tick already returns).
-        self._silence_frames: List[int] = [0] * n_slots
-
-        # Aggregate counters (host only; see stats()).
-        self._n_ticks = 0
-        self._n_batched_rows = 0
-        self._n_attached = 0
-        self._n_finished = 0
-        self._n_aborted = 0
-        self._audio_samples_in = 0
-        self._tokens_out = 0
-        self._tick_seconds = 0.0
-
     # ------------------------------------------------------------------
-    def _device_context(self):
-        if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
-        return contextlib.nullcontext()
 
     @staticmethod
     def _state_shapes(sess: StreamingASRSession):
@@ -296,145 +226,56 @@ class StreamingServer:
         new_state = {"tail": new_tail, "carry": tuple(new_carries), "enc": new_enc}
         return best, enc, tree_where(mask, new_state, state)
 
-    # -- session lifecycle ---------------------------------------------
-    @property
-    def free_slots(self) -> int:
-        return sum(s is None for s in self._sessions)
+    # -- the device surface (serving/slots.py) ---------------------------
+    def _open(self, slot: int) -> None:
+        acc = [] if self.final_decode is not None else None
+        self._enc_acc[slot] = acc
+        self._sessions[slot] = StreamingASRSession(
+            self.model, self.frontend, self.normalizer, self.chunk_frames, enc_sink=acc)
 
-    @_engine_call
-    def attach(self) -> int:
-        """Open a stream; returns its stream id. Raises when full."""
-        for slot, s in enumerate(self._sessions):
-            if s is None:
-                sid = self._next_sid
-                self._next_sid += 1
-                acc = [] if self.final_decode is not None else None
-                self._enc_acc[slot] = acc
-                self._sessions[slot] = StreamingASRSession(
-                    self.model, self.frontend, self.normalizer, self.chunk_frames,
-                    enc_sink=acc)
-                self._bufs[slot] = _SlotBuffer()
-                self._promoted[slot] = False
-                self._sid_of_slot[slot] = sid
-                self._slot_of_sid[sid] = slot
-                self._silence_frames[slot] = 0
-                self._n_attached += 1
-                return sid
-        raise RuntimeError(f"server full ({self.n_slots} slots)")
-
-    def feed(self, sid: int, samples: np.ndarray) -> None:
-        """Buffer PCM float32 samples for stream `sid` (host only)."""
-        self._audio_samples_in += int(np.asarray(samples).size)
-        self._bufs[self._slot_of_sid[sid]].push(samples)
-
-    def ready_slots(self) -> List[int]:
-        return [slot for slot, sess in enumerate(self._sessions)
-                if sess is not None and self._bufs[slot].size >= self.chunk_samples]
-
-    @_engine_call
-    def tick(self) -> Dict[int, List[int]]:
-        """Advance every stream that has a full chunk buffered; returns the
-        newly emitted ids by stream id (with any a concurrent finish left
-        pending)."""
-        for sid, toks in self._tick_once().items():
-            self._pending.setdefault(sid, []).extend(toks)
-        out = self._pending
-        self._pending = {}
-        self._tokens_out += sum(len(t) for t in out.values())
-        return out
-
-    def _tick_once(self) -> Dict[int, List[int]]:
-        emitted: Dict[int, List[int]] = {}
-        enc_frames = self.chunk_frames // self.model.cfg.downsample
-        steady = []
-        for slot in self.ready_slots():
-            sess = self._sessions[slot]
-            if self._promoted[slot]:
-                steady.append(slot)
-                continue
-            # A fresh stream's first chunk: the exact batch-1 session, then
-            # its state promoted into the slot row.
-            toks = sess.feed(self._bufs[slot].pop(self.chunk_samples)[None])[0]
-            # The bootstrap exposes no per-frame argmax: silence by emission.
-            self._silence_frames[slot] = 0 if toks else self._silence_frames[slot] + enc_frames
-            if toks:
-                emitted[self._sid_of_slot[slot]] = toks
-            assert self._state_shapes(sess) == self._template, (
-                "bootstrap did not land on the steady template")
-            self._promote(slot)
-
-        if steady:
-            t0 = _time.perf_counter()
-            audio = np.zeros((self.n_slots, self.chunk_samples), np.float32)
-            mask = np.zeros((self.n_slots,), bool)
-            for slot in steady:
-                audio[slot] = self._bufs[slot].pop(self.chunk_samples)
-                mask[slot] = True
-            best, enc, self._state = self._tick_fn(
-                self._state, torch.from_numpy(audio).to(self.device),
-                torch.from_numpy(mask).to(self.device))
-            best = best.cpu().numpy()
-            for slot in steady:
-                sess = self._sessions[slot]
-                sess._samples_fed += self.chunk_samples
-                sess._frames_done += self.chunk_frames
-                if self._enc_acc[slot] is not None:
-                    # A copy: a view would keep the whole tick's output alive.
-                    self._enc_acc[slot].append(enc[slot:slot + 1].clone())
-                row = best[slot]
-                nz = np.nonzero(row != 0)[0]
-                if nz.size:
-                    self._silence_frames[slot] = len(row) - 1 - int(nz[-1])
-                else:
-                    self._silence_frames[slot] += len(row)
-                toks = sess._collapse(best[slot:slot + 1])[0]
-                if toks:
-                    emitted.setdefault(self._sid_of_slot[slot], []).extend(toks)
-            self._n_ticks += 1
-            self._n_batched_rows += len(steady)
-            self._tick_seconds += _time.perf_counter() - t0
-        return emitted
-
-    def _promote(self, slot: int) -> None:
+    def _bootstrap(self, slot: int, audio: np.ndarray) -> List[int]:
+        """A fresh stream's first chunk: the exact batch-1 session, then its
+        state promoted into the slot row."""
         sess = self._sessions[slot]
+        toks = sess.feed(audio[None])[0]
+        assert self._state_shapes(sess) == self._template, (
+            "bootstrap did not land on the steady template")
         row = {"tail": torch.from_numpy(sess.audio_tail.astype(np.float32)).to(self.device),
                "carry": tuple(sess.fe_stream.carry), "enc": sess.enc_state}
         self._state = tree_insert(self._state, row, slot)
-        self._promoted[slot] = True
+        return toks
 
-    def _demote(self, slot: int) -> None:
-        row = tree_extract(self._state, slot)
+    def _steady(self, audio: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        best, self._last_enc, self._state = self._tick_fn(
+            self._state, torch.from_numpy(audio).to(self.device),
+            torch.from_numpy(mask).to(self.device))
+        return best.cpu().numpy()
+
+    def _emit(self, slot: int, best: np.ndarray) -> List[int]:
         sess = self._sessions[slot]
-        sess.audio_tail = row["tail"].cpu().numpy()
-        sess.fe_stream.carry = list(row["carry"])
-        sess.enc_state = row["enc"]
-        self._promoted[slot] = False
+        sess._samples_fed += self.chunk_samples
+        sess._frames_done += self.chunk_frames
+        if self._enc_acc[slot] is not None:
+            # A copy: a view would keep the whole tick's output alive.
+            self._enc_acc[slot].append(self._last_enc[slot:slot + 1].clone())
+        return sess._collapse(best[None])[0]
 
-    @_engine_call
-    def finish(self, sid: int) -> List[int]:
-        """Flush stream `sid` exactly (its buffered audio, the offline
-        center frames, the canonical padding), free its slot and return its
-        last new ids. Ids other streams emit meanwhile wait for the next
-        tick()."""
-        slot = self._slot_of_sid[sid]
-        # This stream's full chunks go through ticks (other ready streams
-        # advance too; their ids go pending).
-        while self._bufs[slot].size >= self.chunk_samples:
-            for s2, toks in self._tick_once().items():
-                self._pending.setdefault(s2, []).extend(toks)
-        out = list(self._pending.pop(sid, []))
+    def _flush(self, slot: int, rest: np.ndarray) -> List[int]:
+        """The row demoted back into the session, which takes the rest of
+        the audio and flushes."""
         sess = self._sessions[slot]
         if self._promoted[slot]:
-            self._demote(slot)
-        rest = self._bufs[slot].pop_all()
-        if rest.size:
-            out.extend(sess.feed(rest[None])[0])
-        out.extend(sess.finish()[0])
+            row = tree_extract(self._state, slot)
+            sess.audio_tail = row["tail"].cpu().numpy()
+            sess.fe_stream.carry = list(row["carry"])
+            sess.enc_state = row["enc"]
+            self._promoted[slot] = False
+        out = list(sess.feed(rest[None])[0]) if rest.size else []
+        return out + list(sess.finish()[0])
+
+    def _close(self, slot: int) -> None:
         self._sessions[slot] = None
-        self._sid_of_slot[slot] = None
-        del self._slot_of_sid[sid]
-        self._n_finished += 1
-        return out
+        self._enc_acc[slot] = None
 
     def _ctc_log_probs(self, enc: torch.Tensor) -> torch.Tensor:
         return F.log_softmax(dense(enc.float(), self.model.ctc_head, torch.float32), dim=-1)
@@ -467,7 +308,6 @@ class StreamingServer:
         slot = self._slot_of_sid[sid]
         acc = self._enc_acc[slot]
         tail = self.finish(sid)  # the session's enc_sink takes the flush chunks
-        self._enc_acc[slot] = None
         if not acc:
             return (tail, [], []) if want_times else (tail, [])
         enc = torch.cat(acc, dim=1)  # (1, T, d_model), compute dtype
@@ -491,42 +331,6 @@ class StreamingServer:
     def frame_seconds(self) -> float:
         """Seconds of one encoder output frame."""
         return encoder_frame_seconds(self.frontend, self.model.cfg)
-
-    def trailing_silence_s(self, sid: int) -> float:
-        """Seconds of trailing CTC silence on stream `sid`: its current run of
-        blank argmax frames (the bootstrap chunk counts by emission). A
-        server ends a stream once this passes its threshold. It advances
-        by whole chunks."""
-        return self._silence_frames[self._slot_of_sid[sid]] * self.frame_seconds
-
-    def abort(self, sid: int) -> None:
-        """Drop stream `sid` and free its slot, on the host alone: the slot's
-        row goes stale until the next stream's promote overwrites it."""
-        slot = self._slot_of_sid.pop(sid)
-        self._sessions[slot] = None
-        self._sid_of_slot[slot] = None
-        self._bufs[slot] = _SlotBuffer()
-        self._promoted[slot] = False
-        self._enc_acc[slot] = None
-        self._pending.pop(sid, None)
-        self._n_aborted += 1
-
-    def stats(self) -> Dict[str, float]:
-        """Aggregate counters (host bookkeeping, no device work): tick_ms_avg
-        covers the batched steady ticks, their sync included."""
-        return {
-            "slots": self.n_slots,
-            "active_streams": self.n_slots - self.free_slots,
-            "attached_total": self._n_attached,
-            "finished_total": self._n_finished,
-            "aborted_total": self._n_aborted,
-            "ticks_total": self._n_ticks,
-            "batched_rows_total": self._n_batched_rows,
-            "audio_seconds_in": self._audio_samples_in / self.frontend.sample_rate,
-            "tokens_out": self._tokens_out,
-            "tick_ms_avg": (self._tick_seconds / self._n_ticks * 1000
-                            if self._n_ticks else 0.0),
-        }
 
 
 def _leaves(tree) -> List:

@@ -137,18 +137,7 @@ class Recognizer:
         self.searcher = None
         if search == "s2s":
             lm = load_lm(decode, self.cfg.vocab_size, self.device)
-            self.searcher = S2SBeamSearcher(
-                self.model, beam_size=decode.s2s_test_beam_size,
-                ctc_weight=decode.ctc_weight_decode,
-                ctc_candidates=decode.ctc_candidates,
-                lm_weight=decode.lm_weight if lm is not None else 0.0,
-                temperature=decode.temperature,
-                temperature_lm=decode.temperature_lm,
-                lm_model=lm,
-                length_normalization=decode.length_normalization,
-                max_decode_ratio=decode.max_decode_ratio,
-                min_decode_ratio=decode.min_decode_ratio,
-            )
+            self.searcher = S2SBeamSearcher.from_decode(self.model, decode, lm)
 
     def eval_step(self, wav: torch.Tensor, wav_lens: torch.Tensor
                   ) -> Dict[str, torch.Tensor]:

@@ -284,15 +284,9 @@ class Trainer:
         Trainer's LM, if any. Its decode weights are cast from the model's
         as they are now."""
         d = self.cfg.decode
-        lm = self.lm if test else None
-        return S2SBeamSearcher(
-            model, beam_size=d.s2s_test_beam_size if test else d.valid_beam_size,
-            ctc_weight=d.ctc_weight_decode, ctc_candidates=d.ctc_candidates,
-            lm_weight=d.lm_weight if lm is not None else 0.0,
-            temperature=d.temperature, temperature_lm=d.temperature_lm,
-            length_normalization=d.length_normalization,
-            max_decode_ratio=d.max_decode_ratio, min_decode_ratio=d.min_decode_ratio,
-            lm_model=lm)
+        return S2SBeamSearcher.from_decode(
+            model, d, self.lm if test else None,
+            d.s2s_test_beam_size if test else d.valid_beam_size)
 
     def s2s_decoder(self, test: bool = True) -> Decoder:
         """The S2S recipes' decoder hook: the joint beam search (test or

@@ -34,8 +34,11 @@ from mamba_asr_tpu.training import metrics as jax_metrics
 from mamba_asr_torch.configs import loader
 from mamba_asr_torch.data import audio, augment, batching, dataset, librispeech, tokenizer
 from mamba_asr_torch.training import logger, metrics
+from tests._jax_native import jax_native  # noqa: F401 (the fixture)
 
 torch.set_num_threads(1)
+# The JAX package's native libraries, built and loaded without racing its tests.
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 REPO = Path(__file__).resolve().parents[1]
 WORDS = ["HELLO", "WORLD", "GOOD", "DAY", "CAT", "DOG", "IT'S"]
@@ -83,6 +86,21 @@ def test_read_audio_matches_jax_bit_for_bit(corpus):
         assert sr == jsr == 16000 and ours.dtype == theirs.dtype == np.float32
         np.testing.assert_array_equal(ours, theirs, err_msg=f)
         assert audio.audio_duration(f) == jax_audio.audio_duration(f)
+
+
+def test_flac_read_is_lossless_against_jax_wav(tmp_path):
+    """FLAC is lossless: the port's read of a FLAC file equals the JAX
+    package's read of the same samples written as WAV (numpy, no native
+    library), and both are the samples to 16 bits (written at 32767, read
+    at 1 / 32768: within two steps)."""
+    wav = np.random.default_rng(4).uniform(-1.0, 1.0, 23456).astype(np.float32)
+    audio.write_flac(str(tmp_path / "x.flac"), wav, 16000)
+    jax_audio.write_wav(str(tmp_path / "x.wav"), wav, 16000)
+    ours, sr = audio.read_audio(str(tmp_path / "x.flac"))
+    theirs, jsr = jax_audio.read_audio(str(tmp_path / "x.wav"))
+    assert sr == jsr == 16000
+    np.testing.assert_array_equal(ours, theirs)
+    np.testing.assert_allclose(ours, wav, rtol=0, atol=2.0 / 32767)
 
 
 def test_writers_match_jax_byte_for_byte(tmp_path):

@@ -736,3 +736,117 @@ def test_ctc_beam_search_on_card_matches_cpu(beam):
     live = cpu[2] > -1e29
     assert torch.equal(gpu[2] > -1e29, live)
     assert (gpu[2][live] - cpu[2][live]).abs().max().item() <= 1e-4
+
+
+# -- the registered custom ops (kernels/ops.py) ---------------------------------------
+
+
+def op_inputs(seed):
+    """K1's inputs (with h0), K3's planes and K4's (q, K, V, anc), float32
+    numpy arrays from a seed."""
+    scan = scan_inputs(seed, bsz=3, length=45, d=40, n=16)
+    scan["h0"] = np.random.default_rng(seed).normal(size=(3, 40, 16)).astype(np.float32)
+    rng = np.random.default_rng(seed + 1)
+    attn = [rng.normal(size=s).astype(np.float32) for s in ((12, 4, 36), (4, 64, 12, 36),
+                                                             (4, 64, 12, 36))]
+    attn.append(rng.integers(0, 12, (64, 12)).astype(np.int32))
+    return scan, dp_inputs(seed, t=70, n=12), attn
+
+
+def run_ops(scan, planes, attn, pos):
+    from mamba_asr_torch.kernels import ops
+
+    args = [scan[k] for k in ("u", "delta", "A", "B", "C", "D", "z", "delta_bias", "h0")]
+    return (ops.selective_scan_fwd(*args, True, True), ops.selective_scan_fwd(*args, True, False),
+            ops.ctc_dp(*planes), ops.beam_attention(*attn, pos))
+
+
+def test_ops_take_the_plain_versions_on_cpu():
+    """On CPU tensors each `mamba_asr::*` op is its plain version, exactly,
+    and launches nothing; K1's op returns an empty h_last unless asked."""
+    from mamba_asr_torch.kernels import beam_attention as k4
+    from mamba_asr_torch.kernels import ctc_dp as k3
+    from mamba_asr_torch.ops import beam_attention, ctc_dp
+
+    scan, planes, attn = op_inputs(3)
+    scan = {k: torch.from_numpy(v) for k, v in scan.items()}
+    planes = [torch.from_numpy(x) for x in planes]
+    attn = [torch.from_numpy(x) for x in attn]
+    before = (kernel.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES)
+    (out, h_last), (out2, empty), (r_nb, r_b), att = run_ops(scan, planes, attn, torch.tensor(40))
+    assert (kernel.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES) == before
+    ref, h_ref = selective_scan.selective_scan_ref(**scan, delta_softplus=True,
+                                                   return_last_state=True)
+    for got, want in ((out, ref), (h_last, h_ref), (out2, ref)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert empty.shape == (0,) and empty.dtype == torch.float32
+    for got, want in zip((r_nb, r_b), ctc_dp.ctc_dp_ref(*planes)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(att, beam_attention.beam_attention_ref(*attn, 40), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_ops_launch_their_kernels_on_card():
+    """On CUDA tensors each op launches its kernel once and agrees with its
+    plain version (K1 fp32 2e-4, K3 1e-4 + 1e-5 relative, K4 fp32 2e-5);
+    K4's position is a CPU tensor, read on the host."""
+    _card()
+    from mamba_asr_torch.kernels import beam_attention as k4
+    from mamba_asr_torch.kernels import ctc_dp as k3
+    from mamba_asr_torch.ops import beam_attention, ctc_dp
+
+    scan, planes, attn = op_inputs(5)
+    scan = {k: torch.from_numpy(v).cuda() for k, v in scan.items()}
+    planes = [torch.from_numpy(x).cuda() for x in planes]
+    attn = [torch.from_numpy(x).cuda() for x in attn]
+    before = (kernel.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES)
+    (out, h_last), (out2, empty), (r_nb, r_b), att = run_ops(scan, planes, attn, torch.tensor(40))
+    torch.cuda.synchronize()
+    assert (kernel.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES) == (before[0] + 2, before[1] + 1,
+                                                            before[2] + 1)
+    ref, h_ref = selective_scan.selective_scan_ref(**scan, delta_softplus=True,
+                                                   return_last_state=True)
+    for got, want in ((out, ref), (h_last, h_ref), (out2, ref)):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert empty.shape == (0,)
+    for got, want in zip((r_nb, r_b), ctc_dp.ctc_dp_ref(*planes)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(att, beam_attention.beam_attention_ref(*attn, 40),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_search_step_never_waits_on_the_card():
+    """A beam step of the S2S search with the LM (K3 and K4 through their
+    ops, the caches written at the step's device index) runs with no host
+    wait on the card: sync debug mode "error" raises at any. The loop's
+    one wait a step is its `finished.all()`, outside the step."""
+    _card()
+    from mamba_asr_torch.configs.loader import load_config, parse_overrides
+    from mamba_asr_torch.decoding.s2s_beam import S2SBeamSearcher
+    from mamba_asr_torch.models.asr import ASRModel, init_params_
+    from mamba_asr_torch.models.lm import TransformerLM
+    from mamba_asr_torch.models.lm import init_params_ as init_lm_
+    from mamba_asr_torch.ops.beam_attention import StepPos
+
+    exp = load_config("hparams/S2S/conmamba_small.yaml", parse_overrides([
+        "--model.d_model", "32", "--model.num_encoder_layers", "1", "--model.d_ffn", "32",
+        "--model.nhead", "2", "--model.num_decoder_layers", "2", "--model.vocab_size", "40"]))
+    model = init_params_(ASRModel(exp.model), torch.Generator().manual_seed(0)).cuda().eval()
+    lm = init_lm_(TransformerLM(40, 32, 2, 2, 32), torch.Generator().manual_seed(1)).cuda()
+    searcher = S2SBeamSearcher(model, beam_size=3, ctc_weight=0.4, ctc_candidates=6,
+                               lm_weight=0.5, lm_model=lm.eval(), max_steps_cap=6)
+    g = torch.Generator().manual_seed(2)
+    enc = torch.randn(2, 20, 32, generator=g).cuda().to(exp.model.dtype)
+    lp = torch.log_softmax(torch.randn(2, 20, 40, generator=g), -1).cuda()
+    state = searcher.init(enc, torch.tensor([20, 15]).cuda(), lp)
+    on_device = torch.arange(state["tokens"].shape[1], device="cuda")
+    for s in range(4):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state.update(searcher.step(state, StepPos(torch.tensor(s), on_device[s])))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(state["scores"]).any()

@@ -40,11 +40,14 @@ from mamba_asr_torch.ops.causal_conv1d import causal_conv1d
 from mamba_asr_torch.ops.selective_scan import selective_scan
 from mamba_asr_torch.parallel import distributed, mesh, sequence
 from mamba_asr_torch.training import trainer
+from tests._jax_native import jax_native  # noqa: F401 (the fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML = os.path.join(REPO, "hparams", "CTC", "conmamba_small.yaml")
 
 torch.set_num_threads(1)
+# The JAX package's native libraries, built and loaded without racing its tests.
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 
 # -- loader -------------------------------------------------------------------

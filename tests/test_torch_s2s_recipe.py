@@ -37,9 +37,12 @@ from mamba_asr_torch.configs.loader import load_config
 from mamba_asr_torch.models.params_import import import_asr_params
 from mamba_asr_torch.tools import train_to_floor
 from mamba_asr_torch.training import loop
+from tests._jax_native import jax_native  # noqa: F401 (the fixture)
 from tests.test_torch_recipe import _close, _jax_script, _log_rows, _tree
 
 torch.set_num_threads(1)
+# The JAX package's native libraries, built and loaded without racing its tests.
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIG = str(REPO / "hparams" / "S2S" / "conmamba_small.yaml")
