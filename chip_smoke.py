@@ -64,7 +64,13 @@ exits non-zero; it prints no result without a CUDA card):
              dropout 0.1, SpecAugment, accumulation 4) on B32 x 25 s of
              noise with ~300-token targets: 8 checked micro-steps, then
              training throughput (audio-s per wall-s, median of 3 blocks
-             of 4 micro-steps) and peak memory
+             of 4 micro-steps) and peak memory; then model.remat_layers at
+             the same batch in fp32 (TF32 off, dropout 0, SpecAugment off,
+             `deterministic_steps`): two plain micro-steps and one with
+             remat on one Trainer, the remat step's losses and
+             gradients within TRAIN_GRAD_TOL and bit-equal wherever the
+             plain ones agree, K1 48 and K2 24, wall ms and peak memory
+             above the state of each (the remat peak must be lower)
   train_profile  one such micro-step under torch.profiler
   distributed_train  multi-process training: (a) one NCCL rank on cuda:0,
              a micro-step through the port's all-reduces against the
@@ -73,13 +79,19 @@ exits non-zero; it prints no result without a CUDA card):
              card), fp32 with TF32 off, dropout 0, SpecAugment off, on
              B32 x 25 s with the last 3 rows weighted 0: (b) data
              parallel (16 and 13 real rows) and (c) sequence parallel 2
-             (half of T' each), loss and every gradient held against the
-             single-process card step as train_parity holds card and CPU;
-             K1 and K2 per rank per sp micro-step (48 each: 2 passes x 2
-             directions x 12 layers, against 24 unsharded); the sp
+             (half of T' each) and (d) pipeline parallel 2
+             (model.scan_layers on, 6 layers a stage, all 32 rows in
+             PP_MICROBATCHES = 4 microbatches), loss and every gradient
+             held against the single-process card step as train_parity
+             holds card and CPU, the gradients both ranks hold bit-equal;
+             K1 and K2 per rank per micro-step (sp 48 each: 2 passes x 2
+             directions x 12 layers; pp 48 each: 4 microbatches x 6 layers
+             x 2 directions; against 24 unsharded); the sp and then the pp
              micro-step's wall ms in bf16 with the YAML's settings, as
              audio-s per s (two ranks on one card through host-staged
-             gloo: not a scaling number)
+             gloo: not a scaling number); after the pp steps' update each
+             rank's parameter and AdamW moment bytes (below the whole
+             model's) and peak memory
   kernel_ctc_dp  the CTC prefix DP (K3) against its plain loop at T 751
              (30 s) with N 66 and 528 hypotheses, ragged N 66 and 528,
              T 1, T 2, N 1 and N 33; time, bound, the chain of dependent
@@ -126,13 +138,16 @@ exits non-zero; it prints no result without a CUDA card):
              epoch profiled (idle share); then the CLI again with one more
              epoch, which must resume from the last
   distributed_recipe  (after recipe) the CTC recipe at full width in
-             fp32 (dropout 0, SpecAugment off, 3 epochs, batches of 6 rows:
+             fp32 (dropout 0, SpecAugment off, 2 epochs, batches of 6 rows:
              one bucket plan for one process and two) through
              cli.run_training(... --distributed), what `python -m
              mamba_asr_torch.train_ctc --distributed` runs, in 2 gloo
              ranks on cuda:0, against the single-process run: per-step
              losses within 1e-4, and one save dir, train_log.txt and
-             wer_test-clean.txt, written by rank 0
+             wer_test-clean.txt, written by rank 0; beside it the same
+             with pipeline_stages 2 (2 microbatches, scan_layers on) in 2
+             more gloo ranks, held alike, and rank 0's pp checkpoint
+             resumed by a single-process loop on the card
   train_to_floor  mamba_asr_torch.tools.train_to_floor at the JAX
              script's settings (60 epochs): test WER <= 2.0 %
   bf16       the train-to-floor test set decoded with its averaged
@@ -264,7 +279,11 @@ exits non-zero; it prints no result without a CUDA card):
              bf16 recognise each as one timed block (CTC: LARGE_CTC_CALLS
              calls at B32 x 30 s after one warm-up call; S2S: a first (cold)
              and a second search at B8 x 30 s, the YAML's decode stanza,
-             each timed), RTFx, launches and peak memory
+             each timed), RTFx, launches and peak memory; then
+             CTC/conmamba_large's micro-step with the YAML's settings at
+             B8 x 60 s without and with model.remat_layers (twice each,
+             in turn): wall ms and peak memory above the state of the
+             second of each (the remat peak must be lower), K1 36 / 72
   streaming  (after conformer_train) K1 at the streaming shapes (B1
              and B4, L 1, 2, 3, 16, D288 N16, bf16 and fp32, h0 in, h_last
              out) against its plain version, timed at B1 L16; a causal
@@ -345,6 +364,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -491,9 +511,19 @@ DIST_BATCH = 32
 DIST_PAD_ROWS = 3
 DIST_TIMED_STEPS = 3
 DIST_TIMEOUT_S = 300
-DIST_RECIPE_EPOCHS = 3
+DIST_RECIPE_EPOCHS = 2
 DIST_MAX_BATCH_EX = 6
 DIST_RECIPE_RTOL = 1e-4
+# The pp recipe run's microbatches (3 rows each of a 6-row batch) and the
+# relative norm within which each tensor of its resumed checkpoint meets
+# the single-process run's: the Adam steps carry each run's rounding, which
+# biases that start at zero feel most (a CPU rehearsal at d_model 16 read
+# 2.2e-3 on a front-end norm's after 18 steps; the card 4.4e-3 after 18
+# and 7.1e-3 after 12, on layer 0's FFN LayerNorm bias); a layer in
+# another's place is off by O(1).
+DIST_RECIPE_MICROBATCHES = 2
+DIST_RESUME_RTOL = 5e-2
+PP_MICROBATCHES = 4  # the pp step's microbatches per rank: 8 rows each of dist_batch
 # Conformer-Large training (conformer_train): micro-steps at the YAML's settings.
 CONFORMER_TRAIN_STEPS = 8
 # The Mamba floor run's timeout in its process beside the S2S floor run.
@@ -506,6 +536,7 @@ PARITY_BEAM = 4  # conformer_decoder_parity's searches, card against CPU
 PARITY_MIN_DECODE_RATIO = 0.5
 CONMAMBA_LARGE = ("hparams/CTC/conmamba_large.yaml", "hparams/S2S/conmamba_large.yaml",
                   "hparams/S2S/conmambamamba_large.yaml")
+LARGE_REMAT_BATCH = (8, 60.0)  # the Large remat pair's B8 x 60 s
 LARGE_CTC_CALLS = 10  # the CTC Large YAML's one timed block
 
 
@@ -1470,6 +1501,9 @@ def phase_train(exp, state):
         torch.cuda.synchronize()
         blocks.append(4 * audio / (time.perf_counter() - t0))
     rate = statistics.median(blocks)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    remat = remat_pair(exp, state, batch)
+    launches["remat"] = remat["launches"]
     emit({"phase": "train", "batch": 32, "seconds_each": TRAIN_SECONDS,
           "audio_s_per_step": audio, "micro_steps": steps,
           "checked_seconds": seconds, "launches": launches,
@@ -1478,8 +1512,82 @@ def phase_train(exp, state):
           "throughput": {"audio_s_per_s": rate, "blocks": blocks,
                          "spread_pct": 100.0 * (max(blocks) - min(blocks)) / rate,
                          "micro_steps_per_block": 4},
-          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+          "max_memory_allocated_gb": peak_gb, "remat": remat})
     return launches, tr, batch
+
+
+def remat_steps(exp, state, batch, order, cfg=None, spec=None):
+    """Micro-steps of one Trainer (`cfg`, `spec`: exp's by default) on
+    `batch`, with model.remat_layers set per step as `order` says. Only the
+    first step updates the normaliser and the accumulation is longer than
+    the steps, so every step sees the same weights and inputs. Per step: (wall
+    ms, the peak memory above what was allocated before it in GB, its K1
+    and K2 launches, its losses, its gradients)."""
+    from mamba_asr_torch.kernels import selective_scan as kernel
+    from mamba_asr_torch.training.trainer import Trainer
+
+    train = dataclasses.replace(exp.train, grad_accumulation_factor=len(order) + 1)
+    tr = Trainer(cfg or exp.model, exp.frontend, train, spec or exp.specaug,
+                 state_dict=state, device="cuda")
+    runs = []
+    for i, remat in enumerate(order):
+        tr.model.encoder.remat = remat
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        m = tr.train_step(batch, update_norm=i == 0)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        if bool(m["updated"]):
+            raise AssertionError("remat steps: the parameters changed between steps")
+        runs.append((wall_ms, (torch.cuda.max_memory_allocated() - base) / 1e9,
+                     {"K1": kernel.LAUNCHES, "K2": kernel.BWD_LAUNCHES},
+                     [m[k] for k in m if k.startswith("loss")],
+                     [p.grad.detach().clone() for p in tr.model.parameters()]))
+    del tr
+    return runs
+
+
+def remat_pair(exp, state, batch):
+    """ConMamba-Small at `batch` (B32 x 25 s) in fp32 (TF32 off, dropout 0,
+    SpecAugment off), under `deterministic_steps`: a plain micro-step, a
+    second plain one and one with model.remat_layers, on one Trainer with
+    the same weights. The remat step's losses and gradients within
+    TRAIN_GRAD_TOL of the plain step's and bit-equal wherever the two
+    plain steps agree; K1 twice per scan (forward and recompute), K2 once;
+    the wall ms and the peak memory above the state of the second plain
+    step and of the remat step (the first plain one pays the cold start)."""
+    cfg32, spec = fp32_step_setup(exp)
+    with deterministic_steps():
+        runs = remat_steps(exp, state, batch, (False, False, True), cfg32, spec)
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    (first_ms, _, plain_launches, ref_l, ref), (plain_ms, plain_gb, _, rep_l, repeat), \
+        (ms, gb, launches, got_l, got) = runs
+    per_step = scans_per_step(cfg32)
+    if plain_launches != {"K1": per_step, "K2": per_step} or \
+            launches != {"K1": 2 * per_step, "K2": per_step}:
+        raise AssertionError(f"remat: launches {launches}, plain {plain_launches}")
+    for a, b in zip(got_l, ref_l):
+        if not abs(a.item() - b.item()) <= TRAIN_LOSS_RTOL * abs(b.item()):
+            raise AssertionError(f"remat: loss {a.item()} against {b.item()}")
+    worst = 0.0
+    for a, b in zip(got, ref):
+        scale = b.abs().max().item()
+        err = check_close("remat grad", a, b, TRAIN_GRAD_TOL[1] * scale, TRAIN_GRAD_TOL[0])
+        worst = max(worst, err / max(scale, 1e-30))
+    values, equal, off = bitwise_beyond_repeat("remat", ref_l + ref, rep_l + repeat,
+                                               got_l + got)
+    if not plain_gb > gb:
+        raise AssertionError(f"remat: peak {gb} GB not below the plain step's {plain_gb} GB")
+    return {"batch": 32, "seconds_each": TRAIN_SECONDS, "compute_dtype": "float32",
+            "first_plain_wall_ms": first_ms,
+            "plain": {"wall_ms": plain_ms, "peak_above_state_gb": plain_gb},
+            "remat": {"wall_ms": ms, "peak_above_state_gb": gb}, "launches": launches,
+            "grad_max_rel_err": worst, "values": values, "bitwise_equal": equal,
+            "max_abs_diff": off, "note": "CTC on the CPU and cuDNN deterministic "
+            "(deterministic_steps) in all three steps; TF32 off"}
 
 
 def phase_train_profile(tr, batch):
@@ -1518,7 +1626,8 @@ class RankGroup:
         self.kind, self.logs, self.procs = kind, [], []
         self.timeout = DIST_TIMEOUT_S if timeout is None else timeout
         self.t0 = time.perf_counter()
-        label = args[0] if kind == "phase" else kind  # phase groups run side by side
+        # phase and recipe groups run side by side
+        label = args[0] if kind in ("phase", "recipe") else kind
         for rank in range(nproc):
             path = os.path.join(work, f"{label}_rank{rank}.log")
             self.logs.append(path)
@@ -1591,11 +1700,15 @@ def fp32_step_setup(exp):
 
 def worker_steps(work):
     """One rank of distributed_train's steps, on cuda:0 over gloo: gloo's
-    all_reduce, broadcast and all_gather on CUDA tensors; the dp step (its 16 rows of dist_batch) and the sp 2
-    step (all 32 rows, half of T' each) in fp32, each's loss and gradients
-    saved for the parent; K1 and K2 launches of the sp micro-step; the
-    wall ms of sp 2 micro-steps with the YAML's settings (bf16, dropout,
-    SpecAugment)."""
+    all_reduce, broadcast and all_gather on CUDA tensors; the dp step (its
+    16 rows of dist_batch), the sp 2 step (all 32 rows, half of T' each)
+    and the pp 2 step (all 32 rows in PP_MICROBATCHES microbatches, 6 of
+    the 12 layers each, `model.scan_layers` on) in fp32, each's loss and
+    gradients (this rank's parameters) saved for the parent; K1 and K2
+    launches of each micro-step; the wall ms of sp 2 and then pp 2
+    micro-steps with the YAML's settings (bf16, dropout, SpecAugment), and
+    after the pp ones (an update) this rank's parameter and AdamW moment
+    bytes on the card and its peak memory."""
     import torch.distributed as dist
 
     from mamba_asr_torch.configs.loader import load_config
@@ -1623,21 +1736,23 @@ def worker_steps(work):
     out = {"backend": rt.backend, "device": str(dev)}
 
     def step(mesh, rows, name):
-        tr = Trainer(cfg32, exp.frontend, exp.train, spec, state_dict=state, device=dev,
-                     mesh=mesh)
+        cfg = dataclasses.replace(cfg32, scan_layers=mesh.pipe.size > 1)
+        tr = Trainer(cfg, exp.frontend, exp.train, spec, state_dict=state, device=dev,
+                     mesh=mesh, microbatches=PP_MICROBATCHES)
         kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
         m = tr.train_step({k: v[rows] for k, v in batch.items()})
         torch.cuda.synchronize()
         out[name] = {"losses": {k: v.item() for k, v in m.items() if k.startswith("loss")},
                      "launches": {"K1": kernel.LAUNCHES, "K2": kernel.BWD_LAUNCHES},
                      "real_rows": float(batch["weight"][rows].sum())}
-        torch.save({n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()},
-                   os.path.join(work, f"{name}_grads_rank{rank}.pt"))
+        torch.save({n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()
+                    if not p.is_meta}, os.path.join(work, f"{name}_grads_rank{rank}.pt"))
 
-    dp, sp = make_mesh(data=2), make_mesh(seq=2)
+    dp, sp, pp = make_mesh(data=2), make_mesh(seq=2), make_mesh(pipe=2)
     half = DIST_BATCH // dp.data.size
     step(dp, slice(dp.data.index * half, (dp.data.index + 1) * half), "dp")
     step(sp, slice(None), "sp")
+    step(pp, slice(None), "pp")
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default
     torch.backends.cudnn.allow_tf32 = True
     tr = Trainer(exp.model, exp.frontend, exp.train, exp.specaug, state_dict=state, device=dev,
@@ -1660,15 +1775,50 @@ def worker_steps(work):
             raise AssertionError(f"sp bf16 step: loss {m['loss'].item()}")
     out["sp_bf16"] = {"wall_ms": walls, "waited_for_parent_s": waited_s,
                       "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del tr
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = Trainer(dataclasses.replace(exp.model, scan_layers=True), exp.frontend, exp.train,
+                 exp.specaug, state_dict=state, device=dev, mesh=pp,
+                 microbatches=PP_MICROBATCHES)
+    tr.train_step(batch)  # warm
+    walls = []
+    for _ in range(DIST_TIMED_STEPS):  # with the warm step: one update at accumulation 4
+        torch.cuda.synchronize()
+        distributed.barrier("timed step")
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        if not np.isfinite(m["loss"].item()):
+            raise AssertionError(f"pp bf16 step: loss {m['loss'].item()}")
+    if tr.optimizer.gradient_step != 1:
+        raise AssertionError(f"pp bf16: {tr.optimizer.gradient_step} updates, want 1")
+    opt = tr.optimizer
+    moments = [v for st in opt.optimizer.state.values() for v in st.values()
+               if torch.is_tensor(v) and v.is_cuda]
+    out["pp_bf16"] = {
+        "wall_ms": walls,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "param_bytes": sum(p.numel() * p.element_size() for p in tr.model.parameters()
+                           if not p.is_meta),
+        "moment_bytes": sum(v.numel() * v.element_size() for v in moments),
+        "accumulator_bytes": sum(a.numel() * a.element_size() for a in opt.acc),
+        "stage_layers": list(tr.stage),
+        "whole_model_param_bytes": sum(v.numel() * v.element_size()
+                                       for v in tr.model_state().values()
+                                       if v.is_floating_point())}
     with open(os.path.join(work, f"steps_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     distributed.shutdown()
 
 
-def worker_recipe(work, argv_json):
-    """One rank of distributed_recipe: `cli.run_training(argv +
-    --distributed)`, what `python -m mamba_asr_torch.train_ctc` runs, with
-    TF32 off; rank 0 writes its per-step losses."""
+def worker_recipe(work, label, argv_json):
+    """One rank of distributed_recipe's `label` run: `cli.run_training(argv
+    + --distributed)`, what `python -m mamba_asr_torch.train_ctc` runs,
+    with TF32 off; rank 0 writes its per-step losses to
+    <label>_losses.json and the whole model's final state (gathered over
+    the stages under pp) to <label>_state.pt."""
     from mamba_asr_torch.cli import run_training
     from mamba_asr_torch.parallel import distributed
 
@@ -1676,8 +1826,10 @@ def worker_recipe(work, argv_json):
     with open(argv_json) as f:
         argv = json.load(f)
     tr = run_training(argv + ["--distributed"])
+    state = tr.step.model_state()  # collective under pp
     if distributed.is_main_process():
-        with open(os.path.join(work, "recipe_losses.json"), "w") as f:
+        torch.save(state, os.path.join(work, f"{label}_state.pt"))
+        with open(os.path.join(work, f"{label}_losses.json"), "w") as f:
             json.dump({"loss": tr.loss_history, "test": tr.test_stats}, f)
     distributed.shutdown()
 
@@ -1687,7 +1839,7 @@ def rank_worker(argv) -> int:
     if kind == "steps":
         worker_steps(work)
     elif kind == "recipe":
-        worker_recipe(work, argv[2])
+        worker_recipe(work, argv[2], argv[3])
     elif kind == "phase":  # a phase in a process of its own (`join_phase`)
         result = timed(globals()["phase_" + argv[2]], work)
         path = os.path.join(work, f"{argv[2]}.json")
@@ -1732,14 +1884,50 @@ def join_beside(groups, work, beside):
     return results
 
 
+class deterministic_steps:
+    """Within the block a micro-step on the card repeats bit for bit: the
+    CTC loss runs on the CPU (the card's CTC backward adds with atomics)
+    and cuDNN is deterministic."""
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        from mamba_asr_torch.ops import ctc
+
+        def cpu_nll(log_probs, labels, input_lengths, label_lengths, blank_id, zero_infinity):
+            nll = F.ctc_loss(log_probs.float().cpu().transpose(0, 1), labels.long().cpu(),
+                             input_lengths.long().cpu(), label_lengths.long().cpu(),
+                             blank=blank_id, reduction="none", zero_infinity=zero_infinity)
+            return nll.to(log_probs.device)
+
+        self.saved = ctc._nll, torch.backends.cudnn.deterministic
+        ctc._nll, torch.backends.cudnn.deterministic = cpu_nll, True
+        return self
+
+    def __exit__(self, *exc):
+        from mamba_asr_torch.ops import ctc
+
+        ctc._nll, torch.backends.cudnn.deterministic = self.saved
+        return False
+
+
+def bitwise_beyond_repeat(name, ref, repeat, got):
+    """Hold `got` (tensors) against `ref` wherever two plain runs (`ref`,
+    `repeat`) agree bit for bit: no value may be further from ref than the
+    plain repeat is. Returns (values, values equal, max |got - ref|)."""
+    flat = [torch.cat([t.reshape(-1).float() for t in ts]) for ts in (ref, repeat, got)]
+    spread = (flat[0] - flat[1]).abs()
+    off = (flat[2] - flat[0]).abs()
+    if bool((off > spread).any()):
+        raise AssertionError(f"{name}: {int((off > spread).sum())} values off the plain step "
+                             "beyond its own repeat")
+    return int(spread.numel()), int((off == 0).sum()), float(off.max())
+
+
 def world_of_one_nccl(exp, state):
     """(a) One NCCL rank on cuda:0: a mesh micro-step, through the port's
     all-reduces, against the plain micro-step, bit for bit wherever two
-    plain micro-steps agree bit for bit (the CTC loss runs on the CPU here,
-    since the card's CTC backward adds with atomics; cuDNN deterministic)."""
-    import torch.nn.functional as F
-
-    from mamba_asr_torch.ops import ctc
+    plain micro-steps agree bit for bit (`deterministic_steps`)."""
     from mamba_asr_torch.parallel import distributed
     from mamba_asr_torch.parallel.mesh import make_mesh
     from mamba_asr_torch.training.trainer import Trainer
@@ -1747,51 +1935,38 @@ def world_of_one_nccl(exp, state):
     cfg32, spec = fp32_step_setup(exp)
     batch = char_batch(4, 4.0, 20, 3, exp.model.vocab_size)
     batch["weight"][-1] = 0.0
-    saved_nll, saved_det = ctc._nll, torch.backends.cudnn.deterministic
-
-    def cpu_nll(log_probs, labels, input_lengths, label_lengths, blank_id, zero_infinity):
-        nll = F.ctc_loss(log_probs.float().cpu().transpose(0, 1), labels.long().cpu(),
-                         input_lengths.long().cpu(), label_lengths.long().cpu(),
-                         blank=blank_id, reduction="none", zero_infinity=zero_infinity)
-        return nll.to(log_probs.device)
-
     rt = distributed.initialize(f"localhost:{free_port()}", 1, 0, backend="nccl",
                                 device="cuda:0", timeout_s=DIST_TIMEOUT_S)
-    ctc._nll, torch.backends.cudnn.deterministic = cpu_nll, True
     try:
         runs = []
         for grid in (None, None, make_mesh()):
             tr = Trainer(cfg32, exp.frontend, exp.train, spec, state_dict=state,
                          device="cuda", mesh=grid)
-            m = tr.train_step(batch)
-            runs.append(([m[k] for k in ("loss", "loss_ctc", "grad_norm")],
-                         [p.grad.detach().clone() for p in tr.model.parameters()],
-                         list(tr.normalizer)))
+            with deterministic_steps():
+                m = tr.train_step(batch)
+            runs.append(([m[k] for k in ("loss", "loss_ctc", "grad_norm")]
+                         + [p.grad.detach().clone() for p in tr.model.parameters()]
+                         + list(tr.normalizer)))
         used = grid.world.group is not None
     finally:
-        ctc._nll, torch.backends.cudnn.deterministic = saved_nll, saved_det
         distributed.shutdown()
-    (m1, g1, n1), (m2, g2, n2), (m3, g3, n3) = runs
-    flat = [torch.cat([t.reshape(-1).float() for t in ts]) for ts in
-            (m1 + g1 + n1, m2 + g2 + n2, m3 + g3 + n3)]
-    spread = (flat[0] - flat[1]).abs()
-    off = (flat[2] - flat[0]).abs()
-    if not used or bool((off > spread).any()):
-        raise AssertionError(f"world-1 nccl step: {int((off > spread).sum())} values off the "
-                             "plain step beyond its own repeat")
-    return {"backend": rt.backend, "values": int(spread.numel()),
-            "plain_repeats_bitwise": bool((spread == 0).all()),
-            "bitwise_equal": int((off == 0).sum()), "max_abs_diff": float(off.max())}
+    if not used:
+        raise AssertionError("world-1 nccl step: the mesh step ran no collective")
+    values, equal, off = bitwise_beyond_repeat("world-1 nccl step", *runs)
+    repeats = all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    return {"backend": rt.backend, "values": values, "plain_repeats_bitwise": repeats,
+            "bitwise_equal": equal, "max_abs_diff": off}
 
 
 def phase_distributed_train(exp, state):
-    """(a) one NCCL rank; (b) 2 gloo ranks on cuda:0 data-parallel and (c)
-    sequence-parallel 2, each's fp32 step (dist_batch: B32 x 25 s, 3 rows
-    weighted 0) held against the single-process card step on the same
-    global batch with train_parity's rule (card_vs_cpu); K1 and K2 per rank
-    per sp micro-step; the sp step's wall time in bf16 with the YAML's
-    settings. Two ranks share one card through host-staged gloo: not a
-    scaling number."""
+    """(a) one NCCL rank; (b) 2 gloo ranks on cuda:0 data-parallel, (c)
+    sequence-parallel 2 and (d) pipeline-parallel 2, each's fp32 step
+    (dist_batch: B32 x 25 s, 3 rows weighted 0) held against the
+    single-process card step on the same global batch with train_parity's
+    rule (card_vs_cpu); K1 and K2 per rank per micro-step; the sp and pp
+    steps' wall time in bf16 with the YAML's settings, and the pp ranks'
+    parameter and moment bytes and peak memory. Two ranks share one card
+    through host-staged gloo: not a scaling number."""
     from mamba_asr_torch.kernels import selective_scan as kernel
 
     work = tempfile.mkdtemp(prefix="dist_steps_")
@@ -1819,32 +1994,54 @@ def phase_distributed_train(exp, state):
             with open(os.path.join(work, f"steps_rank{r}.json")) as f:
                 ranks.append(json.load(f))
         held = {}
-        for name in ("dp", "sp"):
+        for name in ("dp", "sp", "pp"):
             g = [torch.load(os.path.join(work, f"{name}_grads_rank{r}.pt"), weights_only=True)
                  for r in range(2)]
-            if any(not torch.equal(g[0][n], g[1][n]) for n in g[0]):
+            # Under pp each rank holds its own stage's layers: the gradients
+            # both hold (replicated) must be bit-equal, the stages' join them.
+            both = set(g[0]) & set(g[1])
+            if any(not torch.equal(g[0][n], g[1][n]) for n in both):
                 raise AssertionError(f"distributed_train {name}: the ranks' summed gradients "
                                      "differ")
+            whole = {**g[1], **g[0]}
+            if set(whole) != set(single["grads"]) or (name != "pp" and both != set(whole)):
+                raise AssertionError(f"distributed_train {name}: the ranks hold "
+                                     f"{len(g[0])} and {len(g[1])} of "
+                                     f"{len(single['grads'])} gradients")
             loss_errs, worst, worst_name = card_vs_cpu(
-                f"distributed_train {name}", {"losses": ranks[0][name]["losses"], "grads": g[0]},
+                f"distributed_train {name}", {"losses": ranks[0][name]["losses"], "grads": whole},
                 single)
             held[name] = {"loss": ranks[0][name]["losses"]["loss"],
                           "loss_rel_err": loss_errs["loss"], "grad_max_rel_err": worst,
                           "grad_worst_param": worst_name,
                           "real_rows_per_rank": [rk[name]["real_rows"] for rk in ranks],
-                          "launches_per_rank": [rk[name]["launches"] for rk in ranks]}
+                          "launches_per_rank": [rk[name]["launches"] for rk in ranks],
+                          "grads_per_rank": [len(x) for x in g],
+                          "replicated_grads_bitwise_equal": len(both)}
     finally:
         shutil.rmtree(work, ignore_errors=True)
     per_step = scans_per_step(cfg32)
     if plain_launches != {"K1": per_step, "K2": per_step}:
         raise AssertionError(f"distributed_train: the single-process step launched "
                              f"{plain_launches}")
-    for name, want in (("dp", per_step), ("sp", 2 * per_step)):
+    # pp: each rank runs its half of the layers on each of PP_MICROBATCHES
+    # microbatches (bubble ticks skip the stage): 4 x 6 x 2 = 48 per rank.
+    pp_want = PP_MICROBATCHES * per_step // 2
+    for name, want in (("dp", per_step), ("sp", 2 * per_step), ("pp", pp_want)):
         if any(lr != {"K1": want, "K2": want} for lr in held[name]["launches_per_rank"]):
             raise AssertionError(f"distributed_train {name}: launches "
                                  f"{held[name]['launches_per_rank']}, want {want} each")
     walls = ranks[0]["sp_bf16"]["wall_ms"]
+    pp_walls = ranks[0]["pp_bf16"]["wall_ms"]
     audio = DIST_BATCH * TRAIN_SECONDS
+    pp_mem = [{k: rk["pp_bf16"][k] for k in ("stage_layers", "param_bytes", "moment_bytes",
+                                             "accumulator_bytes", "max_memory_allocated_gb")}
+              for rk in ranks]
+    whole = ranks[0]["pp_bf16"]["whole_model_param_bytes"]
+    if any(m["param_bytes"] >= whole or m["moment_bytes"] != 2 * m["param_bytes"]
+           for m in pp_mem):
+        raise AssertionError(f"distributed_train pp: per-rank bytes {pp_mem} against the "
+                             f"whole model's {whole}")
     emit({"phase": "distributed_train", "note": "two ranks share one card through "
           "host-staged gloo: correctness and launch counts, not a scaling number; NCCL "
           "across cards is not verified (one card)",
@@ -1858,10 +2055,18 @@ def phase_distributed_train(exp, state):
                       "audio_s_per_s": audio / (statistics.median(walls) / 1e3),
                       "max_memory_allocated_gb": [rk["sp_bf16"]["max_memory_allocated_gb"]
                                                   for rk in ranks]},
+          "pp": held["pp"], "pp_microbatches": PP_MICROBATCHES,
+          "pp_launches_per_rank_per_micro_step": held["pp"]["launches_per_rank"][0],
+          "pp_bf16": {"note": "two ranks share one card: not a scaling number",
+                      "wall_ms": pp_walls, "median_ms": statistics.median(pp_walls),
+                      "audio_s_per_s": audio / (statistics.median(pp_walls) / 1e3),
+                      "per_rank": pp_mem, "whole_model_param_bytes": whole,
+                      "whole_model_moment_bytes": 2 * whole},
           "gloo": {"backend": ranks[0]["backend"], "device": ranks[0]["device"]},
           "spawn_wall_s": wall_s,
           "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad": TRAIN_GRAD_TOL}})
-    return {"sp_train_launches": held["sp"]["launches_per_rank"][0]}
+    return {"sp_train_launches": held["sp"]["launches_per_rank"][0],
+            "pp_train_launches": held["pp"]["launches_per_rank"][0]}
 
 
 def phase_distributed_recipe(work, corpus):
@@ -1869,44 +2074,60 @@ def phase_distributed_recipe(work, corpus):
     dropout 0, SpecAugment off, DIST_RECIPE_EPOCHS epochs on the tone
     corpus, batches of DIST_MAX_BATCH_EX rows: the same bucket plan for one
     process and two) through `cli.run_training(... --distributed)` in 2
-    gloo ranks on cuda:0, against the single-process run: per-step losses
-    within DIST_RECIPE_RTOL (the card's CTC backward adds with atomics),
-    one save dir and one wer_test-clean.txt, written by rank 0."""
+    gloo ranks on cuda:0 (dp), and in 2 more with pipeline_stages 2 (pp:
+    DIST_RECIPE_MICROBATCHES microbatches of each batch, scan_layers on),
+    against the single-process run: per-step losses within
+    DIST_RECIPE_RTOL (the card's CTC backward adds with atomics), one save
+    dir and one wer_test-clean.txt, written by rank 0. Then a
+    single-process loop on the card resumes rank 0's last pp checkpoint
+    (the stages gathered into a single process's layout): the epoch after
+    the last, every tensor bit-equal to the pp ranks' final model, and
+    each within DIST_RESUME_RTOL (relative norm) of the single-process
+    run's last checkpoint."""
     from mamba_asr_torch import cli
+    from mamba_asr_torch.training.loop import Trainer as LoopTrainer
 
     def argv(out):
         return recipe_args(corpus, out, DIST_RECIPE_EPOCHS) + [
             "--model.compute_dtype", "float32", "--model.dropout", "0.0",
             "--specaug.enabled", "false", "--data.max_batch_ex", str(DIST_MAX_BATCH_EX)]
 
-    one_out, two_out = os.path.join(work, "dist_one"), os.path.join(work, "dist_two")
-    args_path = os.path.join(work, "dist_argv.json")
-    with open(args_path, "w") as f:  # both ranks on cuda:0 (gloo)
-        json.dump(argv(two_out) + ["--device", "cuda:0"], f)
-    group = RankGroup("recipe", work, args=(args_path,))  # beside the single process
+    outs = {name: os.path.join(work, f"dist_{name}") for name in ("one", "dp", "pp")}
+    flags = {"dp": [], "pp": ["--parallel.pipeline_stages", "2", "--model.scan_layers", "true",
+                              "--parallel.pipeline_microbatches",
+                              str(DIST_RECIPE_MICROBATCHES)]}
+    groups = {}
     try:
+        for name, extra in flags.items():  # both ranks on cuda:0 (gloo)
+            args_path = os.path.join(work, f"dist_{name}_argv.json")
+            with open(args_path, "w") as f:
+                json.dump(argv(outs[name]) + extra + ["--device", "cuda:0"], f)
+            # one thread a rank: the chains beside them are bound by the host's cores
+            groups[name] = RankGroup("recipe", work, args=(f"recipe_{name}", args_path),
+                                     threads=1)
         torch.backends.cudnn.allow_tf32 = False
         t0 = time.perf_counter()
-        one = cli.run_training(argv(one_out))
+        one = cli.run_training(argv(outs["one"]))
         one_s = time.perf_counter() - t0
         torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
     except BaseException:
-        group.kill()
+        for group in groups.values():
+            group.kill()
         raise
-    wall_s = group.wait()
+    try:
+        walls = {name: groups[name].wait() for name in flags}
+    finally:
+        for group in groups.values():
+            group.kill()
     cfg = one.cfg
     csv_path = os.path.join(cfg.output_folder, "manifests", cfg.data.train_csv)
+    # The CLI's divisors: lcm(data x microbatches, processes), 2 for dp and pp.
+    divisors = (1, 2, math.lcm(DIST_RECIPE_MICROBATCHES, 2))
     plans = [cli.train_loader(cfg, csv_path, one.tokenizer, batch_divisor=d).plan.buckets
-             for d in (1, 2)]
-    if plans[0] != plans[1]:
+             for d in divisors]
+    if any(p != plans[0] for p in plans):
         raise AssertionError(f"distributed_recipe: the bucket plans differ: {plans}")
-    with open(os.path.join(work, "recipe_losses.json")) as f:
-        two = json.load(f)
-    got, want = np.array(two["loss"]), np.array(one.loss_history)
-    if got.shape != want.shape or not np.all(np.abs(got - want) <= DIST_RECIPE_RTOL
-                                             * np.abs(want)):
-        raise AssertionError(f"distributed_recipe: losses {got.tolist()} vs {want.tolist()}")
-    two_dir = one.cfg.output_folder.replace(one_out, two_out)
+    want = np.array(one.loss_history)
 
     def files(d):
         with open(os.path.join(d, "train_log.txt")) as f:
@@ -1914,20 +2135,67 @@ def phase_distributed_recipe(work, corpus):
         return (sorted(os.listdir(d)), len(os.listdir(os.path.join(d, "save"))),
                 len(rows), sum(r.startswith("test_set") for r in rows))
 
-    layout = {"one": files(one.cfg.output_folder), "two": files(two_dir)}
-    if layout["one"] != layout["two"] or layout["two"][3] != 1 or \
-            "wer_test-clean.txt" not in layout["two"][0]:
-        raise AssertionError(f"distributed_recipe: files {layout}")
+    res, layout = {}, {"one": files(cfg.output_folder)}
+    for name in flags:
+        with open(os.path.join(work, f"recipe_{name}_losses.json")) as f:
+            res[name] = json.load(f)
+        got = np.array(res[name]["loss"])
+        if got.shape != want.shape or not np.all(np.abs(got - want) <= DIST_RECIPE_RTOL
+                                                 * np.abs(want)):
+            raise AssertionError(f"distributed_recipe {name}: losses {got.tolist()} vs "
+                                 f"{want.tolist()}")
+        res[name]["got"] = got
+        layout[name] = files(cfg.output_folder.replace(outs["one"], outs[name]))
+        if layout["one"] != layout[name] or layout[name][3] != 1 or \
+                "wer_test-clean.txt" not in layout[name][0]:
+            raise AssertionError(f"distributed_recipe {name}: files {layout}")
+    # Rank 0's pp checkpoint, resumed in one process on the card, against
+    # the single-process run's last.
+    states = {}
+    for name in ("one", "pp"):
+        resumed = LoopTrainer(dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, output_folder=outs[name])), None, device="cuda")
+        resumed.init_state()
+        if resumed.start_epoch != DIST_RECIPE_EPOCHS + 1:
+            raise AssertionError(f"distributed_recipe {name}: resumed at epoch "
+                                 f"{resumed.start_epoch}")
+        states[name] = resumed.step.model_state()
+        del resumed
+    final = torch.load(os.path.join(work, "recipe_pp_state.pt"))
+    if states["pp"].keys() != states["one"].keys() or states["pp"].keys() != final.keys():
+        raise AssertionError("distributed_recipe pp: the checkpoint's keys differ")
+    unequal = [k for k, v in states["pp"].items() if not torch.equal(v, final[k])]
+    if unequal:
+        raise AssertionError(f"distributed_recipe pp: the resumed checkpoint differs from "
+                             f"the ranks' final model in {unequal[:5]}")
+    resume_err = {k: float(torch.linalg.vector_norm((v - states["one"][k]).double())
+                           / max(float(torch.linalg.vector_norm(states["one"][k].double())),
+                                 1e-30))
+                  for k, v in states["pp"].items() if v.is_floating_point()}
+    worst = max(resume_err, key=resume_err.get)
+    if not resume_err[worst] <= DIST_RESUME_RTOL:
+        raise AssertionError(f"distributed_recipe pp: resumed {worst} off by "
+                             f"{resume_err[worst]} (relative norm)")
+    runs = {}
+    for name in flags:
+        got = res[name]["got"]
+        runs[name] = {
+            "loss_max_rel_err": float(np.max(np.abs(got - want) / np.abs(want))),
+            "losses": got.tolist(), "test": res[name]["test"].get("test-clean"),
+            "files": {"entries": layout[name][0], "checkpoints": layout[name][1],
+                      "log_rows": layout[name][2], "test_rows": layout[name][3]},
+            "wall_s": walls[name]}
+    runs["pp"].update(microbatches=DIST_RECIPE_MICROBATCHES, resumed_in_one_process={
+        "epoch": DIST_RECIPE_EPOCHS, "tensors": len(resume_err),
+        "bitwise_equal_to_final": len(final),
+        "max_rel_norm_err": resume_err[worst], "worst": worst, "rtol": DIST_RESUME_RTOL})
     emit({"phase": "distributed_recipe", "epochs": DIST_RECIPE_EPOCHS,
-          "micro_steps": len(want), "loss_max_rel_err": float(
-              np.max(np.abs(got - want) / np.abs(want))), "rtol": DIST_RECIPE_RTOL,
-          "losses_one": want.tolist(), "losses_two": got.tolist(),
-          "test_one": one.test_stats["test-clean"], "test_two": two["test"].get("test-clean"),
-          "files": {"entries": layout["two"][0], "checkpoints": layout["two"][1],
-                    "log_rows": layout["two"][2], "test_rows": layout["two"][3]},
+          "micro_steps": len(want), "rtol": DIST_RECIPE_RTOL,
+          "losses_one": want.tolist(), "test_one": one.test_stats["test-clean"],
+          "dp": runs["dp"], "pp": runs["pp"],
           "bucket_plan": [dataclasses.astuple(b) for b in plans[0]],
-          "one_process_s": one_s, "two_process_s": wall_s,
-          "note": "the two runs side by side on one card and host"})
+          "one_process_s": one_s,
+          "note": "the three runs side by side on one card and host"})
 
 
 # -- S2S joint CTC/attention beam recognition (K3, K4) -------------------------
@@ -4641,8 +4909,36 @@ def phase_conmamba_large(exps, states):
             "decoder": cfg.decoder_module if cfg.num_decoder_layers else None,
             "compute_dtype": cfg.compute_dtype, **entry,
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    result["remat"] = large_remat(exps[CONMAMBA_LARGE[0]], states[CONMAMBA_LARGE[0]])
     emit(result)
     return result
+
+
+@torch.enable_grad()  # phase_conmamba_large runs under no_grad
+def large_remat(exp, state):
+    """CTC/conmamba_large with the YAML's settings (bf16, dropout,
+    SpecAugment) at LARGE_REMAT_BATCH: micro-steps of one Trainer without
+    and with model.remat_layers, in turn, twice; the second of each gives
+    its wall ms and its peak memory above the weights and optimizer
+    state. K1 twice per scan with remat, K2 once."""
+    bsz, seconds = LARGE_REMAT_BATCH
+    batch = char_batch(bsz, seconds, 600, 7, exp.model.vocab_size)
+    order = (False, True, False, True)
+    runs = remat_steps(exp, state, batch, order)
+    per_step = scans_per_step(exp.model)
+    for (_, _, launches, losses, _), remat in zip(runs, order):
+        if launches != {"K1": per_step * (2 if remat else 1), "K2": per_step}:
+            raise AssertionError(f"conmamba_large remat={remat}: launches {launches}")
+        if not all(np.isfinite(v.item()) for v in losses):
+            raise AssertionError(f"conmamba_large remat={remat}: losses {losses}")
+    (plain_ms, plain_gb, *_), (ms, gb, launches, *_) = runs[2], runs[3]
+    if not plain_gb > gb:
+        raise AssertionError(f"conmamba_large: remat peak {gb} GB not below {plain_gb} GB")
+    return {"config": CONMAMBA_LARGE[0], "batch": bsz, "seconds_each": seconds,
+            "compute_dtype": exp.model.compute_dtype,
+            "first_walls_ms": [runs[0][0], runs[1][0]],
+            "plain": {"wall_ms": plain_ms, "peak_above_state_gb": plain_gb},
+            "remat": {"wall_ms": ms, "peak_above_state_gb": gb}, "launches": launches}
 
 
 def phase_conmamba_large_parity(exps, states):
@@ -5465,7 +5761,8 @@ def main() -> int:
             cdr["launches_per_search"]["K1"],
         "conmamba_large_launches": {
             name: e["launches_per_search"]["K1"] if "launches_per_search" in e
-            else e["k1_launches_per_call"] for name, e in large.items() if name != "phase"},
+            else e["k1_launches_per_call"] for name, e in large.items()
+            if name not in ("phase", "remat")},
         "bundle_launches": {
             "ctc_forward": bundles["ctc"]["k1_launches"],
             "stream_tick": bundles_timed["streaming_tick"]["bundle"]["k1_per_tick"],
@@ -5481,6 +5778,9 @@ def main() -> int:
         "bound_ms": fwd_train["bound_ms"], "bound_by": fwd_train["bound_by"],
         "library_ms": None, "s2s_train_launches": s2s_train_launches["K1"],
         "sp_train_launches": dist["sp_train_launches"]["K1"],
+        "pp_train_launches_per_rank": dist["pp_train_launches"]["K1"],
+        "remat_train_launches": train_launches["remat"]["K1"],
+        "conmamba_large_remat_train_launches": large["remat"]["launches"]["K1"],
         "mamba_dec_train_launches": mam_train_launches["K1"],
         "mamba_dec": {name: {"shape": mk[name]["shape"], "ms": mk[name]["fwd_train_ms"],
                              "plain_ms": mk[name]["fwd_plain_ms"],
@@ -5497,6 +5797,9 @@ def main() -> int:
         "recipe_launches": recipe_launches["K2"],
         "s2s_train_launches": s2s_train_launches["K2"],
         "sp_train_launches": dist["sp_train_launches"]["K2"],
+        "pp_train_launches_per_rank": dist["pp_train_launches"]["K2"],
+        "remat_train_launches": train_launches["remat"]["K2"],
+        "conmamba_large_remat_train_launches": large["remat"]["launches"]["K2"],
         "s2s_recipe_launches": s2s_recipe_launches["K2"],
         "mamba_dec_train_launches": mam_train_launches["K2"],
         "mamba_dec_recipe_launches": mam_recipe_launches["K2"],

@@ -23,10 +23,15 @@ writing wer_<split>.txt. It runs on the CUDA card unless `--device cpu`
 each process calls `parallel.distributed.initialize()` (MASR_COORDINATOR,
 MASR_NUM_PROCESSES, MASR_PROCESS_ID, or torchrun's variables; NCCL on
 cards, gloo on the CPU, MASR_BACKEND=gloo for ranks sharing a card), the
-ranks form the (data, seq) grid of the `parallel` stanza, rank 0
+ranks form the (data, seq, pipe) grid of the `parallel` stanza, rank 0
 prepares the manifests and fits the tokenizer (and builds the CUDA
 kernels) with a barrier after each, and each rank loads its rows of every
-global batch, whose size is a multiple of lcm(data axis, process count).
+global batch (the ranks of a seq or pipe line the same rows), whose size
+is a multiple of lcm(data axis, process count), and under pipeline
+parallelism of lcm(data axis x pipeline_microbatches, process count), so
+that each rank's rows split into the microbatches. JAX's CLI rounds to
+lcm(data axis, process count) alone, so its pipeline can meet a batch it
+cannot split (ROADMAP Queue 3).
 
 `restore_asr_state` gives recognition's entry points (recognize.py,
 evaluate.py) and export_torch.py their model and normaliser: the
@@ -211,9 +216,10 @@ def run_training(argv: Optional[List[str]] = None) -> Trainer:
 
             build.build_all()
         distributed.barrier("kernel_build")
-    # A single process meets sequence_parallel > 1 here too: make_mesh raises.
-    sp = cfg.parallel.sequence_parallel
-    mesh = make_mesh(seq=sp) if multi or sp > 1 else None
+    # A single process meets sequence_parallel or pipeline_stages > 1 here
+    # too: make_mesh raises.
+    sp, pp = cfg.parallel.sequence_parallel, cfg.parallel.pipeline_stages
+    mesh = make_mesh(seq=sp, pipe=pp) if multi or sp > 1 or pp > 1 else None
     trainer = Trainer(cfg, tokenizer, device=device, lm=lm, mesh=mesh)
 
     valid_loader = None
@@ -222,10 +228,12 @@ def run_training(argv: Optional[List[str]] = None) -> Trainer:
             cfg, os.path.join(manifest_dir, cfg.data.dev_splits[0] + ".csv"), tokenizer)
     if mesh is None:
         loader = train_loader(cfg, train_csv, tokenizer)
-    else:  # the ranks of one seq line load the same rows
+    else:  # the ranks of one seq or pipe line load the same rows
+        # Under pp each rank's rows split into pipeline_microbatches.
+        rows = mesh.data.size * (cfg.parallel.pipeline_microbatches if pp > 1 else 1)
         loader = train_loader(
             cfg, train_csv, tokenizer,
-            batch_divisor=math.lcm(mesh.data.size, distributed.process_count()),
+            batch_divisor=math.lcm(rows, distributed.process_count()),
             process_index=mesh.data.index, process_count=mesh.data.size)
     trainer.fit(loader, valid_loader)
     for split in cfg.data.test_splits:

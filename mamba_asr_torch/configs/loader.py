@@ -6,9 +6,11 @@ The stanzas are `name`, `seed`, `model`, `frontend`, `train`, `specaug`,
 `data`, `decode` and `parallel`, with every field and default of the JAX
 package's. `--section.key value` overrides are applied to the YAML
 before it is read and are type-coerced from the dataclass fields. Of the
-`parallel` stanza, `sequence_parallel` is ported (ConMamba only, without
-dynamic chunks); `tensor_parallel > 1` and `pipeline_stages > 1` raise,
-naming the ROADMAP items that will take them.
+`parallel` stanza, `sequence_parallel` (ConMamba only, without dynamic
+chunks) and `pipeline_stages` with `pipeline_microbatches` (ConMamba with
+`scan_layers`, a layer count the stages divide, neither sequence
+parallelism nor dynamic chunks) are ported; `tensor_parallel > 1` raises,
+naming the ROADMAP item that will take it.
 """
 
 from __future__ import annotations
@@ -22,10 +24,12 @@ import yaml
 
 from mamba_asr_torch.models.asr import ASRConfig
 from mamba_asr_torch.models.mamba import MambaConfig
-from mamba_asr_torch.parallel.encoder_parallel import check_sequence_parallel
+from mamba_asr_torch.parallel.encoder_parallel import (
+    check_pipeline_parallel,
+    check_sequence_parallel,
+)
 from mamba_asr_torch.training.trainer import SpecAugmentConfig, TrainConfig
 
-PIPELINE_ITEM = "ROADMAP Queue 1 item 10 (pipeline parallelism)"
 TENSOR_ITEM = "ROADMAP Queue 1 item 11 (tensor parallelism)"
 
 
@@ -109,12 +113,13 @@ class DecodeConfig:
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
     """The process grid of multi-process training (a copy of the JAX
-    package's ParallelConfig): data axis = ranks / sequence_parallel.
-    sequence_parallel shards the ConMamba encoder's time axis over that
-    many ranks (parallel/encoder_parallel.py). tensor_parallel and
-    min_shard_elements (tensor parallelism), pipeline_stages and
-    pipeline_microbatches (pipeline parallelism) load, but more than one
-    tensor shard or stage raises."""
+    package's ParallelConfig): data axis = ranks / (sequence_parallel *
+    pipeline_stages). sequence_parallel shards the ConMamba encoder's time
+    axis over that many ranks; pipeline_stages splits its layers into
+    that many stages run on the GPipe schedule over pipeline_microbatches
+    microbatches of each rank's batch (parallel/encoder_parallel.py).
+    tensor_parallel and min_shard_elements (tensor parallelism) load, but
+    more than one tensor shard raises."""
 
     tensor_parallel: int = 1
     min_shard_elements: int = 16384
@@ -192,17 +197,21 @@ def load_config(path: str, overrides: Optional[Dict[str, Any]] = None
 
 
 def check_parallel(exp: ExperimentConfig) -> None:
-    """Raise on a parallel stanza the port cannot train: tensor or
-    pipeline parallelism (not ported), or sequence parallelism on an
-    encoder other than ConMamba or with dynamic-chunk training."""
+    """Raise on a parallel stanza the port cannot train: tensor
+    parallelism (not ported), sequence parallelism on an encoder other
+    than ConMamba or with dynamic-chunk training, or pipeline parallelism
+    where `check_pipeline_parallel` refuses it. More stages than a data
+    line's ranks is the grid's error (`parallel/mesh.py:make_mesh`)."""
     par = exp.parallel
     if par.tensor_parallel > 1:
         raise NotImplementedError(f"parallel.tensor_parallel={par.tensor_parallel}: {TENSOR_ITEM} "
                                   "is not ported")
     if par.pipeline_stages > 1:
-        raise NotImplementedError(f"parallel.pipeline_stages={par.pipeline_stages}: "
-                                  f"{PIPELINE_ITEM} is not ported")
-    if par.sequence_parallel > 1:
+        m = exp.model
+        check_pipeline_parallel(m.encoder_module, m.scan_layers, m.num_encoder_layers,
+                                par.pipeline_stages, par.sequence_parallel,
+                                exp.train.dynchunk_size)
+    elif par.sequence_parallel > 1:
         check_sequence_parallel(exp.model.encoder_module, exp.train.dynchunk_size)
 
 

@@ -122,9 +122,12 @@ class ASRConfig:
     """Model hyperparameters, a copy of the JAX package's ASRConfig so that
     every hparams YAML loads. `scan_layers` is a JAX compile-time device
     and changes nothing here (`params_import` accepts params of either
-    layout). `remat_layers` (recompute the encoder layers' activations in
-    the backward) is not ported yet and does nothing: a model that sets it
-    keeps every activation (ROADMAP Queue 1 item 14)."""
+    layout; pipeline parallelism asks for it, as JAX's does).
+    `remat_layers` recomputes each layer's activations of the ConMamba,
+    Conformer and Branchformer stacks in the backward instead of keeping
+    them (`models/layers.py:run_layer`): memory, not math. JAX acts on it
+    only together with `scan_layers`; the port has one layout and acts on
+    it alone (a departure: ROADMAP Queue 3)."""
 
     vocab_size: int = 31
     n_mels: int = 80
@@ -203,17 +206,17 @@ def build_encoder(cfg: ASRConfig) -> nn.Module:
             d_ffn=cfg.d_ffn, kernel_size=cfg.kernel_size,
             activation=act, bias=cfg.bias, causal=cfg.causal,
             mamba_cfg=cfg.mamba, bidirectional=cfg.bidirectional,
-            dtype=dt, dropout=cfg.dropout,
+            dtype=dt, dropout=cfg.dropout, remat=cfg.remat_layers,
         )
     if mod == "conformer":
         return ConformerEncoder(
             cfg.num_encoder_layers, cfg.d_model, cfg.d_ffn, cfg.nhead, cfg.kernel_size,
-            act, cfg.bias, cfg.causal, cfg.attention_type, dt, cfg.dropout)
+            act, cfg.bias, cfg.causal, cfg.attention_type, dt, cfg.dropout, cfg.remat_layers)
     if mod == "branchformer":
         return BranchformerEncoder(
             cfg.num_encoder_layers, cfg.d_model, cfg.nhead, cfg.kernel_size,
             cfg.csgu_linear_units, cfg.use_linear_after_conv, cfg.gate_activation, act,
-            cfg.causal, cfg.attention_type, dt, cfg.dropout)
+            cfg.causal, cfg.attention_type, dt, cfg.dropout, cfg.remat_layers)
     if mod == "transformer":
         # JAX passes neither causal, layerdrop nor the FFN type (asr.py:223-234).
         return TransformerEncoder(

@@ -50,6 +50,7 @@ from mamba_asr_torch.models.layers import (
     dynamic_chunk_depthwise,
     layer_norm,
     make_layer_norm,
+    run_layer,
     stream_stack,
 )
 from mamba_asr_torch.models.transformer import get_lookahead_mask
@@ -219,8 +220,10 @@ class BranchformerEncoder(nn.Module):
                  csgu_linear_units: int = 3072, use_linear_after_conv: bool = False,
                  gate_activation: str = "identity", activation: Activation = F.gelu,
                  causal: bool = False, attention_type: str = "RelPosMHAXL",
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList([
             BranchformerEncoderLayer(d_model, nhead, kernel_size, csgu_linear_units,
                                      use_linear_after_conv, gate_activation, activation,
@@ -238,7 +241,8 @@ class BranchformerEncoder(nn.Module):
         chunk_size the CSGU's conv chunks (JAX `branchformer.py:456-467`)."""
         out = src
         for layer in self.layers:
-            out = layer(out, src_mask, src_key_padding_mask, pos_embs, chunk_size)
+            out = run_layer(layer, self.remat, out, src_mask, src_key_padding_mask,
+                            pos_embs, chunk_size)
         return layer_norm(out, self.norm.norm, self.dtype)
 
     def init_stream_state(self, batch: int, device=None) -> list:

@@ -64,6 +64,7 @@ from mamba_asr_torch.models.layers import (
     dropout,
     layer_norm,
     make_layer_norm,
+    run_layer,
     stream_stack,
     swish,
 )
@@ -157,8 +158,10 @@ class ConformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, d_ffn: int, nhead: int,
                  kernel_size: int = 31, activation: Activation = swish, bias: bool = True,
                  causal: bool = False, attention_type: str = "RelPosMHAXL",
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList([
             ConformerEncoderLayer(d_model, d_ffn, nhead, kernel_size, activation, bias,
                                   causal, attention_type, dtype, dropout)
@@ -175,7 +178,8 @@ class ConformerEncoder(nn.Module):
         chunk_size its conv chunks (JAX `conformer.py:112-133, 251-262`)."""
         out = src
         for layer in self.layers:
-            out = layer(out, src_mask, src_key_padding_mask, pos_embs, chunk_size)
+            out = run_layer(layer, self.remat, out, src_mask, src_key_padding_mask,
+                            pos_embs, chunk_size)
         return layer_norm(out, self.norm.norm, self.dtype)
 
     def init_stream_state(self, batch: int, device=None) -> list:

@@ -10,8 +10,10 @@ hidden layer and the conv module (models/layers.py); the Mamba block has
 none (reference Conmamba.py:670). The padding mask is dropped, as the reference zeroes the conv mask.
 ConmambaEncoder: the layer stack (a ModuleList; the JAX package's
 `scan_layers` is a compile-time layout that the port does not need) and
-a final LN. Streaming: `init_stream_state` and `forward_chunk` carry
-each layer's Mamba state and conv tail across chunks.
+a final LN; `remat` recomputes each layer's activations in the backward
+(`models/layers.py:run_layer`). Streaming: `init_stream_state` and
+`forward_chunk` carry each layer's Mamba state and conv tail across
+chunks.
 
 MambaDecoderLayer (reference Conmamba.py:854-934, always pre-LN and
 unidirectional), with dropout on the three residual branches in train()
@@ -43,6 +45,7 @@ from mamba_asr_torch.models.layers import (
     dropout,
     layer_norm,
     make_layer_norm,
+    run_layer,
     stream_stack,
     swish,
 )
@@ -114,8 +117,9 @@ class ConmambaEncoder(nn.Module):
                  bias: bool = True, causal: bool = False,
                  mamba_cfg: MambaConfig = MambaConfig(),
                  bidirectional: bool = True, dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList([
             ConmambaEncoderLayer(d_model, d_ffn, kernel_size, activation, bias,
                                  causal, mamba_cfg, bidirectional, dtype, dropout)
@@ -130,10 +134,11 @@ class ConmambaEncoder(nn.Module):
         `conmamba.py:195-204`); the Mamba blocks still scan every frame.
         seq: src is this rank's time shard of a sequence sharded over the
         seq axis (parallel/encoder_parallel.py); every layer's Mamba block
-        and conv module reach the neighbouring shards through it."""
+        and conv module reach the neighbouring shards through it. With
+        `remat`, each layer is recomputed in the backward (`run_layer`)."""
         out = src
         for layer in self.layers:
-            out = layer(out, chunk_size, seq)
+            out = run_layer(layer, self.remat, out, chunk_size, seq)
         return layer_norm(out, self.norm.norm, self.dtype)
 
     def init_stream_state(self, batch: int, device=None) -> list:

@@ -26,6 +26,7 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from mamba_asr_torch.ops.beam_attention import StepPos
 
@@ -115,6 +116,20 @@ def stream_stack(encoder: nn.Module, x: torch.Tensor, state: list):
         x, s = layer.forward_chunk(x, s)
         new.append(s)
     return layer_norm(x, encoder.norm.norm, encoder.dtype), new
+
+
+def run_layer(layer: nn.Module, remat: bool, *args) -> torch.Tensor:
+    """`layer(*args)`; with `remat` in train() mode under grad, through a
+    non-reentrant `torch.utils.checkpoint` (the JAX package's `nn.remat`
+    of its stacked body, `models/stacking.py:84-134`): the backward
+    recomputes the layer's activations instead of keeping them.
+    preserve_rng_state replays the forward's dropout draws in the
+    recompute from the generator state the forward began with, also where
+    that state was a `DeviceRngStream`'s whose swap has ended since."""
+    if remat and layer.training and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(layer, *args, use_reentrant=False,
+                                                 preserve_rng_state=True)
+    return layer(*args)
 
 
 def make_layer_norm(d: int) -> nn.LayerNorm:

@@ -1,18 +1,23 @@
 """The process grid (port of mamba_asr_tpu/parallel/mesh.py:31-50,
-104-105): the ranks of the world laid out on a (data, seq) grid.
+104-105): the ranks of the world laid out on a (data, seq, pipe) grid.
 
-Rank r sits at (data index, seq index) = divmod(r, seq), data-major as
-the JAX mesh's device order is. Ranks on one data index hold the same
-rows of a global batch and split their time axis (sequence parallelism);
-ranks on one seq index hold different rows (data parallelism). Each axis
-carries the torch.distributed group of this rank's line along it, which
-the collectives (`parallel/collectives.py`) reduce over.
+Rank r sits at (data index, seq index, pipe index), pipe innermost and
+data outermost, as the JAX mesh orders its devices on ("data", "model",
+"seq", "pipe"): r = (data_index * seq + seq_index) * pipe + pipe_index.
+Ranks on one seq line hold the same rows of a global batch and split
+their time axis (sequence parallelism); ranks on one pipe line hold the
+same rows and split the encoder's layers into stages (pipeline
+parallelism, parallel/pipeline.py); ranks on one data line hold
+different rows and the same seq shard or stage (data parallelism). Each
+axis carries the torch.distributed group of this rank's line along it,
+which the collectives (`parallel/collectives.py`) reduce over.
 
-The JAX mesh's "model" and "pipe" axes (tensor and pipeline parallelism)
-are not ported: the config loader refuses them (`check_parallel`) before
-any grid is made. GSPMD's placement hints
-(`constrain_batch`, `activation_mesh`, `scoped_to_mesh`, `shard_batch`)
-have no counterpart: each rank holds its own rows and the whole state.
+The JAX mesh's "model" axis (tensor parallelism) is not ported: the
+config loader refuses it (`check_parallel`) before any grid is made.
+GSPMD's placement hints (`constrain_batch`, `activation_mesh`,
+`scoped_to_mesh`, `shard_batch`) have no counterpart: each rank holds
+its own rows, and the whole state but for other stages' layers
+(training/trainer.py).
 """
 
 from __future__ import annotations
@@ -41,33 +46,47 @@ class Mesh:
     data: Axis
     seq: Axis
     world: Axis
+    pipe: Axis = Axis(1, 0)
 
     def is_main_process(self) -> bool:
         return self.world.index == 0
 
 
-def _lines(size_outer: int, size_inner: int, along_inner: bool):
-    """The rank lists of every line of a (outer, inner) data-major grid,
-    along the inner axis (fixed outer index) or along the outer one."""
-    if along_inner:
-        return [[o * size_inner + i for i in range(size_inner)] for o in range(size_outer)]
-    return [[o * size_inner + i for o in range(size_outer)] for i in range(size_inner)]
+def _lines(sizes, along: int):
+    """The rank lists of every line of a grid of `sizes` (outermost first,
+    rank = the row-major index) along the axis `along`: one list per
+    setting of the other axes, ranks in the axis's order."""
+    n = 1
+    for size in sizes:
+        n *= size
+    inner = 1
+    for size in sizes[along + 1:]:
+        inner *= size
+    step = sizes[along] * inner
+    return [[base + i * inner for i in range(sizes[along])]
+            for base in range(n) if base % step < inner]
 
 
-def make_mesh(data: Optional[int] = None, seq: int = 1) -> Mesh:
-    """The (data, seq) grid over the world (a single process when no
-    process group is initialized): data defaults to world // seq, and
-    data * seq must equal the world. Collective: in a multi-process world
-    every rank must call it, in the same order, with the same sizes."""
+def make_mesh(data: Optional[int] = None, seq: int = 1, pipe: int = 1) -> Mesh:
+    """The (data, seq, pipe) grid over the world (a single process when no
+    process group is initialized): data defaults to world // (seq * pipe),
+    and data * seq * pipe must equal the world. Collective: in a
+    multi-process world every rank must call it, in the same order, with
+    the same sizes."""
     world, rank = distributed.process_count(), distributed.process_index()
     if data is None:
-        data = world // seq
-    if data < 1 or seq < 1 or data * seq != world:
-        raise ValueError(f"a {data} x {seq} (data x seq) grid does not fit {world} rank(s)")
-    d_idx, s_idx = divmod(rank, seq)
+        data = world // (seq * pipe)
+    if data < 1 or seq < 1 or pipe < 1 or data * seq * pipe != world:
+        raise ValueError(f"a {data} x {seq} x {pipe} (data x seq x pipe) grid does not fit "
+                         f"{world} rank(s)")
+    sizes = (data, seq, pipe)
+    d_idx, rest = divmod(rank, seq * pipe)
+    s_idx, p_idx = divmod(rest, pipe)
     everyone = list(range(world))
 
-    def axis(size, index, lines):
+    def axis(index, along):
+        lines = _lines(sizes, along) if along is not None else [everyone]
+        size = len(lines[0])
         if not distributed.is_initialized():
             return Axis(size, index)
         groups = []
@@ -81,6 +100,5 @@ def make_mesh(data: Optional[int] = None, seq: int = 1) -> Mesh:
         mine = next(i for i, line in enumerate(lines) if rank in line)
         return Axis(size, index, groups[mine])
 
-    return Mesh(data=axis(data, d_idx, _lines(data, seq, along_inner=False)),
-                seq=axis(seq, s_idx, _lines(data, seq, along_inner=True)),
-                world=axis(world, rank, [everyone]))
+    return Mesh(data=axis(d_idx, 0), seq=axis(s_idx, 1), world=axis(rank, None),
+                pipe=axis(p_idx, 2))

@@ -36,7 +36,13 @@ JAX process does), so each holds the same metrics. Rank 0 alone writes
 train_log.txt, steps.jsonl, the checkpoints (it alone creates save/) and
 wer_<split>.txt, with a barrier after each write; a checkpoint holds
 every rank's generator states (`rng`, by world rank), and each rank
-resumes from the same checkpoint with its own.
+resumes from the same checkpoint with its own. Under pipeline
+parallelism each rank holds one stage's layers: a checkpoint holds the
+whole model and optimizer state in a single process's layout (the stages
+gathered over the pipe axis, JAX's `tree_fetch_global`), so it resumes in
+one process and one process's resumes under pp; validation and the test
+pass decode with the whole model, gathered onto every rank
+(`training.trainer.Trainer.eval_model`), not through the pipeline.
 """
 
 from __future__ import annotations
@@ -96,7 +102,8 @@ class Trainer:
         self.is_main = mesh is None or mesh.is_main_process()
         self.step = StepTrainer(cfg.model, cfg.frontend,
                                 dataclasses.replace(cfg.train, seed=cfg.seed),
-                                cfg.specaug, state_dict=state_dict, device=device, mesh=mesh)
+                                cfg.specaug, state_dict=state_dict, device=device, mesh=mesh,
+                                microbatches=cfg.parallel.pipeline_microbatches)
         self.device = self.step.device
         self.is_s2s = cfg.model.num_decoder_layers > 0
         self.lm = None if lm is None else cast_lm_weights(lm)
@@ -130,8 +137,7 @@ class Trainer:
         makes the port's so): `rng` lists every rank's, by world rank.
         Collective in a multi-process run: every rank calls it."""
         tr = self.step
-        return {"model": {k: v.detach().cpu() for k, v in tr.model.state_dict().items()},
-                "optimizer": tr.optimizer.state_dict(),
+        return {"model": tr.model_state(), "optimizer": tr.optimizer_state(),
                 "normalizer": {k: v.cpu() for k, v in tr.normalizer._asdict().items()},
                 "step": self.micro_steps, "rng": self._all_rng_states()}
 
@@ -148,8 +154,8 @@ class Trainer:
         others' anew). A checkpoint of a single-process port before
         multi-process training holds one rank's generators as a dict."""
         tr = self.step
-        tr.model.load_state_dict(state["model"], strict=True)
-        tr.optimizer.load_state_dict(state["optimizer"])
+        tr.load_model_state(state["model"])
+        tr.load_optimizer_state(state["optimizer"])
         tr.normalizer = NormalizerState(**{k: v.to(self.device)
                                            for k, v in state["normalizer"].items()})
         rank = 0 if self.mesh is None else self.mesh.world.index
@@ -259,8 +265,8 @@ class Trainer:
             acc = AccuracyStats()
             if epoch % self.cfg.decode.valid_search_interval == 0:
                 decoder = self.s2s_decoder(test=False)
-        wer, cer = self._decode_set(self.step.model, self.step.normalizer, loader, decoder,
-                                    acc)
+        wer, cer = self._decode_set(self.step.eval_model(), self.step.normalizer, loader,
+                                    decoder, acc)
         stats = {"WER": wer.summarize()["WER"], "CER": cer.summarize()["WER"]}
         if acc is not None:
             stats["ACC"] = acc.summarize()
@@ -309,7 +315,7 @@ class Trainer:
         the optimizer and normaliser are the best checkpoint's. With
         use_averaged, saves that state as `averaged_<test_name>`. Writes the
         per-utterance alignments to wer_<test_name>.txt."""
-        model, normalizer = self.step.model, self.step.normalizer
+        normalizer = self.step.normalizer
         rank = "max_key" if self.is_s2s else "min_key"
         restored = None
         if use_averaged:
@@ -317,6 +323,7 @@ class Trainer:
                                                   **{rank: self.metric_key})
         if restored is None:
             state = self.state()
+            model = self.step.eval_model()
         else:
             best, avg = restored
             state = {**best, "model": avg}

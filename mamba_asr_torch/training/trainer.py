@@ -1,6 +1,6 @@
 """The training step (port of mamba_asr_tpu/training/trainer.py:
-make_train_step and init_train_state, with its sequence-parallel branch
-and without the pipeline one).
+make_train_step and init_train_state, with its sequence- and
+pipeline-parallel branches).
 
     fbank -> masked normaliser update -> normalise -> SpecAugment (time
     warp, time and frequency drops) -> model in train mode (dropout) ->
@@ -31,16 +31,33 @@ takes this rank's rows of the global batch:
   `parallel/encoder_parallel.py:sp_encoder_apply` -> `forward_from_enc`)
   and each rank's copy of the loss is scaled by 1 / n, since every
   gather's backward sums over the ranks;
-- after the backward the gradients are summed over the world, before the
-  global norm and the clip; the returned losses are the global ones.
+- with a pipe axis of n > 1 ranks (`parallel.pipeline_stages`), the
+  ConMamba stack runs as n stages on the GPipe schedule (`encode_pre` ->
+  `parallel/encoder_parallel.py:pp_encoder_apply` -> `forward_from_enc`),
+  each rank's copy of the loss scaled by 1 / n alike. Each rank holds on
+  its device only its own stage's layers (the others' sit on the meta
+  device) and their AdamW moments; the front end, the projection, the
+  stack's final LN, the heads and any decoder are held by every rank
+  (JAX's `place_state(pipeline_layers=)`);
+- after the backward the gradients are summed: the parameters every rank
+  holds over the world, a stage's layers over the data axis (the ranks
+  holding that stage), before the global norm and the clip; under pp the
+  norm adds the stages' squares over the pipe axis in float64, so every
+  rank clips by the whole model's norm; the returned losses are the
+  global ones.
+`model_state`, `optimizer_state` and `eval_model` give the whole model
+and its optimizer state in a single process's layout (under pp,
+collectives that gather the stages over the pipe axis), and
+`load_model_state` / `load_optimizer_state` take that layout back.
 The port sums with its own flat all-reduce (parallel/collectives.py), not
 DDP: the loss is normalised by the global weight, so the gradients must
 be summed, not averaged; the sp forward is split around a module call DDP
 would wrap; and one world-size-1 step is bit-equal to the plain one.
 Random draws: the dropout and SpecAugment generators are seeded from the
-data rank (rank 0's are a single process's), so the ranks of a seq line,
-which hold the same rows, draw the same masks outside the stack; inside
-it dropout draws from a stream that also folds in the seq rank.
+data rank (rank 0's are a single process's), so the ranks of a seq or
+pipe line, which hold the same rows, draw the same masks outside the
+stack; inside it dropout draws from a stream that also folds in the seq
+or pipe rank.
 """
 
 from __future__ import annotations
@@ -58,8 +75,11 @@ from mamba_asr_torch.ops.fbank import log_mel_spectrogram
 from mamba_asr_torch.parallel import collectives
 from mamba_asr_torch.parallel.encoder_parallel import (
     DeviceRngStream,
+    check_pipeline_parallel,
     check_sequence_parallel,
+    pp_encoder_apply,
     sp_encoder_apply,
+    stage_layers,
 )
 from mamba_asr_torch.parallel.mesh import Mesh
 from mamba_asr_torch.training.normalizer import (
@@ -150,6 +170,9 @@ class Trainer:
     statistics. device: None means the CUDA card (raises without one);
     "cpu" runs the plain versions. mesh: this rank's place in a
     multi-process run (see the module doc), or None for one process.
+    microbatches: the pipeline's per-rank microbatch count
+    (`parallel.pipeline_microbatches`), required when the mesh has a pipe
+    axis and read only then.
     """
 
     def __init__(
@@ -162,13 +185,22 @@ class Trainer:
         normalizer: Optional[Sequence] = None,
         device: Optional[Union[str, torch.device]] = None,
         mesh: Optional[Mesh] = None,
+        microbatches: Optional[int] = None,
     ):
         self.device = resolve_device(device)
-        self.mesh = mesh
+        self.mesh, self.cfg, self.microbatches = mesh, cfg, microbatches
         self.n_seq = 1 if mesh is None else mesh.seq.size
+        self.n_pipe = 1 if mesh is None else mesh.pipe.size
         if self.n_seq > 1:
             check_sequence_parallel(cfg.encoder_module, train.dynchunk_size)
-        d, s = (0, 0) if mesh is None else (mesh.data.index, mesh.seq.index)
+        if self.n_pipe > 1:
+            check_pipeline_parallel(cfg.encoder_module, cfg.scan_layers, cfg.num_encoder_layers,
+                                    self.n_pipe, self.n_seq, train.dynchunk_size)
+            if microbatches is None:
+                raise ValueError("a pipe axis needs the microbatch count "
+                                 "(parallel.pipeline_microbatches)")
+        d, s, p = (0, 0, 0) if mesh is None else (mesh.data.index, mesh.seq.index,
+                                                  mesh.pipe.index)
         torch.manual_seed(fold_seed(train.seed, d))  # dropout masks
         model = ASRModel(cfg)
         if state_dict is None:
@@ -178,17 +210,29 @@ class Trainer:
                 xavier_reinit_(model, init)
         else:
             model.load_state_dict(state_dict, strict=True)
-        self.model = model.to(self.device).train()
-        self.optimizer = make_optimizer(self.model, train)
+        self.stage = (range(cfg.num_encoder_layers) if self.n_pipe == 1
+                      else stage_layers(cfg.num_encoder_layers, mesh.pipe))
+        for i in range(cfg.num_encoder_layers):
+            if i not in self.stage:  # another stage's: no storage on this rank
+                model.encoder.layers[i].to("meta")
+        self.model = model._apply(lambda t: t if t.is_meta else t.to(self.device)).train()
+        self.optimizer = make_optimizer(self.model, train, self._global_norm)
+        # Each stack layer's name in the model, and for each optimizer
+        # parameter whether it is this stage's own (held by no other stage).
+        names = {id(m): n for n, m in self.model.named_modules()}
+        self.layer_names = [names[id(layer)] for layer in self.model.encoder.layers]
+        own = {id(p) for i in self.stage for p in self.model.encoder.layers[i].parameters()}
+        self.in_stage = [self.n_pipe > 1 and id(p) in own for p in self.optimizer.params]
         if normalizer is None:
             self.normalizer = init_normalizer(frontend.n_mels, self.device)
         else:
             self.normalizer = NormalizerState.from_arrays(*normalizer, device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(
             fold_seed(train.seed + 1, d))
-        # Dropout inside the sharded stack: its own stream per (data, seq) rank.
-        self.stack_rng = (DeviceRngStream(self.device, fold_seed(train.seed + 2, d, s + 1))
-                          if self.n_seq > 1 else None)
+        # Dropout inside the sharded stack: its own stream per (data, seq or
+        # pipe) rank (sp and pp do not combine).
+        self.stack_rng = (DeviceRngStream(self.device, fold_seed(train.seed + 2, d, s + p + 1))
+                          if self.n_seq * self.n_pipe > 1 else None)
         self.frontend, self.specaug, self.train = frontend, specaug, train
 
     def rng_state(self) -> Dict[str, torch.Tensor]:
@@ -280,10 +324,14 @@ class Trainer:
         use_decoder = self.model.has_decoder
         tc = self.train
         tokens_bos = b["tokens_bos"] if use_decoder else None
-        if self.n_seq > 1:
+        n_line = self.n_seq * self.n_pipe  # the ranks that hold these rows
+        if n_line > 1:
             x, enc_lengths = self.model.encode_pre(feats, flens)
             with self.stack_rng.swapped():
-                enc = sp_encoder_apply(self.model.encoder, x, mesh.seq)
+                if self.n_seq > 1:
+                    enc = sp_encoder_apply(self.model.encoder, x, mesh.seq)
+                else:
+                    enc = pp_encoder_apply(self.model.encoder, x, mesh.pipe, self.microbatches)
             out = self.model.forward_from_enc(enc, enc_lengths, tokens_bos)
         else:
             out = self.model(feats, flens, tokens_bos, chunk_size=tc.dynchunk_size,
@@ -310,12 +358,16 @@ class Trainer:
             loss = loss_ctc
         metrics = {"loss": loss, **metrics}
         self.model.zero_grad(set_to_none=True)
-        (loss / self.n_seq if self.n_seq > 1 else loss).backward()
+        (loss / n_line if n_line > 1 else loss).backward()
         if mesh is not None:
-            collectives.reduce_grads_(self.optimizer.params, mesh.world)
+            params, in_stage = self.optimizer.params, self.in_stage
+            collectives.reduce_grads_([p for p, st in zip(params, in_stage) if not st],
+                                      mesh.world)
+            if self.n_pipe > 1:  # a stage's layers: over the ranks holding that stage
+                collectives.reduce_grads_([p for p, st in zip(params, in_stage) if st],
+                                          mesh.data)
             metrics = self._global_metrics(metrics)
-        grad_norm = global_norm([p.grad for p in self.optimizer.params
-                                 if p.grad is not None]).float()
+        grad_norm = self._global_norm([p.grad for p in self.optimizer.params]).float()
         updated = self.optimizer.step()
         metrics = {k: v.detach() for k, v in metrics.items()}
         return {**metrics, "grad_norm": grad_norm, "updated": torch.tensor(updated)}
@@ -335,9 +387,115 @@ class Trainer:
 
     def _global_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Each rank's losses summed over the world: the global batch's
-        (each rank of a seq line holds the whole loss, hence the 1 / n)."""
+        (each rank of a seq or pipe line holds the whole loss, hence the
+        1 / n)."""
         vals = torch.stack([v.detach().float() for v in metrics.values()])
-        if self.n_seq > 1:
-            vals = vals / self.n_seq
+        n_line = self.n_seq * self.n_pipe
+        if n_line > 1:
+            vals = vals / n_line
         vals = collectives.reduce_(vals, self.mesh.world)
         return dict(zip(metrics, vals.unbind()))
+
+    # -- pipeline stages: the norm and the whole state --------------------------
+
+    def _global_norm(self, grads: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+        """The float64 global norm of the optimizer parameters' gradients
+        (None counts as zeros); under pp the stages' squares are summed over
+        the pipe axis, so every rank has the whole model's norm."""
+        if self.n_pipe == 1:
+            return global_norm([g for g in grads if g is not None])
+        in_stage = self.in_stage
+        held = [g for g, st in zip(grads, in_stage) if g is not None and not st]
+        mine = [g for g, st in zip(grads, in_stage) if g is not None and st]
+        zero = torch.zeros((), dtype=torch.float64, device=self.device)
+        sq_stage = (global_norm(mine) ** 2 if mine else zero).reshape(1)
+        sq_stage = collectives.reduce_(sq_stage, self.mesh.pipe)[0]
+        sq_held = global_norm(held) ** 2 if held else zero
+        return torch.sqrt(sq_held + sq_stage)
+
+    def _gather_stages(self, mine: Sequence[Mapping[object, torch.Tensor]]
+                       ) -> Dict[int, Dict[object, torch.Tensor]]:
+        """{layer index: its entries (CPU tensors)} for every stack layer,
+        from `mine`, the entries of this stage's layers in stage order (every
+        layer has the same keys): one float32 gather over the pipe axis,
+        each stage's row read at its own layers (`stage_layers`)."""
+        pipe = self.mesh.pipe
+        keys = [sorted(entries) for entries in mine]
+        with torch.no_grad():
+            flat = torch.cat([entries[k].detach().reshape(-1).to(self.device, torch.float32)
+                              for entries, ks in zip(mine, keys) for k in ks])
+            rows = collectives.all_gather(flat, pipe).cpu()
+        out = {}
+        for stage, row in enumerate(rows):
+            offset = 0
+            layers = stage_layers(self.cfg.num_encoder_layers,
+                                  dataclasses.replace(pipe, index=stage))
+            for i, entries, ks in zip(layers, mine, keys, strict=True):
+                out[i] = {}
+                for k in ks:
+                    like = entries[k]
+                    out[i][k] = row[offset:offset + like.numel()].view(like.shape).to(like.dtype)
+                    offset += like.numel()
+        return out
+
+    def model_state(self) -> Dict[str, torch.Tensor]:
+        """A copy of the whole model's state dict on the CPU, in a single
+        process's layout. Collective under pp: every rank of the world calls
+        it."""
+        sd = self.model.state_dict()
+        if self.n_pipe > 1:
+            layers = self.model.encoder.layers
+            gathered = self._gather_stages([layers[i].state_dict() for i in self.stage])
+            for i, entries in gathered.items():
+                sd.update({f"{self.layer_names[i]}.{k}": v for k, v in entries.items()})
+        return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
+
+    def load_model_state(self, sd: Mapping[str, torch.Tensor]) -> None:
+        """Load a single process's state dict (every key, as strict
+        loading demands); under pp this rank keeps its own stage's layers."""
+        mine = self.model.state_dict()
+        if set(sd) != set(mine):
+            raise KeyError(f"state dict keys differ: missing {sorted(set(mine) - set(sd))[:5]}, "
+                           f"unexpected {sorted(set(sd) - set(mine))[:5]}")
+        self.model.load_state_dict({k: v for k, v in sd.items() if not mine[k].is_meta},
+                                   strict=False)
+
+    def optimizer_state(self) -> dict:
+        """The optimizer's state dict (keyed by parameter name) for the
+        whole model. Collective under pp: the stages' AdamW moments and
+        accumulated gradients are gathered over the pipe axis."""
+        sd = self.optimizer.state_dict()
+        if self.n_pipe == 1:
+            return sd
+        moments, acc, layers = sd["moments"], sd["acc"], self.model.encoder.layers
+        mine = []
+        for i in self.stage:
+            entries = {}
+            for k, _ in layers[i].named_parameters():
+                name = f"{self.layer_names[i]}.{k}"
+                entries.update({("moment", k, s): v for s, v in moments.get(name, {}).items()})
+                entries[("acc", k)] = acc[name]
+            mine.append(entries)
+        for i, entries in self._gather_stages(mine).items():
+            for (kind, k, *s), v in entries.items():
+                name = f"{self.layer_names[i]}.{k}"
+                if kind == "acc":
+                    acc[name] = v
+                else:
+                    moments.setdefault(name, {})[s[0]] = v
+        return sd
+
+    def load_optimizer_state(self, sd: dict) -> None:
+        """Load an optimizer state dict of the whole model; under pp this
+        rank takes its own parameters' entries."""
+        self.optimizer.load_state_dict(sd)
+
+    def eval_model(self) -> ASRModel:
+        """The whole model for evaluation: the trained one, or under pp a
+        copy on the device with every stage's layers (collective)."""
+        if self.n_pipe == 1:
+            return self.model
+        with torch.random.fork_rng(devices=[]):  # its torch init draws nothing of ours
+            model = ASRModel(self.cfg)
+        model.load_state_dict(self.model_state(), strict=True)
+        return model.to(self.device)

@@ -20,6 +20,9 @@ JAX params come from `jax.eval_shape` and a numpy seed
   same config; no `.pt2` holds a tensor payload beyond the fbank tables
   and the normaliser, and at a width where the weights dominate each
   `.pt2` is under 10 % of params.pt.
+
+JAX's references run in a child process (tests/_beside.py) while this
+one exports the bundles.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from mamba_asr_torch.serving.export import (
 )
 from mamba_asr_torch.serving.recognizer import eval_step
 from mamba_asr_torch.training.normalizer import NormalizerState
+from tests._beside import beside
 from tests.test_torch_lm import jax_lm_params, port_of
 from tests.test_torch_streaming import models
 
@@ -81,8 +85,75 @@ def pt2_payload(path):
                    and not i.filename.endswith(".json"))
 
 
+def ctc_cases():
+    """(wav, lens, bucket): a 0.7 s row in the (2, 1 s) bucket, an exact fit."""
+    n = int(0.7 * SR)
+    return [(noise(1, n, 1), [n], (2, SR)), (noise(1, SR // 2, 2), [SR // 2], (1, SR // 2))]
+
+
+def padded(wav, lens, bucket):
+    pad = np.zeros(bucket, np.float32)
+    pad[:1, :wav.shape[1]] = wav
+    lens_pad = np.ones(bucket[0], np.int32)
+    lens_pad[0] = lens[0]
+    return pad, lens_pad
+
+
+def _jax_ctc_refs():
+    """JAX's eval step on each of `ctc_cases`, padded to its bucket: its
+    first row's (log-probs, encoder length)."""
+    jm, jp, _ = models()
+    jax_step = make_eval_step(jm, JaxFrontendConfig(**FE))
+    jnorm = JaxNormalizer(*(jnp.asarray(x) for x in NORM))
+    refs = []
+    for wav, lens, bucket in ctc_cases():
+        pad, lens_pad = padded(wav, lens, bucket)
+        ref = jax_step(jp["params"], jnorm, {"wav": jnp.asarray(pad),
+                                             "wav_lens": jnp.asarray(lens_pad),
+                                             "tokens_bos": jnp.zeros((bucket[0], 4), jnp.int32)})
+        refs.append((np.asarray(ref["ctc_log_probs"])[:1], np.asarray(ref["enc_lengths"])[:1]))
+    return refs
+
+
+def _jax_s2s_ref(name):
+    """JAX's S2SBeamSearcher on `s2s_batch` with the model (and LM) of
+    S2S_MODELS[name]: (tokens, lengths, scores)."""
+    jm, jp, _ = s2s_models(name)
+    jlm = jax_lm_params(seed=5, vocab=VOCAB) if name.endswith("_lm") else None
+    wav, lens = s2s_batch()
+    frontend = JaxFrontendConfig(**FE)
+
+    @jax.jit  # one compile: JAX's op-by-op dispatch compiles every op apart
+    def forward(params, wav, lens):
+        feats = compute_features(frontend, wav)
+        flens = jnp.minimum(frame_lengths(frontend, lens), feats.shape[1])
+        feats = jax_normalize(jax_init_normalizer(20), feats)
+        return jm.apply(params, feats, flens, None, train=False)
+
+    mo = forward(jp, jnp.asarray(wav), jnp.asarray(lens))
+    opts = dict(SEARCH, **(FUSION if jlm else {}))
+    ref = JaxSearcher(jm, lm_model=None if jlm is None else jlm[0], **opts)(
+        jp, mo["enc_out"], mo["enc_lengths"], ctc_log_probs=mo["ctc_log_probs"],
+        lm_params=None if jlm is None else {"params": jlm[1]})
+    return tuple(np.asarray(r) for r in ref[:3])
+
+
+def _jax_s2s_refs():
+    return {name: _jax_s2s_ref(name) for name in ("transformer_lm", "mamba")}
+
+
 @pytest.fixture(scope="module")
-def ctc(tmp_path_factory):
+def jax_refs(tmp_path_factory):
+    """{"ctc": wait, "s2s": wait}: JAX's references of the CTC and of the
+    S2S checks, which two child processes compute beside this one's
+    exports (the bundle fixtures ask for this one first)."""
+    work = tmp_path_factory.mktemp("jax_refs")
+    return {"ctc": beside(work, "tests.test_torch_bundle", "_jax_ctc_refs"),
+            "s2s": beside(work, "tests.test_torch_bundle", "_jax_s2s_refs")}
+
+
+@pytest.fixture(scope="module")
+def ctc(tmp_path_factory, jax_refs):
     jm, jp, pm = models()
     norm = NormalizerState.from_arrays(*NORM)
     out = str(tmp_path_factory.mktemp("ctc"))
@@ -90,25 +161,15 @@ def ctc(tmp_path_factory):
     return jm, jp, pm, norm, out, manifest
 
 
-def test_ctc_bundle_matches_jax_and_live(ctc):
+def test_ctc_bundle_matches_jax_and_live(ctc, jax_refs):
     jm, jp, pm, norm, out, _ = ctc
     asr = ExportedASR(out, device="cpu")
-    jax_step = make_eval_step(jm, JaxFrontendConfig(**FE))
-    jnorm = JaxNormalizer(*(jnp.asarray(x) for x in NORM))
-    n = int(0.7 * SR)
-    cases = [(noise(1, n, 1), [n], (2, SR)), (noise(1, SR // 2, 2), [SR // 2], (1, SR // 2))]
-    for wav, lens, bucket in cases:
+    for (wav, lens, bucket), (ref_lp, ref_el) in zip(ctc_cases(), jax_refs["ctc"]()):
         lp, el = asr(wav, lens)
         assert lp.shape[0] == 1 and lp.shape[2] == VOCAB - 3 and el.shape == (1,)
-        pad = np.zeros(bucket, np.float32)
-        pad[:1, :wav.shape[1]] = wav
-        lens_pad = np.ones(bucket[0], np.int32)
-        lens_pad[0] = lens[0]
-        ref = jax_step(jp["params"], jnorm, {"wav": jnp.asarray(pad),
-                                             "wav_lens": jnp.asarray(lens_pad),
-                                             "tokens_bos": jnp.zeros((bucket[0], 4), jnp.int32)})
-        np.testing.assert_allclose(lp, np.asarray(ref["ctc_log_probs"])[:1], rtol=0, atol=2e-4)
-        np.testing.assert_array_equal(el, np.asarray(ref["enc_lengths"])[:1])
+        pad, lens_pad = padded(wav, lens, bucket)
+        np.testing.assert_allclose(lp, ref_lp, rtol=0, atol=2e-4)
+        np.testing.assert_array_equal(el, ref_el)
         with torch.no_grad():
             live = eval_step(pm, FrontendConfig(**FE), norm, torch.from_numpy(pad),
                              torch.from_numpy(lens_pad))
@@ -174,14 +235,19 @@ S2S_MODELS = {
 }
 
 
+def s2s_models(name):
+    """(jax model, params, port model) of S2S_MODELS[name]."""
+    return models(seed=3, vocab_size=VOCAB, num_decoder_layers=1, nhead=2, activation="gelu",
+                  **S2S_MODELS[name])
+
+
 @pytest.fixture(scope="module")
-def s2s(tmp_path_factory):
+def s2s(tmp_path_factory, jax_refs):
     """name -> (jax model, params, port model, jax LM or None, port searcher,
     bundle dir, manifest), each bundle at the (2, 0.5 s) bucket."""
     out = {}
-    for name, kw in S2S_MODELS.items():
-        jm, jp, pm = models(seed=3, vocab_size=VOCAB, num_decoder_layers=1, nhead=2,
-                            activation="gelu", **kw)
+    for name in S2S_MODELS:
+        jm, jp, pm = s2s_models(name)
         jlm = plm = None
         opts = dict(SEARCH)
         if name.endswith("_lm"):
@@ -203,28 +269,15 @@ def s2s_batch():
 
 
 @pytest.mark.parametrize("name", ["transformer_lm", "mamba"])
-def test_s2s_bundle_matches_jax(s2s, name):
+def test_s2s_bundle_matches_jax(s2s, jax_refs, name):
     jm, jp, pm, jlm, searcher, out, _ = s2s[name]
     asr = ExportedASR(out, device="cpu")
     wav, lens = s2s_batch()
     toks, tlens, scores = asr(wav, lens)
-    frontend = JaxFrontendConfig(**FE)
-
-    @jax.jit  # one compile: JAX's op-by-op dispatch compiles every op apart
-    def forward(params, wav, lens):
-        feats = compute_features(frontend, wav)
-        flens = jnp.minimum(frame_lengths(frontend, lens), feats.shape[1])
-        feats = jax_normalize(jax_init_normalizer(20), feats)
-        return jm.apply(params, feats, flens, None, train=False)
-
-    mo = forward(jp, jnp.asarray(wav), jnp.asarray(lens))
-    opts = dict(SEARCH, **(FUSION if jlm else {}))
-    ref = JaxSearcher(jm, lm_model=None if jlm is None else jlm[0], **opts)(
-        jp, mo["enc_out"], mo["enc_lengths"], ctc_log_probs=mo["ctc_log_probs"],
-        lm_params=None if jlm is None else {"params": jlm[1]})
-    np.testing.assert_array_equal(toks, np.asarray(ref[0]))
-    np.testing.assert_array_equal(tlens, np.asarray(ref[1]))
-    np.testing.assert_allclose(scores, np.asarray(ref[2]), rtol=1e-4, atol=1e-4)
+    ref = jax_refs["s2s"]()[name]
+    np.testing.assert_array_equal(toks, ref[0])
+    np.testing.assert_array_equal(tlens, ref[1])
+    np.testing.assert_allclose(scores, ref[2], rtol=1e-4, atol=1e-4)
     assert any(n > 2 for n in tlens), f"degenerate hypotheses {toks}"
     step = program_launches(asr)["fn_b2_t8000_step.pt2"]
     init = program_launches(asr)["fn_b2_t8000_init.pt2"]

@@ -55,6 +55,7 @@ from mamba_asr_torch.configs import loader
 from mamba_asr_torch.models import asr, mamba
 from mamba_asr_torch.models import params_import as pi
 from mamba_asr_torch.training import trainer
+from tests._beside import beside
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "_torch_dist_worker.py")
@@ -215,12 +216,12 @@ def _halo_case(seed, left=3, right=2):
     return port, ref
 
 
-def _seeded_params(seed=0):
-    """JAX params from jax.eval_shape filled from numpy (no compile):
-    kernels N(0, 1/fan_in), LayerNorm scales 1 + N(0, 0.05^2), the rest
-    N(0, 0.05^2)."""
+def _seeded_params(seed=0, cfg=JAX_CFG):
+    """JAX params of `cfg` from jax.eval_shape filled from numpy (no
+    compile): kernels N(0, 1/fan_in), LayerNorm scales 1 + N(0, 0.05^2),
+    the rest N(0, 0.05^2)."""
     rng = np.random.default_rng(seed)
-    shapes = jax.eval_shape(jax_asr.ASRModel(JAX_CFG).init, jax.random.PRNGKey(0),
+    shapes = jax.eval_shape(jax_asr.ASRModel(cfg).init, jax.random.PRNGKey(0),
                             jnp.zeros((1, 64, 20)), jnp.array([64]))["params"]
 
     def fill(path, leaf):
@@ -244,10 +245,10 @@ def _batch(bsz, wav_n, seed, wav_lens=None, weight=None):
             else np.asarray(weight, np.float32)}
 
 
-def _port_cfg():
-    fields = {f.name: getattr(JAX_CFG, f.name) for f in dataclasses.fields(asr.ASRConfig)}
+def _port_cfg(cfg=JAX_CFG):
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(asr.ASRConfig)}
     fields["mamba"] = mamba.MambaConfig(**{
-        f.name: getattr(JAX_CFG.mamba, f.name) for f in dataclasses.fields(mamba.MambaConfig)})
+        f.name: getattr(cfg.mamba, f.name) for f in dataclasses.fields(mamba.MambaConfig)})
     return asr.ASRConfig(**fields)
 
 
@@ -289,11 +290,8 @@ def _port_plain_step(state_dict, batch, pad_to=1):
             [t.clone() for t in tr.normalizer])
 
 
-@pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    """The 2 ranks' results (one spawn), and meanwhile the JAX references
-    and the port's single-process steps."""
-    work = tmp_path_factory.mktemp("dist_ops")
+def _op_cases():
+    """(the sp ops' inputs for the ranks, {name: JAX reference thunk})."""
     case, thunks = {"scan": {}, "conv": {}}, {}
     for i, (rev, h0) in enumerate(SCAN_CASES):
         name = f"scan_rev{int(rev)}_h0{int(h0)}"
@@ -302,6 +300,19 @@ def ranks(tmp_path_factory):
         name = f"conv_rev{int(rev)}"
         case["conv"][name], thunks[name] = _conv_case(rev, seed=20 + i)
     case["halo"], thunks["halo"] = _halo_case(seed=30)
+    return case, thunks
+
+
+def _op_refs():
+    return {name: thunk() for name, thunk in _op_cases()[1].items()}
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """The 2 ranks' results (one spawn), and meanwhile the JAX references
+    and the port's single-process steps."""
+    work = tmp_path_factory.mktemp("dist_ops")
+    case = _op_cases()[0]
 
     params = _seeded_params()
     state_dict = pi.import_asr_params(jax.tree_util.tree_map(np.asarray, params), _port_cfg())
@@ -317,11 +328,17 @@ def ranks(tmp_path_factory):
                               weight=[1, 1, 1, 0])
     torch.save(case, work / "case.pt")
     procs = start(["ops", str(work / "case.pt"), str(work)], 2, REPO)
+    # The references in three processes: the op cases and the sp step at
+    # T' 19 each in a child, the sp step at T' 16 and the plain steps here.
+    ops = beside(work, "tests.test_torch_distributed", "_op_refs")
+    pads = beside(work, "tests.test_torch_distributed", "_jax_sp_step", params,
+                  case["sp_batches"]["sp_pads"])
     try:
-        refs = {name: thunk() for name, thunk in thunks.items()}
+        refs = {}
         for name, batch in case["sp_batches"].items():
-            refs[name] = {"jax": _jax_sp_step(params, batch),
+            refs[name] = {"jax": pads() if name == "sp_pads" else _jax_sp_step(params, batch),
                           "plain": _port_plain_step(state_dict, batch, pad_to=2)}
+        refs.update(ops())
         refs["dp"] = {"plain": _port_plain_step(state_dict, case["dp_batch"])}
     finally:
         finish(procs)
@@ -446,13 +463,16 @@ def cli_runs(tmp_path_factory):
     corpus = str(work / "LibriSpeech")
     _make_corpus(corpus)
     yaml = os.path.join(REPO, "hparams", "CTC", "conmamba_small.yaml")
-    runs = {}
-    for nproc in (1, 2):
+    runs, groups = {}, {}
+    for nproc in (1, 2):  # both runs at once
         results = str(work / f"res{nproc}")
         argv = [yaml, "--device", "cpu", "--data.data_folder", corpus,
                 "--data.output_folder", results] + CLI_OVERRIDES
+        groups[nproc] = start(["cli", str(work / f"out{nproc}.json"), json.dumps(argv)],
+                              nproc, REPO)
+    for nproc in (1, 2):
+        logs = finish(groups[nproc])
         out = str(work / f"out{nproc}.json")
-        logs = spawn(["cli", out, json.dumps(argv)], nproc, REPO)
         with open(out) as f:
             runs[nproc] = json.load(f)
         if nproc == 2:

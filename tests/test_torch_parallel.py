@@ -7,10 +7,14 @@ tests/test_torch_distributed.py).
   weights and the audio speed perturbation gives), the shards concatenate
   to the single loader's batch, and an indivisible process count raises
   (JAX's tests/test_multiprocess.py:130-188).
-- The parallel stanza loads with JAX's keys and defaults; tensor and
-  pipeline parallelism, sp on a Conformer and sp with dynamic chunks raise.
-- The grid: make_mesh's layout and refusal, initialize's refusals (no
-  group is joined), the sp ops on a one-rank axis equal the plain ops.
+- The parallel stanza loads with JAX's keys and defaults; tensor
+  parallelism, sp on a Conformer and sp with dynamic chunks raise, and
+  pipeline parallelism where JAX asserts against it: not ConMamba,
+  without scan_layers, layers the stages do not divide, with sp, with
+  dynamic chunks.
+- The grid: make_mesh's (data, seq, pipe) layout and refusal (more stages
+  than ranks), initialize's refusals (no group is joined), the sp ops on a
+  one-rank axis equal the plain ops.
 - A world of one gloo rank: one step through the port's collectives
   equals the plain step bit for bit.
 """
@@ -169,8 +173,15 @@ def test_parallel_stanza_loads_like_jax():
 @pytest.mark.parametrize("yaml,over,err,match", [
     ("CTC/conmamba_small.yaml", {"parallel.tensor_parallel": 2}, NotImplementedError,
      "item 11"),
-    ("CTC/conmamba_small.yaml", {"parallel.pipeline_stages": 2}, NotImplementedError,
-     "item 10"),
+    ("CTC/conmamba_small.yaml", {"parallel.pipeline_stages": 2}, ValueError, "scan_layers"),
+    ("CTC/conformer_large.yaml", {"parallel.pipeline_stages": 2, "model.scan_layers": True},
+     ValueError, "ConMamba"),
+    ("CTC/conmamba_small.yaml", {"parallel.pipeline_stages": 5, "model.scan_layers": True},
+     ValueError, "not divisible into 5 pipeline stages"),
+    ("CTC/conmamba_small.yaml", {"parallel.pipeline_stages": 2, "model.scan_layers": True,
+                                 "parallel.sequence_parallel": 2}, ValueError, "cannot combine"),
+    ("CTC/conmamba_small.yaml", {"parallel.pipeline_stages": 2, "model.scan_layers": True,
+                                 "train.dynchunk_size": 16}, ValueError, "dynamic-chunk"),
     ("CTC/conformer_large.yaml", {"parallel.sequence_parallel": 2}, ValueError, "ConMamba"),
     ("CTC/conmamba_small.yaml", {"parallel.sequence_parallel": 2, "train.dynchunk_size": 16},
      ValueError, "dynamic-chunk"),
@@ -187,11 +198,18 @@ def test_single_process_mesh_and_refusals():
     m = mesh.make_mesh()
     assert (m.data.size, m.seq.size, m.world.size) == (1, 1, 1)
     assert m.data.group is None and m.is_main_process()
+    assert (m.pipe.size, m.pipe.index, m.pipe.group) == (1, 0, None)
     with pytest.raises(ValueError, match="does not fit"):
         mesh.make_mesh(seq=2)
+    with pytest.raises(ValueError, match="does not fit"):  # more stages than ranks
+        mesh.make_mesh(pipe=2)
     # The data-major layout of a 2 x 3 grid.
-    assert mesh._lines(2, 3, along_inner=True) == [[0, 1, 2], [3, 4, 5]]
-    assert mesh._lines(2, 3, along_inner=False) == [[0, 3], [1, 4], [2, 5]]
+    assert mesh._lines((2, 3), 1) == [[0, 1, 2], [3, 4, 5]]
+    assert mesh._lines((2, 3), 0) == [[0, 3], [1, 4], [2, 5]]
+    # (data, seq, pipe) = (2, 1, 2), pipe innermost as JAX orders its devices:
+    # rank = data_index * 2 + pipe_index.
+    assert mesh._lines((2, 1, 2), 2) == [[0, 1], [2, 3]]
+    assert mesh._lines((2, 1, 2), 0) == [[0, 2], [1, 3]]
 
 
 def test_initialize_refuses_before_joining(monkeypatch):

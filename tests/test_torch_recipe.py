@@ -293,10 +293,11 @@ def test_resumed_run_draws_what_an_uninterrupted_one_draws(corpus, tmp_path, rng
 def test_cli_refuses_what_is_not_ported(corpus, tmp_path):
     # Multi-process training is ported (tests/test_torch_distributed.py):
     # --distributed now refuses only a run that names no rendezvous, and
-    # pipeline parallelism is refused naming its ROADMAP item.
+    # pipeline parallelism (ported: tests/test_torch_pipeline.py) a model
+    # without scan_layers, as JAX's pp_encoder_apply asserts.
     with pytest.raises(RuntimeError, match="MASR_COORDINATOR"):
         run_training([CONFIG, "--distributed", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="scan_layers"):
         run_training([CONFIG, "--device", "cpu", "--parallel.pipeline_stages", "2"])
     s2s = str(REPO / "hparams" / "S2S" / "conmamba_small.yaml")
     # The Conformer decoder is ported: the loop builds with it, and an

@@ -213,6 +213,12 @@ def test_serve_bundle_and_a_bare_worker(bundle):
         engine.feed(sid, wav)
         return [t for toks in engine.tick().values() for t in toks] + engine.finish(sid)
 
+    # The bare worker runs beside the server's round trip.
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    n = 3 * CHUNK * HOP + 77
+    worker_proc = subprocess.Popen([sys.executable, "-c", RUN_BUNDLE, out, str(n)], cwd=REPO,
+                                   env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                   text=True)
     wav = noise(130 * HOP, np.random.default_rng(5))
     args, extra = serve.parser().parse_known_args(["--bundle", out, "--port", "0",
                                                    "--device", "cpu"])
@@ -232,12 +238,14 @@ def test_serve_bundle_and_a_bare_worker(bundle):
         server.stop()
     assert list(ids) == engine_ids(wav)
 
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    n = 3 * CHUNK * HOP + 77
-    res = subprocess.run([sys.executable, "-c", RUN_BUNDLE, out, str(n)], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr[-2000:]
-    worker = json.loads(res.stdout.strip().splitlines()[-1])
+    try:
+        stdout, stderr = worker_proc.communicate(timeout=300)
+    finally:
+        if worker_proc.poll() is None:
+            worker_proc.kill()
+            worker_proc.wait()
+    assert worker_proc.returncode == 0, stderr[-2000:]
+    worker = json.loads(stdout.strip().splitlines()[-1])
     assert worker["bad"] == [], f"the worker imported {worker['bad']}"
     assert worker["ids"] == engine_ids(
         np.random.default_rng(1).normal(0, 0.3, n).astype(np.float32))
