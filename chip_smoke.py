@@ -78,20 +78,25 @@ exits non-zero; it prints no result without a CUDA card):
              then 2 gloo ranks on cuda:0 (NCCL refuses two ranks on a
              card), fp32 with TF32 off, dropout 0, SpecAugment off, on
              B32 x 25 s with the last 3 rows weighted 0: (b) data
-             parallel (16 and 13 real rows) and (c) sequence parallel 2
-             (half of T' each) and (d) pipeline parallel 2
+             parallel (16 and 13 real rows), (c) sequence parallel 2
+             (half of T' each), (d) pipeline parallel 2
              (model.scan_layers on, 6 layers a stage, all 32 rows in
-             PP_MICROBATCHES = 4 microbatches), loss and every gradient
+             PP_MICROBATCHES = 4 microbatches) and (e) tensor parallel 2
+             (all 32 rows, each rank holding its slices of the 98
+             parameters JAX's rule shards at min_shard_elements 16,384,
+             the slices' gradients gathered), loss and every gradient
              held against the single-process card step as train_parity
              holds card and CPU, the gradients both ranks hold bit-equal;
              K1 and K2 per rank per micro-step (sp 48 each: 2 passes x 2
              directions x 12 layers; pp 48 each: 4 microbatches x 6 layers
-             x 2 directions; against 24 unsharded); the sp and then the pp
-             micro-step's wall ms in bf16 with the YAML's settings, as
-             audio-s per s (two ranks on one card through host-staged
-             gloo: not a scaling number); after the pp steps' update each
+             x 2 directions; tp 24 each, the scans at full width on every
+             rank; against 24 unsharded); the sp, pp and tp micro-steps'
+             wall ms in bf16 with the YAML's settings, as audio-s per s
+             (two ranks on one card through host-staged gloo: not a
+             scaling number); after the pp and tp steps' update each
              rank's parameter and AdamW moment bytes (below the whole
-             model's) and peak memory
+             model's) and peak memory; the tp ranks' gathered state
+             loaded by one process, its slices bit-equal to the ranks'
   kernel_ctc_dp  the CTC prefix DP (K3) against its plain loop at T 751
              (30 s) with N 66 and 528 hypotheses, ragged N 66 and 528,
              T 1, T 2, N 1 and N 33; time, bound, the chain of dependent
@@ -314,7 +319,14 @@ exits non-zero; it prints no result without a CUDA card):
              stream (ctc_beam at beam 8 without and with a seeded
              full-width LM, s2s on S2S/conmamba_small and on the Mamba
              decoder), each equal to its search run directly on the same
-             encoder output, with finish_final ms and launches
+             encoder output, with finish_final ms and launches; the
+             multi-replica engine (`serve --data_parallel`): the exactness
+             streams over 2 replicas on cuda:0, every transcript equal to
+             the single engine's, K1 per steady tick twice the single
+             engine's; the bf16 32-slot tick over 2 replicas (2 x 16 rows)
+             against one replica, ticks in turn (one card: not a scaling
+             number); `python -m mamba_asr_torch.serve --data_parallel`
+             with one card more than the machine has exits naming both
   bundles    `python -m mamba_asr_torch.export_model --device cuda` of the
              seeded full-width YAMLs (bf16), the four exports in processes
              of their own at once, started beside the chains of BESIDE; after
@@ -492,6 +504,7 @@ DYNCHUNK = (16, 2)
 # stream; the TCP clients (count, seconds each, seconds per send).
 SERVING_K1_SLOTS = (8, 32, 64)
 SERVING_EXACT_SLOTS = 4
+SERVING_REPLICAS = 2  # the multi-replica engine's replicas, all on cuda:0
 SERVING_STREAMS_S = (4.0, 12.0, 7.0, 10.0, 5.0, 9.0)
 SERVING_SLOTS = (1, 8, 32, 64)
 SERVING_TICKS = 12
@@ -524,6 +537,7 @@ DIST_RECIPE_RTOL = 1e-4
 DIST_RECIPE_MICROBATCHES = 2
 DIST_RESUME_RTOL = 5e-2
 PP_MICROBATCHES = 4  # the pp step's microbatches per rank: 8 rows each of dist_batch
+TP_ACCUMULATION = 2  # the tp bf16 steps' accumulation: one warm and one timed micro-step
 # Conformer-Large training (conformer_train): micro-steps at the YAML's settings.
 CONFORMER_TRAIN_STEPS = 8
 # The Mamba floor run's timeout in its process beside the S2S floor run.
@@ -1701,14 +1715,18 @@ def fp32_step_setup(exp):
 def worker_steps(work):
     """One rank of distributed_train's steps, on cuda:0 over gloo: gloo's
     all_reduce, broadcast and all_gather on CUDA tensors; the dp step (its
-    16 rows of dist_batch), the sp 2 step (all 32 rows, half of T' each)
-    and the pp 2 step (all 32 rows in PP_MICROBATCHES microbatches, 6 of
-    the 12 layers each, `model.scan_layers` on) in fp32, each's loss and
-    gradients (this rank's parameters) saved for the parent; K1 and K2
-    launches of each micro-step; the wall ms of sp 2 and then pp 2
-    micro-steps with the YAML's settings (bf16, dropout, SpecAugment), and
-    after the pp ones (an update) this rank's parameter and AdamW moment
-    bytes on the card and its peak memory."""
+    16 rows of dist_batch), the sp 2 step (all 32 rows, half of T' each),
+    the pp 2 step (all 32 rows in PP_MICROBATCHES microbatches, 6 of the 12
+    layers each, `model.scan_layers` on) and the tp 2 step (all 32 rows,
+    this rank's slices of the parameters JAX's rule shards at the YAML's
+    min_shard_elements) in fp32, each's loss and gradients (this rank's
+    parameters; under tp the slices gathered whole) saved for the parent;
+    K1 and K2 launches of each micro-step; the wall ms of sp 2, pp 2 and
+    tp 2 micro-steps with the YAML's settings (bf16, dropout, SpecAugment),
+    and after the pp and tp ones (an update each) this rank's parameter and
+    AdamW moment bytes on the card and its peak memory; after the tp ones
+    the gathered model and optimizer state (rank 0) and each rank's own
+    slices, for the parent's one-process load."""
     import torch.distributed as dist
 
     from mamba_asr_torch.configs.loader import load_config
@@ -1745,14 +1763,20 @@ def worker_steps(work):
         out[name] = {"losses": {k: v.item() for k, v in m.items() if k.startswith("loss")},
                      "launches": {"K1": kernel.LAUNCHES, "K2": kernel.BWD_LAUNCHES},
                      "real_rows": float(batch["weight"][rows].sum())}
-        torch.save({n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()
-                    if not p.is_meta}, os.path.join(work, f"{name}_grads_rank{rank}.pt"))
+        grads = {n: p.grad.detach() for n, p in tr.model.named_parameters() if not p.is_meta}
+        if tr.tp is not None:  # the slices made whole (collective)
+            out[name]["sharded"] = len(tr.tp.shards)
+            grads = tr.tp.gather_state(grads, dev)
+        torch.save({n: g.cpu() for n, g in grads.items()},
+                   os.path.join(work, f"{name}_grads_rank{rank}.pt"))
 
     dp, sp, pp = make_mesh(data=2), make_mesh(seq=2), make_mesh(pipe=2)
+    tp = make_mesh(model=2)
     half = DIST_BATCH // dp.data.size
     step(dp, slice(dp.data.index * half, (dp.data.index + 1) * half), "dp")
     step(sp, slice(None), "sp")
     step(pp, slice(None), "pp")
+    step(tp, slice(None), "tp")
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default
     torch.backends.cudnn.allow_tf32 = True
     tr = Trainer(exp.model, exp.frontend, exp.train, exp.specaug, state_dict=state, device=dev,
@@ -1794,20 +1818,53 @@ def worker_steps(work):
             raise AssertionError(f"pp bf16 step: loss {m['loss'].item()}")
     if tr.optimizer.gradient_step != 1:
         raise AssertionError(f"pp bf16: {tr.optimizer.gradient_step} updates, want 1")
-    opt = tr.optimizer
-    moments = [v for st in opt.optimizer.state.values() for v in st.values()
-               if torch.is_tensor(v) and v.is_cuda]
-    out["pp_bf16"] = {
-        "wall_ms": walls,
-        "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-        "param_bytes": sum(p.numel() * p.element_size() for p in tr.model.parameters()
-                           if not p.is_meta),
-        "moment_bytes": sum(v.numel() * v.element_size() for v in moments),
-        "accumulator_bytes": sum(a.numel() * a.element_size() for a in opt.acc),
-        "stage_layers": list(tr.stage),
-        "whole_model_param_bytes": sum(v.numel() * v.element_size()
-                                       for v in tr.model_state().values()
-                                       if v.is_floating_point())}
+
+    def held_bytes(tr):
+        opt = tr.optimizer
+        moments = [v for st in opt.optimizer.state.values() for v in st.values()
+                   if torch.is_tensor(v) and v.is_cuda]
+        return {"max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "param_bytes": sum(p.numel() * p.element_size() for p in tr.model.parameters()
+                                   if not p.is_meta),
+                "moment_bytes": sum(v.numel() * v.element_size() for v in moments),
+                "accumulator_bytes": sum(a.numel() * a.element_size() for a in opt.acc),
+                "whole_model_param_bytes": sum(v.numel() * v.element_size()
+                                               for v in tr.model_state().values()
+                                               if v.is_floating_point())}
+
+    out["pp_bf16"] = {"wall_ms": walls, "stage_layers": list(tr.stage), **held_bytes(tr)}
+    del tr
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # Accumulation TP_ACCUMULATION: the warm step and the timed ones make one
+    # update (the moments exist), in few of tp's slow host-staged steps.
+    tr = Trainer(exp.model, exp.frontend,
+                 dataclasses.replace(exp.train, grad_accumulation_factor=TP_ACCUMULATION),
+                 exp.specaug, state_dict=state, device=dev, mesh=tp,
+                 min_shard_elements=exp.parallel.min_shard_elements)
+    tr.train_step(batch)  # warm
+    walls = []
+    for _ in range(TP_ACCUMULATION - 1):
+        torch.cuda.synchronize()
+        distributed.barrier("timed step")
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        if not np.isfinite(m["loss"].item()):
+            raise AssertionError(f"tp bf16 step: loss {m['loss'].item()}")
+    if tr.optimizer.gradient_step != 1:
+        raise AssertionError(f"tp bf16: {tr.optimizer.gradient_step} updates, want 1")
+    out["tp_bf16"] = {"wall_ms": walls, "sharded": len(tr.tp.shards), **held_bytes(tr)}
+    # The whole state in a single process's layout (collective), and this
+    # rank's own slices and moments, for the parent's one-process load.
+    whole = {"model": tr.model_state(), "optimizer": tr.optimizer_state()}
+    if rank == 0:
+        torch.save(whole, os.path.join(work, "tp_state.pt"))
+    torch.save({"params": {n: p.detach().cpu() for n, p in tr.model.named_parameters()},
+                "moments": {n: {k: v.cpu() for k, v in st.items()}
+                            for n, st in tr.optimizer.state_dict()["moments"].items()}},
+               os.path.join(work, f"tp_local_rank{rank}.pt"))
     with open(os.path.join(work, f"steps_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     distributed.shutdown()
@@ -1960,13 +2017,16 @@ def world_of_one_nccl(exp, state):
 
 def phase_distributed_train(exp, state):
     """(a) one NCCL rank; (b) 2 gloo ranks on cuda:0 data-parallel, (c)
-    sequence-parallel 2 and (d) pipeline-parallel 2, each's fp32 step
-    (dist_batch: B32 x 25 s, 3 rows weighted 0) held against the
-    single-process card step on the same global batch with train_parity's
-    rule (card_vs_cpu); K1 and K2 per rank per micro-step; the sp and pp
-    steps' wall time in bf16 with the YAML's settings, and the pp ranks'
-    parameter and moment bytes and peak memory. Two ranks share one card
-    through host-staged gloo: not a scaling number."""
+    sequence-parallel 2, (d) pipeline-parallel 2 and (e) tensor-parallel 2
+    (the YAML's min_shard_elements), each's fp32 step (dist_batch: B32 x
+    25 s, 3 rows weighted 0) held against the single-process card step on
+    the same global batch with train_parity's rule (card_vs_cpu; under tp
+    the slices' gradients gathered whole); K1 and K2 per rank per
+    micro-step; the sp, pp and tp steps' wall time in bf16 with the YAML's
+    settings, the pp and tp ranks' parameter and moment bytes and peak
+    memory, and the tp ranks' gathered state loaded by one process on the
+    card: its slices bit-equal to each rank's parameters and moments. Two
+    ranks share one card through host-staged gloo: not a scaling number."""
     from mamba_asr_torch.kernels import selective_scan as kernel
 
     work = tempfile.mkdtemp(prefix="dist_steps_")
@@ -1993,8 +2053,9 @@ def phase_distributed_train(exp, state):
         for r in range(2):
             with open(os.path.join(work, f"steps_rank{r}.json")) as f:
                 ranks.append(json.load(f))
+        tp_load = tp_state_in_one_process(exp, work)
         held = {}
-        for name in ("dp", "sp", "pp"):
+        for name in ("dp", "sp", "pp", "tp"):
             g = [torch.load(os.path.join(work, f"{name}_grads_rank{r}.pt"), weights_only=True)
                  for r in range(2)]
             # Under pp each rank holds its own stage's layers: the gradients
@@ -2027,7 +2088,8 @@ def phase_distributed_train(exp, state):
     # pp: each rank runs its half of the layers on each of PP_MICROBATCHES
     # microbatches (bubble ticks skip the stage): 4 x 6 x 2 = 48 per rank.
     pp_want = PP_MICROBATCHES * per_step // 2
-    for name, want in (("dp", per_step), ("sp", 2 * per_step), ("pp", pp_want)):
+    for name, want in (("dp", per_step), ("sp", 2 * per_step), ("pp", pp_want),
+                       ("tp", per_step)):
         if any(lr != {"K1": want, "K2": want} for lr in held[name]["launches_per_rank"]):
             raise AssertionError(f"distributed_train {name}: launches "
                                  f"{held[name]['launches_per_rank']}, want {want} each")
@@ -2041,6 +2103,15 @@ def phase_distributed_train(exp, state):
     if any(m["param_bytes"] >= whole or m["moment_bytes"] != 2 * m["param_bytes"]
            for m in pp_mem):
         raise AssertionError(f"distributed_train pp: per-rank bytes {pp_mem} against the "
+                             f"whole model's {whole}")
+    tp_walls = ranks[0]["tp_bf16"]["wall_ms"]
+    tp_mem = [{k: rk["tp_bf16"][k] for k in ("sharded", "param_bytes", "moment_bytes",
+                                             "accumulator_bytes", "max_memory_allocated_gb")}
+              for rk in ranks]
+    if (ranks[0]["tp_bf16"]["whole_model_param_bytes"] != whole
+            or any(m["param_bytes"] >= whole or m["moment_bytes"] != 2 * m["param_bytes"]
+                   or m["sharded"] == 0 for m in tp_mem)):
+        raise AssertionError(f"distributed_train tp: per-rank bytes {tp_mem} against the "
                              f"whole model's {whole}")
     emit({"phase": "distributed_train", "note": "two ranks share one card through "
           "host-staged gloo: correctness and launch counts, not a scaling number; NCCL "
@@ -2062,11 +2133,55 @@ def phase_distributed_train(exp, state):
                       "audio_s_per_s": audio / (statistics.median(pp_walls) / 1e3),
                       "per_rank": pp_mem, "whole_model_param_bytes": whole,
                       "whole_model_moment_bytes": 2 * whole},
+          "tp": held["tp"], "tp_sharded_parameters": ranks[0]["tp"]["sharded"],
+          "tp_min_shard_elements": exp.parallel.min_shard_elements,
+          "tp_launches_per_rank_per_micro_step": held["tp"]["launches_per_rank"][0],
+          "tp_bf16": {"note": "two ranks share one card: not a scaling number",
+                      "wall_ms": tp_walls, "median_ms": statistics.median(tp_walls),
+                      "audio_s_per_s": audio / (statistics.median(tp_walls) / 1e3),
+                      "per_rank": tp_mem, "whole_model_param_bytes": whole,
+                      "whole_model_moment_bytes": 2 * whole},
+          "tp_state_in_one_process": tp_load,
           "gloo": {"backend": ranks[0]["backend"], "device": ranks[0]["device"]},
           "spawn_wall_s": wall_s,
           "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad": TRAIN_GRAD_TOL}})
     return {"sp_train_launches": held["sp"]["launches_per_rank"][0],
-            "pp_train_launches": held["pp"]["launches_per_rank"][0]}
+            "pp_train_launches": held["pp"]["launches_per_rank"][0],
+            "tp_train_launches": held["tp"]["launches_per_rank"][0]}
+
+
+def tp_state_in_one_process(exp, work):
+    """Rank 0's gathered tp state (after its bf16 steps and one update)
+    loaded by a single-process Trainer on the card: each rank's parameter
+    slices and AdamW moments equal the one process's, cut by the rank's
+    placement (parallel/tensor.py:plan), bit for bit."""
+    from mamba_asr_torch.parallel import tensor
+    from mamba_asr_torch.training.trainer import Trainer
+
+    whole = torch.load(os.path.join(work, "tp_state.pt"), weights_only=False)
+    tr = Trainer(exp.model, exp.frontend, exp.train, exp.specaug, device="cuda")
+    tr.load_model_state(whole["model"])
+    tr.load_optimizer_state(whole["optimizer"])
+    params = {n: p.detach().cpu() for n, p in tr.model.named_parameters()}
+    moments = tr.optimizer.state_dict()["moments"]
+    checked = sliced = 0
+    for r in range(2):
+        local = torch.load(os.path.join(work, f"tp_local_rank{r}.pt"), weights_only=False)
+        plan = tensor.plan(tr.model, exp.model, 2, r, exp.parallel.min_shard_elements)
+        for name, got in local["params"].items():
+            cut = plan[name].local if name in plan else (lambda t: t)
+            want = [(cut(params[name]), got)] + [
+                (cut(moments[name][k].cpu()) if v.dim() else moments[name][k].cpu(), v)
+                for k, v in local["moments"].get(name, {}).items()]
+            for a, b in want:
+                if not torch.equal(a, b):
+                    raise AssertionError(f"tp state in one process: rank {r}'s {name} differs "
+                                         "from its slice of the gathered state")
+                checked += 1
+            sliced += name in plan
+    del tr
+    torch.cuda.empty_cache()
+    return {"tensors_bitwise_equal": checked, "sliced_parameters_over_ranks": sliced}
 
 
 def phase_distributed_recipe(work, corpus):
@@ -4423,19 +4538,20 @@ def final_pass(name, model, frontend, final, beam, opts, seed, lm=None):
                              beam_size=beam, decode_opts=opts, lm_model=lm)
     seen = {}
     if final == "s2s":
-        searcher = engine._s2s_searcher
+        replica = engine._replicas[0]
+        searcher = replica.searcher
 
         def record(enc, lens, ctc_log_probs):
             seen.update(enc=enc, lens=lens, lp=ctc_log_probs)
             return searcher(enc, lens, ctc_log_probs=ctc_log_probs)
 
-        engine._s2s_searcher = record
+        replica.searcher = record
     else:
         final_ctc = engine._final_ctc
 
-        def record(lp, lens):
+        def record(rep, lp, lens):
             seen.update(lp=lp, lens=lens)
-            return final_ctc(lp, lens)
+            return final_ctc(rep, lp, lens)
 
         engine._final_ctc = record
     wav = noise(SERVING_FINAL_S, seed)
@@ -4571,7 +4687,14 @@ def phase_serving(exp, state, s2s, s2s_state, mam, mam_state, clock_hz, sms):
     TCP: the exactness engine behind AsrTcpServer on 127.0.0.1, an
     abandoned client, SERVING_TCP's concurrent clients (ids equal to the
     engine's own), the full-server error, an endpoint event (the signal
-    forced), the stats op."""
+    forced), the stats op. Replicas (`serve --data_parallel`'s engine):
+    the exactness streams through SERVING_REPLICAS replicas on cuda:0,
+    each transcript equal to the single engine's and the offline decode,
+    K1 per steady tick SERVING_REPLICAS times the single engine's; the
+    bf16 tick at SERVING_PROFILE_SLOTS slots over the replicas against
+    one replica at as many (one card: not a scaling number); `python -m
+    mamba_asr_torch.serve --data_parallel` with one card more than the
+    machine has exits naming both counts."""
     from mamba_asr_torch.decoding.ctc_greedy import ctc_greedy_decode
     from mamba_asr_torch.kernels import selective_scan as kernel
     from mamba_asr_torch.ops.selective_scan import selective_scan_ref
@@ -4579,6 +4702,11 @@ def phase_serving(exp, state, s2s, s2s_state, mam, mam_state, clock_hz, sms):
     from mamba_asr_torch.tools import bench_serving
 
     result = {"phase": "serving", "chunk_frames": STREAM_CHUNK_FRAMES}
+    cards = torch.cuda.device_count()
+    refused = subprocess.Popen(  # beside the phase: its torch import takes seconds
+        [sys.executable, "-m", "mamba_asr_torch.serve", CONFIG, "--torch_ckpt", "model.ckpt",
+         "--data_parallel", str(cards + 1)], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     cfg = exp.model
     d_inner, n = cfg.mamba.expand * cfg.d_model, cfg.mamba.d_state
     gen = torch.Generator().manual_seed(SEED + 70)
@@ -4644,8 +4772,34 @@ def phase_serving(exp, state, s2s, s2s_state, mam, mam_state, clock_hz, sms):
     tcp_wavs = [noise(SERVING_TCP[1], SEED + 90 + i) for i in range(SERVING_TCP[0])]
     want = drive_engine(engine, tcp_wavs, SEED + 91)
     result["tcp"] = tcp_round_trips(engine, [want[i] for i in range(len(tcp_wavs))], tcp_wavs)
+    # The same streams over replicas on the card: the same transcripts.
+    devices = ["cuda:0"] * SERVING_REPLICAS
+    replicas = StreamingServer(model32, fe, None, n_slots=SERVING_EXACT_SLOTS,
+                               chunk_frames=STREAM_CHUNK_FRAMES, devices=devices)
+    t0 = time.perf_counter()
+    got_r = drive_engine(replicas, wavs[:1] + [noise(8.0, SEED + 79)] + wavs[1:], SEED + 81,
+                         abort=(1, 4))
+    drive_r_s = time.perf_counter() - t0
+    got_r = [got_r[0]] + [got_r[i + 1] for i in range(1, len(wavs))]
+    if got_r != got:
+        raise AssertionError("serving replicas: transcripts differ from the single engine's")
+    per_tick = {}
+    for name, over in (("single", None), ("replicas", devices)):
+        filled, feed = bench_serving.filled_engine(model32, fe, SERVING_EXACT_SLOTS,
+                                                   STREAM_CHUNK_FRAMES, SEED, over)
+        feed()
+        kernel.LAUNCHES = 0
+        filled.tick()  # every row steady
+        per_tick[name] = kernel.LAUNCHES
+    if per_tick["replicas"] != SERVING_REPLICAS * per_tick["single"] or not per_tick["single"]:
+        raise AssertionError(f"serving replicas: K1 per tick {per_tick}")
+    result["replicas_exactness"] = {
+        "replicas": SERVING_REPLICAS, "devices": devices, "slots": SERVING_EXACT_SLOTS,
+        "rows_per_replica": [len(r.rows) for r in replicas._replicas],
+        "equal_to_single_and_offline": True, "drive_s": drive_r_s,
+        "k1_per_tick": per_tick, "stats": replicas.stats()}
     torch.backends.cudnn.allow_tf32 = True  # back to PyTorch's defaults
-    del model32, engine
+    del model32, engine, replicas
 
     # Capacity at the YAML's bf16.
     rows = bench_serving.run(cfg, fe, SERVING_SLOTS, STREAM_CHUNK_FRAMES, SERVING_TICKS, SEED,
@@ -4661,7 +4815,29 @@ def phase_serving(exp, state, s2s, s2s_state, mam, mam_state, clock_hz, sms):
     result["capacity"] = {"rows": rows, "profile": {
         "slots": SERVING_PROFILE_SLOTS, "wall_ms": wall_ms, "device_kernel_ms": device_ms,
         "idle_share": 1.0 - device_ms / wall_ms, "top": top}}
-    del engine
+    # The bf16 tick over replicas against one replica, ticks alternating.
+    split, split_feed = bench_serving.filled_engine(
+        model, fe, SERVING_PROFILE_SLOTS, STREAM_CHUNK_FRAMES, SEED, ["cuda:0"] * SERVING_REPLICAS)
+    feeds = {"one": (engine, feed), "replicas": (split, split_feed)}
+    walls, launches = {k: [] for k in feeds}, {k: 0 for k in feeds}
+    for _ in range(SERVING_TICKS):
+        for name, (e, f) in feeds.items():
+            f()
+            torch.cuda.synchronize()
+            before = kernel.LAUNCHES
+            t0 = time.perf_counter()
+            e.tick()  # returns after the argmaxes' copy to the host
+            walls[name].append(1e3 * (time.perf_counter() - t0))
+            launches[name] += kernel.LAUNCHES - before
+    per_tick = {k: v / SERVING_TICKS for k, v in launches.items()}
+    if per_tick != {"one": scans_per_step(cfg), "replicas": SERVING_REPLICAS * scans_per_step(cfg)}:
+        raise AssertionError(f"serving replicas: K1 per bf16 tick {per_tick}")
+    result["replicas_tick"] = {
+        "note": "replicas share one card: not a scaling number", "slots": SERVING_PROFILE_SLOTS,
+        "replicas": SERVING_REPLICAS, "ticks": SERVING_TICKS,
+        **{f"{k}_wall_ms_median": statistics.median(v) for k, v in walls.items()},
+        **{f"{k}_wall_ms": v for k, v in walls.items()}, "k1_per_tick": per_tick}
+    del engine, split, feeds
 
     # Final passes, bf16.
     finals = {"ctc_beam": final_pass("ctc_beam", model, fe, "ctc_beam", SERVING_CTC_BEAM, {},
@@ -4684,6 +4860,13 @@ def phase_serving(exp, state, s2s, s2s_state, mam, mam_state, clock_hz, sms):
     if finals["s2s_mamba_decoder"]["launches"]["K1"] < mam.model.num_decoder_layers:
         raise AssertionError("serving: the Mamba decoder's final pass did not prime with K1")
     result["finals"] = finals
+    out = refused.communicate(timeout=120)[0].decode(errors="replace")
+    if refused.returncode == 0 or f"has {cards} CUDA card(s), fewer than {cards + 1}" not in out:
+        raise AssertionError(f"serve --data_parallel {cards + 1} on {cards} card(s): exit "
+                             f"{refused.returncode}\n{out[-2000:]}")
+    result["data_parallel_refused"] = {"asked": cards + 1, "cards": cards,
+                                       "exit": refused.returncode,
+                                       "message": out.strip().splitlines()[-1]}
     emit(result)
     return result
 
@@ -5753,6 +5936,7 @@ def main() -> int:
             stream["latency"][yaml_name(CONFIG)]["k1_launches_per_chunk"],
         **{f"streaming_{key}": stream["kernel"][key] for key in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+        "serving_replicas_launches_per_tick": serving["replicas_tick"]["k1_per_tick"],
         "serving_launches_per_tick": {
             row["n_slots"]: row["k1_launches_per_tick"] for row in serving["capacity"]["rows"]},
         **{f"serving_{key}": serving["kernel"][key] for key in (
@@ -5779,6 +5963,7 @@ def main() -> int:
         "library_ms": None, "s2s_train_launches": s2s_train_launches["K1"],
         "sp_train_launches": dist["sp_train_launches"]["K1"],
         "pp_train_launches_per_rank": dist["pp_train_launches"]["K1"],
+        "tp_train_launches_per_rank": dist["tp_train_launches"]["K1"],
         "remat_train_launches": train_launches["remat"]["K1"],
         "conmamba_large_remat_train_launches": large["remat"]["launches"]["K1"],
         "mamba_dec_train_launches": mam_train_launches["K1"],
@@ -5798,6 +5983,7 @@ def main() -> int:
         "s2s_train_launches": s2s_train_launches["K2"],
         "sp_train_launches": dist["sp_train_launches"]["K2"],
         "pp_train_launches_per_rank": dist["pp_train_launches"]["K2"],
+        "tp_train_launches_per_rank": dist["tp_train_launches"]["K2"],
         "remat_train_launches": train_launches["remat"]["K2"],
         "conmamba_large_remat_train_launches": large["remat"]["launches"]["K2"],
         "s2s_recipe_launches": s2s_recipe_launches["K2"],

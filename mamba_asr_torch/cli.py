@@ -23,10 +23,10 @@ writing wer_<split>.txt. It runs on the CUDA card unless `--device cpu`
 each process calls `parallel.distributed.initialize()` (MASR_COORDINATOR,
 MASR_NUM_PROCESSES, MASR_PROCESS_ID, or torchrun's variables; NCCL on
 cards, gloo on the CPU, MASR_BACKEND=gloo for ranks sharing a card), the
-ranks form the (data, seq, pipe) grid of the `parallel` stanza, rank 0
-prepares the manifests and fits the tokenizer (and builds the CUDA
+ranks form the (data, model, seq, pipe) grid of the `parallel` stanza,
+rank 0 prepares the manifests and fits the tokenizer (and builds the CUDA
 kernels) with a barrier after each, and each rank loads its rows of every
-global batch (the ranks of a seq or pipe line the same rows), whose size
+global batch (the ranks of a model, seq or pipe line the same rows), whose size
 is a multiple of lcm(data axis, process count), and under pipeline
 parallelism of lcm(data axis x pipeline_microbatches, process count), so
 that each rank's rows split into the microbatches. JAX's CLI rounds to
@@ -216,10 +216,12 @@ def run_training(argv: Optional[List[str]] = None) -> Trainer:
 
             build.build_all()
         distributed.barrier("kernel_build")
-    # A single process meets sequence_parallel or pipeline_stages > 1 here
-    # too: make_mesh raises.
-    sp, pp = cfg.parallel.sequence_parallel, cfg.parallel.pipeline_stages
-    mesh = make_mesh(seq=sp, pipe=pp) if multi or sp > 1 or pp > 1 else None
+    # A single process meets sequence_parallel, pipeline_stages or
+    # tensor_parallel > 1 here too: make_mesh raises.
+    par = cfg.parallel
+    sp, pp, tp = par.sequence_parallel, par.pipeline_stages, par.tensor_parallel
+    mesh = (make_mesh(seq=sp, pipe=pp, model=tp) if multi or max(sp, pp, tp) > 1
+            else None)
     trainer = Trainer(cfg, tokenizer, device=device, lm=lm, mesh=mesh)
 
     valid_loader = None
@@ -228,7 +230,7 @@ def run_training(argv: Optional[List[str]] = None) -> Trainer:
             cfg, os.path.join(manifest_dir, cfg.data.dev_splits[0] + ".csv"), tokenizer)
     if mesh is None:
         loader = train_loader(cfg, train_csv, tokenizer)
-    else:  # the ranks of one seq or pipe line load the same rows
+    else:  # the ranks of one model, seq or pipe line load the same rows
         # Under pp each rank's rows split into pipeline_microbatches.
         rows = mesh.data.size * (cfg.parallel.pipeline_microbatches if pp > 1 else 1)
         loader = train_loader(

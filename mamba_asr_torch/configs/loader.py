@@ -28,9 +28,8 @@ from mamba_asr_torch.parallel.encoder_parallel import (
     check_pipeline_parallel,
     check_sequence_parallel,
 )
+from mamba_asr_torch.parallel.tensor import check_tensor_parallel
 from mamba_asr_torch.training.trainer import SpecAugmentConfig, TrainConfig
-
-TENSOR_ITEM = "ROADMAP Queue 1 item 11 (tensor parallelism)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,13 +112,15 @@ class DecodeConfig:
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
     """The process grid of multi-process training (a copy of the JAX
-    package's ParallelConfig): data axis = ranks / (sequence_parallel *
-    pipeline_stages). sequence_parallel shards the ConMamba encoder's time
-    axis over that many ranks; pipeline_stages splits its layers into
-    that many stages run on the GPipe schedule over pipeline_microbatches
-    microbatches of each rank's batch (parallel/encoder_parallel.py).
-    tensor_parallel and min_shard_elements (tensor parallelism) load, but
-    more than one tensor shard raises."""
+    package's ParallelConfig): data axis = ranks / (tensor_parallel *
+    sequence_parallel * pipeline_stages). tensor_parallel slices every
+    parameter JAX's rule shards (at least min_shard_elements elements)
+    over that many ranks (parallel/tensor.py); sequence_parallel shards the
+    ConMamba encoder's time axis over that many ranks; pipeline_stages
+    splits its layers into that many stages run on the GPipe schedule over
+    pipeline_microbatches microbatches of each rank's batch
+    (parallel/encoder_parallel.py). Tensor parallelism does not combine
+    with the other two yet."""
 
     tensor_parallel: int = 1
     min_shard_elements: int = 16384
@@ -198,14 +199,14 @@ def load_config(path: str, overrides: Optional[Dict[str, Any]] = None
 
 def check_parallel(exp: ExperimentConfig) -> None:
     """Raise on a parallel stanza the port cannot train: tensor
-    parallelism (not ported), sequence parallelism on an encoder other
+    parallelism with sequence or pipeline parallelism
+    (`check_tensor_parallel`), sequence parallelism on an encoder other
     than ConMamba or with dynamic-chunk training, or pipeline parallelism
-    where `check_pipeline_parallel` refuses it. More stages than a data
-    line's ranks is the grid's error (`parallel/mesh.py:make_mesh`)."""
+    where `check_pipeline_parallel` refuses it. More stages or model
+    ranks than a world's ranks is the grid's error
+    (`parallel/mesh.py:make_mesh`)."""
     par = exp.parallel
-    if par.tensor_parallel > 1:
-        raise NotImplementedError(f"parallel.tensor_parallel={par.tensor_parallel}: {TENSOR_ITEM} "
-                                  "is not ported")
+    check_tensor_parallel(par.tensor_parallel, par.sequence_parallel, par.pipeline_stages)
     if par.pipeline_stages > 1:
         m = exp.model
         check_pipeline_parallel(m.encoder_module, m.scan_layers, m.num_encoder_layers,

@@ -87,6 +87,11 @@ class MultiheadAttention(nn.Module):
     def _proj(self, x: torch.Tensor, first: int, count: int) -> torch.Tensor:
         """Projections first .. first+count-1 of (q, k, v), stacked on the
         last axis, in the compute dtype: (..., count * D)."""
+        tp_dense = getattr(self.att, "tp_dense", None)
+        if tp_dense is not None:  # tensor parallelism: this rank's share of each
+            return tp_dense(x.to(self.dtype), self.att.in_proj_weight.to(self.dtype),
+                            self.att.in_proj_bias.to(self.dtype),
+                            rows=range(first, first + count))
         d = x.shape[-1]
         rows = slice(first * d, (first + count) * d)
         w = self.att.in_proj_weight[rows].to(self.dtype)

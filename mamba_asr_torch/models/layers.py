@@ -40,8 +40,14 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 
 
 def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """`lin` applied in `dtype` (flax nn.Dense(dtype=...))."""
+    """`lin` applied in `dtype` (flax nn.Dense(dtype=...)). Under tensor
+    parallelism a Linear holding this rank's rows of its weight carries
+    `tp_dense` (parallel/tensor.py:column_parallel), which computes this
+    rank's output columns and gathers the rest."""
     bias = None if lin.bias is None else lin.bias.to(dtype)
+    tp_dense = getattr(lin, "tp_dense", None)
+    if tp_dense is not None:
+        return tp_dense(x.to(dtype), lin.weight.to(dtype), bias)
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
 
 

@@ -24,11 +24,17 @@ Every leaf must be consumed: a leaf this layout cannot hold raises.
 A reference checkpoint itself (`load_torch_asr`, recognize and evaluate's
 --torch_ckpt) already has these names, and its normaliser statistics
 come in through `import_normalizer_stats`.
+
+`jax_leaves(cfg, shapes)` runs the same mapping over names alone: for
+each port key, the JAX leaves it is made from, with their shapes (in the
+unrolled layout) and the port axis that is the leaf's last (the axis
+JAX's tensor-parallel rule shards, parallel/tensor.py).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import dataclasses
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -91,6 +97,11 @@ class _Tree:
                 f"{len(unused)} param leaves have no place in the port's "
                 f"model (first 10): {unused[:10]}"
             )
+
+
+def _cat(parts):
+    """Arrays stacked on axis 0 (attention's q, k and v)."""
+    return _Stack(parts) if isinstance(parts[0], _Probe) else np.concatenate(parts, axis=0)
 
 
 def _linear(t: _Tree, path: str, key: str, out: Dict[str, np.ndarray]):
@@ -157,18 +168,16 @@ def _mha(t: _Tree, path: str, key: str, out):
     """q, k, v and out Dense layers -> SpeechBrain's `att.in_proj_*` and
     `att.out_proj` (torch_export.py:_sb_mha)."""
     names = ("q", "k", "v")
-    out[f"{key}.att.in_proj_weight"] = np.concatenate(
-        [t.take(f"{path}/{n}/kernel").T for n in names], axis=0)
-    out[f"{key}.att.in_proj_bias"] = np.concatenate(
-        [t.take(f"{path}/{n}/bias") for n in names], axis=0)
+    out[f"{key}.att.in_proj_weight"] = _cat([t.take(f"{path}/{n}/kernel").T for n in names])
+    out[f"{key}.att.in_proj_bias"] = _cat([t.take(f"{path}/{n}/bias") for n in names])
     _linear(t, f"{path}/out", f"{key}.att.out_proj", out)
 
 
 def _relpos_mha(t: _Tree, path: str, key: str, out):
     """torch_export.py:_relpos_mha: no-bias q, k, v stacked, `out`, the
     position projection and the (H, dh) biases u and v."""
-    out[f"{key}.in_proj_weight"] = np.concatenate(
-        [t.take(f"{path}/{n}/kernel").T for n in ("q", "k", "v")], axis=0)
+    out[f"{key}.in_proj_weight"] = _cat([t.take(f"{path}/{n}/kernel").T
+                                          for n in ("q", "k", "v")])
     _linear(t, f"{path}/out", f"{key}.out_proj", out)
     out[f"{key}.linear_pos.weight"] = t.take(f"{path}/pos/kernel").T
     for name in ("pos_bias_u", "pos_bias_v"):
@@ -292,6 +301,13 @@ def import_asr_params(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]
         params = _unroll_encoder(params, cfg.num_encoder_layers)
     t = _Tree(params)
     out: Dict[str, np.ndarray] = {}
+    _map_asr(t, cfg, out)
+    t.finish()
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def _map_asr(t: _Tree, cfg, out) -> None:
+    """Every leaf of an unrolled ASRModel tree onto its port key."""
     _frontend(t, "frontend", "0", len(cfg.frontend_channels), out)
     _linear(t, "src_proj", "1.custom_src_module.layers.0.w", out)
     layer = _encoder_layer_mapper(cfg)
@@ -310,8 +326,128 @@ def import_asr_params(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]
         _linear(t, "ctc_head", "3.w", out)
     else:
         _linear(t, "ctc_head", "2.w", out)
-    t.finish()
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+# -- the mapping over names: which JAX leaves make each port key ----------------
+
+
+@dataclasses.dataclass(frozen=True)
+class JaxLeaf:
+    """One JAX leaf of a port tensor. path: its '/'-joined path in the
+    unrolled tree (`encoder/layer_i/...` also under scan_layers); shape:
+    its shape there; last_axis: the port tensor's axis that is the leaf's
+    last; rows: the (start, stop) it fills of the port tensor's axis 0
+    (attention's stacked q, k and v), or None for the whole tensor."""
+
+    path: str
+    shape: Tuple[int, ...]
+    last_axis: int
+    rows: Optional[Tuple[int, int]] = None
+
+
+class _Probe:
+    """A leaf taken by name: the mapping's orientation steps (.T,
+    [index], .transpose) recorded in order, resolved once the port shape
+    they must give is known."""
+
+    def __init__(self, path: str, ops: Tuple = ()):
+        self.path, self.ops = path, ops
+
+    @property
+    def T(self) -> "_Probe":
+        return _Probe(self.path, self.ops + (("perm", None),))
+
+    def transpose(self, *axes) -> "_Probe":
+        return _Probe(self.path, self.ops + (("perm", axes),))
+
+    def __getitem__(self, index) -> "_Probe":
+        index = index if isinstance(index, tuple) else (index,)
+        assert all(i is None or i == slice(None) for i in index), index
+        return _Probe(self.path, self.ops + (("index", index),))
+
+    def resolve(self, port_shape: Sequence[int], rows=None) -> JaxLeaf:
+        shape = list(port_shape)
+        for kind, arg in reversed(self.ops):  # back from the port's shape
+            if kind == "perm":
+                axes = arg or tuple(reversed(range(len(shape))))
+                pre = [0] * len(shape)
+                for i, a in enumerate(axes):
+                    pre[a] = shape[i]
+                shape = pre
+            else:
+                assert all(shape[i] == 1 for i, a in enumerate(arg) if a is None)
+                shape = [d for i, d in enumerate(shape) if i >= len(arg) or arg[i] is not None]
+        axes: List[Optional[int]] = list(range(len(shape)))
+        for kind, arg in self.ops:  # where each JAX axis lands
+            if kind == "perm":
+                axes = [axes[a] for a in arg] if arg else axes[::-1]
+            else:
+                rest, axes = list(axes), []
+                for a in arg:
+                    axes.append(None if a is None else rest.pop(0))
+                axes += rest
+        return JaxLeaf(self.path, tuple(shape), axes.index(len(shape) - 1), rows)
+
+
+class _Stack:
+    """Probes stacked on axis 0."""
+
+    def __init__(self, parts: Sequence[_Probe]):
+        self.parts = list(parts)
+
+    def resolve(self, port_shape: Sequence[int]) -> List[JaxLeaf]:
+        n = port_shape[0] // len(self.parts)
+        return [p.resolve((n,) + tuple(port_shape[1:]), (i * n, (i + 1) * n))
+                for i, p in enumerate(self.parts)]
+
+
+class _ProbeTree(_Tree):
+    """A tree known by names alone: `take` gives a _Probe, `has` asks
+    `present` (a prefix that holds no leaf the port's model has is
+    absent)."""
+
+    def __init__(self, present):
+        super().__init__({})
+        self.present = present
+
+    def has(self, path: str) -> bool:
+        return self.present(path)
+
+    def take(self, path: str) -> _Probe:
+        self.used.add(path)
+        return _Probe(path)
+
+
+def jax_leaves(cfg, shapes: Mapping[str, Sequence[int]]) -> Dict[str, List[JaxLeaf]]:
+    """{port key: the JAX leaves it is made from} for every key of
+    `shapes` (the port ASRModel's tensors and their shapes, e.g. its
+    named parameters), by the mapping `import_asr_params` runs. The
+    first pass takes every optional leaf; the second drops the subtrees
+    whose leaves no key of `shapes` holds (a missing bias, the backward
+    scan head of a unidirectional block, the 1-D CNN FFN), so a branch
+    such as the FFN's Dense-or-conv takes the side the model has."""
+    def run(present):
+        t, out = _ProbeTree(present), {}
+        _map_asr(t, cfg, out)
+        return out
+
+    first = run(lambda path: True)
+    held = set()
+    for key, v in first.items():
+        if key in shapes:
+            held.update(p.path for p in (v.parts if isinstance(v, _Stack) else [v]))
+
+    def present(prefix):
+        taken = [p for v in first.values() for p in (v.parts if isinstance(v, _Stack) else [v])
+                 if p.path == prefix or p.path.startswith(prefix + "/")]
+        return not taken or any(p.path in held for p in taken)
+
+    out = run(present)
+    missing = sorted(set(shapes) - set(out))
+    if missing:
+        raise KeyError(f"no JAX leaf makes {missing[:5]}")
+    return {k: (v.resolve(shapes[k]) if isinstance(v, _Stack) else [v.resolve(shapes[k])])
+            for k, v in out.items() if k in shapes}
 
 
 def import_lm_params(params: Mapping[str, Any], num_layers: int = 12

@@ -27,8 +27,9 @@ MASR_TIMEOUT_S, else 1,800 s), so a collective that never completes
 fails the run instead of holding it.
 
 The JAX package's `fetch_global` / `tree_fetch_global` have no
-counterpart: with no tensor parallelism every rank holds the whole
-state, so rank 0's copy is the global value.
+counterpart here: the trainer gathers the pipeline stages and the
+tensor-parallel slices it holds into a single process's layout itself
+(training/trainer.py:model_state, optimizer_state).
 """
 
 from __future__ import annotations

@@ -1,23 +1,25 @@
 """The process grid (port of mamba_asr_tpu/parallel/mesh.py:31-50,
-104-105): the ranks of the world laid out on a (data, seq, pipe) grid.
+104-105): the ranks of the world laid out on a (data, model, seq, pipe)
+grid.
 
-Rank r sits at (data index, seq index, pipe index), pipe innermost and
-data outermost, as the JAX mesh orders its devices on ("data", "model",
-"seq", "pipe"): r = (data_index * seq + seq_index) * pipe + pipe_index.
-Ranks on one seq line hold the same rows of a global batch and split
+Rank r sits at (data index, model index, seq index, pipe index), pipe
+innermost and data outermost, in the JAX mesh's axis order ("data",
+"model", "seq", "pipe"): r = ((d * model + m) * seq + s) * pipe + p.
+Ranks on one model line hold the same rows of a global batch and each
+holds its slice of the large parameters (tensor parallelism,
+parallel/tensor.py); ranks on one seq line hold the same rows and split
 their time axis (sequence parallelism); ranks on one pipe line hold the
 same rows and split the encoder's layers into stages (pipeline
 parallelism, parallel/pipeline.py); ranks on one data line hold
-different rows and the same seq shard or stage (data parallelism). Each
-axis carries the torch.distributed group of this rank's line along it,
-which the collectives (`parallel/collectives.py`) reduce over.
+different rows and the same parameter shard, seq shard or stage (data
+parallelism). Each axis carries the torch.distributed group of this
+rank's line along it, which the collectives (`parallel/collectives.py`)
+reduce over.
 
-The JAX mesh's "model" axis (tensor parallelism) is not ported: the
-config loader refuses it (`check_parallel`) before any grid is made.
 GSPMD's placement hints (`constrain_batch`, `activation_mesh`,
 `scoped_to_mesh`, `shard_batch`) have no counterpart: each rank holds
-its own rows, and the whole state but for other stages' layers
-(training/trainer.py).
+its own rows, and the whole state but for other stages' layers and other
+model ranks' parameter slices (training/trainer.py).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ class Mesh:
     seq: Axis
     world: Axis
     pipe: Axis = Axis(1, 0)
+    model: Axis = Axis(1, 0)
 
     def is_main_process(self) -> bool:
         return self.world.index == 0
@@ -67,20 +70,23 @@ def _lines(sizes, along: int):
             for base in range(n) if base % step < inner]
 
 
-def make_mesh(data: Optional[int] = None, seq: int = 1, pipe: int = 1) -> Mesh:
-    """The (data, seq, pipe) grid over the world (a single process when no
-    process group is initialized): data defaults to world // (seq * pipe),
-    and data * seq * pipe must equal the world. Collective: in a
-    multi-process world every rank must call it, in the same order, with
-    the same sizes."""
+def make_mesh(data: Optional[int] = None, seq: int = 1, pipe: int = 1,
+              model: int = 1) -> Mesh:
+    """The (data, model, seq, pipe) grid over the world (a single process
+    when no process group is initialized): data defaults to world //
+    (model * seq * pipe), and data * model * seq * pipe must equal the
+    world. Collective: in a multi-process world every rank must call it,
+    in the same order, with the same sizes."""
     world, rank = distributed.process_count(), distributed.process_index()
+    inner = model * seq * pipe
     if data is None:
-        data = world // (seq * pipe)
-    if data < 1 or seq < 1 or pipe < 1 or data * seq * pipe != world:
-        raise ValueError(f"a {data} x {seq} x {pipe} (data x seq x pipe) grid does not fit "
-                         f"{world} rank(s)")
-    sizes = (data, seq, pipe)
-    d_idx, rest = divmod(rank, seq * pipe)
+        data = world // inner if inner > 0 else 0
+    if min(data, model, seq, pipe) < 1 or data * inner != world:
+        raise ValueError(f"a {data} x {model} x {seq} x {pipe} (data x model x seq x pipe) "
+                         f"grid does not fit {world} rank(s)")
+    sizes = (data, model, seq, pipe)
+    d_idx, rest = divmod(rank, inner)
+    m_idx, rest = divmod(rest, seq * pipe)
     s_idx, p_idx = divmod(rest, pipe)
     everyone = list(range(world))
 
@@ -100,5 +106,5 @@ def make_mesh(data: Optional[int] = None, seq: int = 1, pipe: int = 1) -> Mesh:
         mine = next(i for i, line in enumerate(lines) if rank in line)
         return Axis(size, index, groups[mine])
 
-    return Mesh(data=axis(d_idx, 0), seq=axis(s_idx, 1), world=axis(rank, None),
-                pipe=axis(p_idx, 2))
+    return Mesh(data=axis(d_idx, 0), seq=axis(s_idx, 2), world=axis(rank, None),
+                pipe=axis(p_idx, 3), model=axis(m_idx, 1))

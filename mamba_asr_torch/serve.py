@@ -8,7 +8,8 @@ Server (owns the card):
          [--torch_normalizer normalizer.ckpt]) [--tokenizer tok.json]
         [--host 127.0.0.1] [--port 7353] [--slots 8] [--chunk_frames 64]
         [--final none|ctc_beam|s2s] [--final_beam_size 8]
-        [--endpoint_silence S] [--device cpu] [--key value ...]
+        [--endpoint_silence S] [--data_parallel N] [--device cpu]
+        [--key value ...]
 
 Client (numpy and sockets only, on any host; streams PCM over TCP and
 prints `<path>\\t<transcript>` per file, with --timestamps also one
@@ -26,7 +27,10 @@ by `python -m mamba_asr_torch.export_model --streaming`):
 The server is `serving.engine.StreamingServer` behind
 `serving.server.AsrTcpServer`: one fixed-shape tick advances every ready
 stream. For a causal config the transcripts equal the offline greedy
-decode. `--final ctc_beam` with `decode.lm_path` set rescores the CTC
+decode. `--data_parallel N` spreads the slots over the cards cuda:0 ..
+cuda:N-1, one model replica each (`--slots` must divide over them); with
+fewer cards it refuses to start, and with `--device cpu` it builds N
+replicas on the CPU. `--final ctc_beam` with `decode.lm_path` set rescores the CTC
 n-best with that LM. The wire protocol is the JAX package's, so either
 package's client talks to either server. With --bundle it is
 `serving.export.ExportedStreamingServer` instead. The server runs on the
@@ -40,9 +44,6 @@ import argparse
 import sys
 import time
 from typing import List, Optional
-
-DATA_PARALLEL_ITEM = "ROADMAP Queue 1 item 12 (multi-card serving)"
-
 
 def run_client(addr: str, paths, realtime: bool, chunk_ms: float,
                timestamps: bool = False) -> None:
@@ -95,7 +96,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=7353)
     p.add_argument("--slots", type=int, default=8, help="concurrent streams (the tick's batch)")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="slots over N cards (not ported)")
+                   help="spread the slots over N cards, cuda:0 .. cuda:N-1 (N CPU replicas "
+                        "with --device cpu; 0 or 1: one device); not with --bundle")
     p.add_argument("--chunk_frames", type=int, default=64,
                    help="fbank frames per stream per tick (64 = 640 ms)")
     p.add_argument("--final", choices=["none", "ctc_beam", "s2s"], default="none",
@@ -110,10 +112,9 @@ def parser() -> argparse.ArgumentParser:
 
 def build_server(args: argparse.Namespace, extra: List[str]):
     """The AsrTcpServer of server mode, not yet started."""
-    if args.data_parallel > 1:
-        raise SystemExit(f"--data_parallel {args.data_parallel}: serving on several cards "
-                         f"is not ported ({DATA_PARALLEL_ITEM})")
     if args.bundle:
+        if args.data_parallel > 1:  # as JAX's bundle path, one device
+            raise SystemExit("--data_parallel: a bundle serves on one device")
         # Serving from a bundle: Python and numpy over its four programs.
         from mamba_asr_torch.data.tokenizer import load_tokenizer
         from mamba_asr_torch.serving.export import ExportedStreamingServer
@@ -134,6 +135,7 @@ def build_server(args: argparse.Namespace, extra: List[str]):
     from mamba_asr_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
+    devices = serving_devices(device, args.data_parallel)
     cfg = load_config(args.config, parse_overrides(extra))
     tokenizer = load_tokenizer(
         args.tokenizer or f"{cfg.output_folder}/tokenizer_{cfg.data.tokenizer_type}.json")
@@ -151,11 +153,28 @@ def build_server(args: argparse.Namespace, extra: List[str]):
     engine = StreamingServer(
         model, cfg.frontend, normalizer, n_slots=args.slots, chunk_frames=args.chunk_frames,
         final_decode=None if args.final == "none" else args.final,
-        beam_size=args.final_beam_size, lm_model=lm,
+        beam_size=args.final_beam_size, lm_model=lm, devices=devices,
         decode_opts=({"lm_weight": cfg.decode.lm_weight,
                       "temperature_lm": cfg.decode.temperature_lm} if lm is not None else None))
     return AsrTcpServer(engine, tokenizer=tokenizer, host=args.host, port=args.port,
                         endpoint_silence_s=args.endpoint_silence)
+
+
+def serving_devices(device, n: int):
+    """The devices of `--data_parallel n` for the resolved `device`: the
+    cards cuda:0 .. cuda:n-1 (refused when fewer are present: no fallback),
+    or n replicas on the CPU; None for one device (n <= 1)."""
+    import torch
+
+    if n <= 1:
+        return None
+    if device.type == "cpu":
+        return [device] * n
+    have = torch.cuda.device_count()
+    if have < n:
+        raise SystemExit(f"--data_parallel {n}: this machine has {have} CUDA card(s), "
+                         f"fewer than {n}")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def main(argv: Optional[List[str]] = None) -> None:

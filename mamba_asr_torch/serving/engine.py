@@ -28,13 +28,24 @@ decoding/rescore.py) or the joint CTC/attention search ("s2s").
 
 Every public method runs under torch.no_grad and on the engine's device
 (both are per thread in PyTorch, and a server calls the engine from
-several threads). Multi-device serving (JAX's `mesh`) is not ported:
-ROADMAP Queue 1 item 12.
+several threads).
+
+Multi-device serving (JAX's `mesh`, engine.py:131-152): given `devices`,
+the slots split into one contiguous block of rows per device, each held
+by a replica of the model on its device with its block's state (replicas
+on one device share the model). The tick has no cross-slot operation, so
+each replica ticks its own rows: `_steady` launches every replica's tick
+back to back with no wait between them and then copies all the argmaxes
+to the host at once. A stream's batch-1 session, its row's insert and
+extract, and its final pass run on its slot's replica.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import contextlib
+import copy
+import dataclasses
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -88,6 +99,28 @@ def tree_extract(state, idx: int):
     return tree_map(lambda a: a[idx:idx + 1].clone(), state)
 
 
+@dataclasses.dataclass
+class _Replica:
+    """One device's share of the engine: its model, its block of slot
+    rows (`rows`, global slot indices) and their state, the last tick's
+    encoder output of those rows, and the final pass's searcher."""
+
+    device: torch.device
+    model: ASRModel
+    normalizer: Optional[NormalizerState]
+    rows: range
+    state: Optional[dict] = None
+    last_enc: Optional[torch.Tensor] = None
+    searcher: Optional[S2SBeamSearcher] = None
+    lm_model: object = None
+
+    def current(self):
+        """This replica's device made current (its kernels launch there)."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+
 class StreamingServer(SlotEngine):
     """Fixed-capacity slot-batched streaming recognizer.
 
@@ -102,6 +135,9 @@ class StreamingServer(SlotEngine):
     (the CTC search's pruning, or the S2SBeamSearcher's fields; with
     lm_model, a TransformerLM on the model's device, the n-best rescoring's
     lm_weight (0.6), temperature_lm (1.0) and nbest (min(beam_size, 10))).
+    devices: the devices to spread the slots over (JAX's `mesh`), one
+    replica each, in order, n_slots / len(devices) rows apiece; default
+    the model's device alone.
     """
 
     def __init__(
@@ -115,7 +151,13 @@ class StreamingServer(SlotEngine):
         beam_size: int = 8,
         decode_opts: Optional[dict] = None,
         lm_model=None,
+        devices: Optional[Sequence[Union[str, torch.device]]] = None,
     ):
+        home = model.src_proj.weight.device
+        devices = [home] if devices is None else [_indexed(d) for d in devices]
+        if not devices or n_slots % len(devices):
+            raise ValueError(f"n_slots {n_slots} must divide over the data axis "
+                             f"({len(devices)} devices)")
         if final_decode not in (None, "ctc_beam", "s2s"):
             raise ValueError(f"final_decode {final_decode!r}: None, 'ctc_beam' or 's2s'")
         if chunk_frames % model.cfg.downsample:
@@ -123,7 +165,7 @@ class StreamingServer(SlotEngine):
                              f"downsampling factor {model.cfg.downsample}")
         super().__init__(n_slots, chunk_frames * frontend.hop,
                          chunk_frames // model.cfg.downsample, frontend.sample_rate,
-                         model.src_proj.weight.device)
+                         devices[0])
         self.model = model
         self.frontend = frontend
         self.normalizer = normalizer
@@ -134,11 +176,23 @@ class StreamingServer(SlotEngine):
         if self.chunk_samples < self.win:
             raise ValueError("a chunk must cover at least one fbank window")
 
+        # One model per device (the caller's on its own), with its normaliser.
+        models, norms = {str(home): model}, {str(home): normalizer}
+        for dev in devices:
+            if str(dev) not in models:
+                models[str(dev)] = copy.deepcopy(model).to(dev)
+                norms[str(dev)] = (None if normalizer is None else
+                                   NormalizerState(*(t.to(dev) for t in normalizer)))
+        per = n_slots // len(devices)
+        self._replicas = [_Replica(dev, models[str(dev)], norms[str(dev)],
+                                   range(i * per, (i + 1) * per))
+                          for i, dev in enumerate(devices)]
+        first = self._replicas[0]
         with torch.no_grad(), self._device_context():
             # The steady template: zero chunks through a batch-1 session,
             # whose state shapes must then stay fixed (every stream lands
             # there after its first chunk, so one tick shape serves all).
-            tmpl = StreamingASRSession(model, frontend, normalizer, chunk_frames)
+            tmpl = StreamingASRSession(first.model, frontend, first.normalizer, chunk_frames)
             zeros = np.zeros((1, self.chunk_samples), np.float32)
             tmpl.feed(zeros)
             shapes = self._state_shapes(tmpl)
@@ -150,24 +204,21 @@ class StreamingServer(SlotEngine):
             self._template = shapes
             self._tail_len = tmpl.audio_tail.shape[1]
             carries = tmpl.fe_stream.carry
-
-            def tile(x):
-                return torch.zeros((n_slots,) + tuple(x.shape[1:]), dtype=x.dtype,
-                                   device=self.device)
-
-            self._state = {
-                "tail": torch.zeros(n_slots, self._tail_len, device=self.device),
-                "carry": tuple(tile(c) for c in carries),
-                "enc": model.init_streaming_state(n_slots),
-            }
-            bad = [tuple(a.shape) for a in _leaves(self._state)
-                   if a.dim() == 0 or a.shape[0] != n_slots]
-            assert not bad, f"state leaves without the slot dimension: {bad}"
+            for r in self._replicas:
+                with r.current():
+                    r.state = {
+                        "tail": torch.zeros(per, self._tail_len, device=r.device),
+                        "carry": tuple(torch.zeros((per,) + tuple(c.shape[1:]), dtype=c.dtype,
+                                                   device=r.device) for c in carries),
+                        "enc": r.model.init_streaming_state(per),
+                    }
+                bad = [tuple(a.shape) for a in _leaves(r.state)
+                       if a.dim() == 0 or a.shape[0] != per]
+                assert not bad, f"state leaves without the slot dimension: {bad}"
         self._emits = self._emission_schedule([c.shape[1] for c in carries])
 
         # Each stream's batch-1 session (its first chunk and its flush).
         self._sessions: List[Optional[StreamingASRSession]] = [None] * n_slots
-        self._last_enc: Optional[torch.Tensor] = None  # the last tick's encoder output
 
         # Final pass: every stream's encoder output, kept on the device.
         self.final_decode = final_decode
@@ -175,9 +226,14 @@ class StreamingServer(SlotEngine):
         self._decode_opts = dict(decode_opts or {})
         self._enc_acc: List[Optional[List[torch.Tensor]]] = [None] * n_slots
         self.lm_model = lm_model
-        self._s2s_searcher = None
-        if final_decode == "s2s":
-            self._s2s_searcher = S2SBeamSearcher(model, beam_size=beam_size,
+        lms = {str(home): lm_model}
+        for r in self._replicas:
+            if lm_model is not None and str(r.device) not in lms:
+                lms[str(r.device)] = copy.deepcopy(lm_model).to(r.device)
+            r.lm_model = lms.get(str(r.device))
+            if final_decode == "s2s":
+                with r.current():
+                    r.searcher = S2SBeamSearcher(r.model, beam_size=beam_size,
                                                  **self._decode_opts)
 
     # ------------------------------------------------------------------
@@ -201,16 +257,20 @@ class StreamingServer(SlotEngine):
             m = e
         return emits
 
-    def _tick_fn(self, state, audio: torch.Tensor, mask: torch.Tensor):
-        """audio (n_slots, chunk_samples) float32, mask (n_slots,) bool ->
-        (best ids (n_slots, T'), enc (n_slots, T', d_model), new state)."""
-        model, fe = self.model, self.frontend
+    def _replica(self, slot: int) -> _Replica:
+        return self._replicas[slot // len(self._replicas[0].rows)]
+
+    def _tick_fn(self, rep: _Replica, state, audio: torch.Tensor, mask: torch.Tensor):
+        """One replica's tick over its rows R: audio (R, chunk_samples)
+        float32, mask (R,) bool -> (best ids (R, T'), enc (R, T', d_model),
+        new state)."""
+        model, fe = rep.model, self.frontend
         window = torch.cat([state["tail"], audio], dim=1)
         feats = log_mel_spectrogram(
             window, sample_rate=fe.sample_rate, n_fft=fe.n_fft, n_mels=fe.n_mels,
             win_length_ms=fe.win_length_ms, hop_length_ms=fe.hop_length_ms, center=False)
-        if self.normalizer is not None:
-            feats = apply_normalizer(self.normalizer, feats)
+        if rep.normalizer is not None:
+            feats = apply_normalizer(rep.normalizer, feats)
         assert feats.shape[1] == self.chunk_frames, feats.shape
         new_tail = window[:, self.chunk_frames * self.hop:]
         x = feats[..., None]
@@ -230,26 +290,38 @@ class StreamingServer(SlotEngine):
     def _open(self, slot: int) -> None:
         acc = [] if self.final_decode is not None else None
         self._enc_acc[slot] = acc
+        rep = self._replica(slot)
         self._sessions[slot] = StreamingASRSession(
-            self.model, self.frontend, self.normalizer, self.chunk_frames, enc_sink=acc)
+            rep.model, self.frontend, rep.normalizer, self.chunk_frames, enc_sink=acc)
 
     def _bootstrap(self, slot: int, audio: np.ndarray) -> List[int]:
         """A fresh stream's first chunk: the exact batch-1 session, then its
-        state promoted into the slot row."""
-        sess = self._sessions[slot]
-        toks = sess.feed(audio[None])[0]
-        assert self._state_shapes(sess) == self._template, (
-            "bootstrap did not land on the steady template")
-        row = {"tail": torch.from_numpy(sess.audio_tail.astype(np.float32)).to(self.device),
-               "carry": tuple(sess.fe_stream.carry), "enc": sess.enc_state}
-        self._state = tree_insert(self._state, row, slot)
+        state promoted into the slot row, on the slot's replica."""
+        sess, rep = self._sessions[slot], self._replica(slot)
+        with rep.current():
+            toks = sess.feed(audio[None])[0]
+            assert self._state_shapes(sess) == self._template, (
+                "bootstrap did not land on the steady template")
+            row = {"tail": torch.from_numpy(sess.audio_tail.astype(np.float32)).to(rep.device),
+                   "carry": tuple(sess.fe_stream.carry), "enc": sess.enc_state}
+            rep.state = tree_insert(rep.state, row, slot - rep.rows.start)
         return toks
 
     def _steady(self, audio: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        best, self._last_enc, self._state = self._tick_fn(
-            self._state, torch.from_numpy(audio).to(self.device),
-            torch.from_numpy(mask).to(self.device))
-        return best.cpu().numpy()
+        """Every replica's tick launched back to back, then one copy of all
+        the argmaxes to the host. The inputs go to the devices first: a copy
+        from pageable memory waits for the work queued before it."""
+        inputs = [(torch.from_numpy(audio[r.rows.start:r.rows.stop]).to(r.device),
+                   torch.from_numpy(mask[r.rows.start:r.rows.stop]).to(r.device))
+                  for r in self._replicas]
+        bests = []
+        for rep, (chunk, rows) in zip(self._replicas, inputs):
+            with rep.current():
+                best, rep.last_enc, rep.state = self._tick_fn(rep, rep.state, chunk, rows)
+            bests.append(best)
+        if len(bests) > 1:
+            bests = [torch.cat([b.to(self.device, non_blocking=True) for b in bests])]
+        return bests[0].cpu().numpy()
 
     def _emit(self, slot: int, best: np.ndarray) -> List[int]:
         sess = self._sessions[slot]
@@ -257,38 +329,39 @@ class StreamingServer(SlotEngine):
         sess._frames_done += self.chunk_frames
         if self._enc_acc[slot] is not None:
             # A copy: a view would keep the whole tick's output alive.
-            self._enc_acc[slot].append(self._last_enc[slot:slot + 1].clone())
+            rep = self._replica(slot)
+            row = slot - rep.rows.start
+            self._enc_acc[slot].append(rep.last_enc[row:row + 1].clone())
         return sess._collapse(best[None])[0]
 
     def _flush(self, slot: int, rest: np.ndarray) -> List[int]:
         """The row demoted back into the session, which takes the rest of
         the audio and flushes."""
-        sess = self._sessions[slot]
-        if self._promoted[slot]:
-            row = tree_extract(self._state, slot)
-            sess.audio_tail = row["tail"].cpu().numpy()
-            sess.fe_stream.carry = list(row["carry"])
-            sess.enc_state = row["enc"]
-            self._promoted[slot] = False
-        out = list(sess.feed(rest[None])[0]) if rest.size else []
-        return out + list(sess.finish()[0])
+        sess, rep = self._sessions[slot], self._replica(slot)
+        with rep.current():
+            if self._promoted[slot]:
+                row = tree_extract(rep.state, slot - rep.rows.start)
+                sess.audio_tail = row["tail"].cpu().numpy()
+                sess.fe_stream.carry = list(row["carry"])
+                sess.enc_state = row["enc"]
+                self._promoted[slot] = False
+            out = list(sess.feed(rest[None])[0]) if rest.size else []
+            return out + list(sess.finish()[0])
 
     def _close(self, slot: int) -> None:
         self._sessions[slot] = None
         self._enc_acc[slot] = None
 
-    def _ctc_log_probs(self, enc: torch.Tensor) -> torch.Tensor:
-        return F.log_softmax(dense(enc.float(), self.model.ctc_head, torch.float32), dim=-1)
-
-    def _final_ctc(self, lp: torch.Tensor, lens: torch.Tensor):
+    def _final_ctc(self, rep: _Replica, lp: torch.Tensor, lens: torch.Tensor):
         opts = self._decode_opts
         prune = {k: opts[k] for k in ("beam_prune_logp", "token_prune_min_logp") if k in opts}
-        if self.lm_model is None:
+        lm = rep.lm_model
+        if lm is None:
             return ctc_beam_search(lp, lens, beam_size=self.beam_size, **prune)
         toks, lens_n, scores = ctc_beam_search_nbest(
             lp, lens, nbest=opts.get("nbest", min(self.beam_size, 10)),
             beam_size=self.beam_size, **prune)
-        return rescore_nbest(toks, lens_n, scores, self.lm_model,
+        return rescore_nbest(toks, lens_n, scores, lm,
                              lm_weight=opts.get("lm_weight", 0.6),
                              temperature_lm=opts.get("temperature_lm", 1.0))
 
@@ -306,23 +379,25 @@ class StreamingServer(SlotEngine):
         if self.final_decode is None:
             raise ValueError("engine built without final_decode")
         slot = self._slot_of_sid[sid]
-        acc = self._enc_acc[slot]
+        acc, rep = self._enc_acc[slot], self._replica(slot)
         tail = self.finish(sid)  # the session's enc_sink takes the flush chunks
         if not acc:
             return (tail, [], []) if want_times else (tail, [])
-        enc = torch.cat(acc, dim=1)  # (1, T, d_model), compute dtype
-        t = enc.shape[1]
-        enc_p = F.pad(enc, (0, 0, 0, (-t) % FINAL_BUCKET))
-        lens = torch.tensor([t], dtype=torch.int32, device=self.device)
-        lp = self._ctc_log_probs(enc_p)
-        if self.final_decode == "ctc_beam":
-            toks, out_lens = self._final_ctc(lp, lens)
-        else:
-            toks, out_lens, _ = self._s2s_searcher(enc_p, lens, ctc_log_probs=lp)
-        final = toks[0, :int(out_lens[0])].tolist()
-        if not want_times:
-            return tail, final
-        ids, n, ons, offs, confs = (x.cpu() for x in ctc_greedy_decode_with_times(lp, lens))
+        with rep.current():  # the search runs on the slot's replica
+            enc = torch.cat(acc, dim=1)  # (1, T, d_model), compute dtype
+            t = enc.shape[1]
+            enc_p = F.pad(enc, (0, 0, 0, (-t) % FINAL_BUCKET))
+            lens = torch.tensor([t], dtype=torch.int32, device=rep.device)
+            lp = F.log_softmax(dense(enc_p.float(), rep.model.ctc_head, torch.float32), dim=-1)
+            if self.final_decode == "ctc_beam":
+                toks, out_lens = self._final_ctc(rep, lp, lens)
+            else:
+                toks, out_lens, _ = rep.searcher(enc_p, lens, ctc_log_probs=lp)
+            final = toks[0, :int(out_lens[0])].tolist()
+            if not want_times:
+                return tail, final
+            times = ctc_greedy_decode_with_times(lp, lens)
+        ids, n, ons, offs, confs = (x.cpu() for x in times)
         spans = [(int(ids[0, i]), int(ons[0, i]), int(offs[0, i]), float(confs[0, i]))
                  for i in range(int(n[0]))]
         return tail, final, spans
@@ -331,6 +406,14 @@ class StreamingServer(SlotEngine):
     def frame_seconds(self) -> float:
         """Seconds of one encoder output frame."""
         return encoder_frame_seconds(self.frontend, self.model.cfg)
+
+
+def _indexed(device) -> torch.device:
+    """A device with its index ("cuda" is the current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _leaves(tree) -> List:

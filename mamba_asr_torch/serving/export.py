@@ -272,14 +272,15 @@ def _streaming_fns(server):
     from mamba_asr_torch.ops.fbank import log_mel_spectrogram
     from mamba_asr_torch.training.normalizer import apply_normalizer
 
+    (replica,) = server._replicas  # a bundle is one device's
     model, fe, normalizer = server.model, server.frontend, server.normalizer
     front = model.frontend
     hop, win = server.hop, server.win
     chunk = server.chunk_samples
     ds = model.cfg.downsample
     tail_len = server._tail_len
-    carry_lens = [c.shape[1] for c in server._state["carry"]]
-    spec = tree_flatten(server._state)[1]
+    carry_lens = [c.shape[1] for c in replica.state["carry"]]
+    spec = tree_flatten(replica.state)[1]
     dev = server.device
 
     def fbank_norm(window):
@@ -294,7 +295,8 @@ def _streaming_fns(server):
         return torch.log_softmax(logits, dim=-1).argmax(dim=-1), new_state
 
     def tick(leaves, audio, mask):
-        best, _enc, new_state = server._tick_fn(tree_unflatten(leaves, spec), audio, mask)
+        best, _enc, new_state = server._tick_fn(replica, tree_unflatten(leaves, spec), audio,
+                                                mask)
         return best, tree_flatten(new_state)[0]
 
     def bootstrap(audio):
@@ -375,7 +377,7 @@ def export_streaming_bundle(server, out_dir: str) -> dict:
                          "exported flush consolidates chunked encoder calls)")
     os.makedirs(out_dir, exist_ok=True)
     fns, dims, dev = _streaming_fns(server)
-    leaves = [x.detach().clone() for x in tree_flatten(server._state)[0]]
+    leaves = [x.detach().clone() for x in tree_flatten(server._replicas[0].state)[0]]
     rows = [x[:1].clone() for x in leaves]
     n_slots, chunk = server.n_slots, server.chunk_samples
 

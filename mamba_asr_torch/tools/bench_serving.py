@@ -84,10 +84,12 @@ def device_ms_per_call(fn, calls: int) -> float:
     return total_us / 1e3 / calls
 
 
-def filled_engine(model, frontend, n_slots: int, chunk_frames: int, seed: int):
-    """An engine with every slot holding a promoted noise stream, and a
-    feed() that hands every stream its next chunk."""
-    engine = StreamingServer(model, frontend, None, n_slots=n_slots, chunk_frames=chunk_frames)
+def filled_engine(model, frontend, n_slots: int, chunk_frames: int, seed: int, devices=None):
+    """An engine (over `devices`, default the model's) with every slot
+    holding a promoted noise stream, and a feed() that hands every stream
+    its next chunk."""
+    engine = StreamingServer(model, frontend, None, n_slots=n_slots, chunk_frames=chunk_frames,
+                             devices=devices)
     sids = [engine.attach() for _ in range(n_slots)]
     rng = np.random.default_rng(seed)
 
@@ -121,7 +123,8 @@ def bench_slots(model, frontend, n_slots: int, chunk_frames: int, ticks: int, se
     audio = torch.zeros(n_slots, engine.chunk_samples, device=device)
     mask = torch.ones(n_slots, dtype=torch.bool, device=device)
     with torch.no_grad():
-        tick_fn_ms = median_ms(lambda: engine._tick_fn(engine._state, audio, mask),
+        rep = engine._replicas[0]  # one replica: all the slots
+        tick_fn_ms = median_ms(lambda: engine._tick_fn(rep, rep.state, audio, mask),
                                KERNEL_REPS, device)
     med = statistics.median(wall)
     device_ms = None

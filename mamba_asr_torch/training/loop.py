@@ -37,12 +37,15 @@ train_log.txt, steps.jsonl, the checkpoints (it alone creates save/) and
 wer_<split>.txt, with a barrier after each write; a checkpoint holds
 every rank's generator states (`rng`, by world rank), and each rank
 resumes from the same checkpoint with its own. Under pipeline
-parallelism each rank holds one stage's layers: a checkpoint holds the
-whole model and optimizer state in a single process's layout (the stages
-gathered over the pipe axis, JAX's `tree_fetch_global`), so it resumes in
-one process and one process's resumes under pp; validation and the test
-pass decode with the whole model, gathered onto every rank
-(`training.trainer.Trainer.eval_model`), not through the pipeline.
+parallelism each rank holds one stage's layers, under tensor parallelism
+its slices of the large parameters: a checkpoint holds the whole model
+and optimizer state in a single process's layout (the stages gathered
+over the pipe axis, the slices over the model axis: JAX's
+`tree_fetch_global`), so it resumes in one process and one process's
+resumes under pp or tp; validation and the test pass decode with the
+whole model, gathered onto every rank
+(`training.trainer.Trainer.eval_model`), not through the pipeline or the
+slices.
 """
 
 from __future__ import annotations
@@ -103,7 +106,8 @@ class Trainer:
         self.step = StepTrainer(cfg.model, cfg.frontend,
                                 dataclasses.replace(cfg.train, seed=cfg.seed),
                                 cfg.specaug, state_dict=state_dict, device=device, mesh=mesh,
-                                microbatches=cfg.parallel.pipeline_microbatches)
+                                microbatches=cfg.parallel.pipeline_microbatches,
+                                min_shard_elements=cfg.parallel.min_shard_elements)
         self.device = self.step.device
         self.is_s2s = cfg.model.num_decoder_layers > 0
         self.lm = None if lm is None else cast_lm_weights(lm)

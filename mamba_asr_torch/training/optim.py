@@ -9,8 +9,9 @@ apply_accumulated_update).
   the backward head's is `A_b_log`, a 2-D tensor, so the mask names it.
 - Global-norm clipping of the accumulated gradient, as
   optax.clip_by_global_norm: g * max_norm / norm where norm > max_norm.
-  The norm is summed in float64 (under pipeline parallelism by the
-  trainer's `norm_fn`, which adds the other stages' squares). In float32
+  The norm is summed in float64 (under pipeline or tensor parallelism by
+  the trainer's `norm_fn`, which adds the other stages' or slices'
+  squares). In float32
   (optax, and torch's clip_grad_norm_) it overflows to inf when an
   element passes ~1e19, which the JAX package's zero-bias init reaches
   in the first steps where SpecAugment zeroes whole frames (a LayerNorm
@@ -68,10 +69,12 @@ class AccumulatingAdamW:
     parameters' `.grad` as one micro-step's gradients and returns whether
     it updated the parameters (every `grad_accumulation_factor`-th call).
     Parameters on the meta device (other pipeline stages' layers) are left
-    out. norm_fn: the clip's global norm of the parameters' gradients, in
-    their order. The state dict keys each parameter's state by its name,
-    so a rank holding some of the parameters reads its share of a whole
-    model's state."""
+    out; a tensor-parallel rank's parameters are its slices, and so are
+    their moments and accumulators. norm_fn: the clip's global norm of
+    the parameters' gradients, in their order. The state dict keys each
+    parameter's state by its name, so a rank holding some of the
+    parameters (or slices, which the trainer cuts) reads its share of a
+    whole model's state."""
 
     def __init__(self, named_params: Iterable[Tuple[str, nn.Parameter]], cfg,
                  norm_fn: Callable[[Sequence[torch.Tensor]], torch.Tensor] = global_norm):

@@ -39,29 +39,39 @@ takes this rank's rows of the global batch:
   device) and their AdamW moments; the front end, the projection, the
   stack's final LN, the heads and any decoder are held by every rank
   (JAX's `place_state(pipeline_layers=)`);
+- with a model axis of n > 1 ranks (`parallel.tensor_parallel`), each
+  rank holds its slice of every parameter JAX's rule shards
+  (parallel/tensor.py, at `min_shard_elements`) and the moments and
+  accumulator of that slice; the sharded Linears compute their own
+  output columns and gather them, the other sharded parameters are
+  gathered before use, and each rank's copy of the loss is scaled by
+  1 / n alike (tensor parallelism does not combine with sp or pp);
 - after the backward the gradients are summed: the parameters every rank
-  holds over the world, a stage's layers over the data axis (the ranks
-  holding that stage), before the global norm and the clip; under pp the
-  norm adds the stages' squares over the pipe axis in float64, so every
-  rank clips by the whole model's norm; the returned losses are the
-  global ones.
+  holds over the world, a stage's layers or a parameter's slice over the
+  data axis (the ranks holding that stage or slice), before the global
+  norm and the clip; under pp or tp the norm adds the stages' or slices'
+  squares over the pipe or model axis in float64, so every rank clips by
+  the whole model's norm; the returned losses are the global ones.
 `model_state`, `optimizer_state` and `eval_model` give the whole model
-and its optimizer state in a single process's layout (under pp,
-collectives that gather the stages over the pipe axis), and
-`load_model_state` / `load_optimizer_state` take that layout back.
+and its optimizer state in a single process's layout (under pp or tp,
+collectives that gather the stages over the pipe axis or the slices over
+the model axis), and `load_model_state` / `load_optimizer_state` take
+that layout back.
 The port sums with its own flat all-reduce (parallel/collectives.py), not
 DDP: the loss is normalised by the global weight, so the gradients must
 be summed, not averaged; the sp forward is split around a module call DDP
 would wrap; and one world-size-1 step is bit-equal to the plain one.
 Random draws: the dropout and SpecAugment generators are seeded from the
-data rank (rank 0's are a single process's), so the ranks of a seq or
-pipe line, which hold the same rows, draw the same masks outside the
-stack; inside it dropout draws from a stream that also folds in the seq
-or pipe rank.
+data rank (rank 0's are a single process's), so the ranks of a seq,
+pipe or model line, which hold the same rows, draw the same masks outside
+the stack; inside it dropout draws from a stream that also folds in the
+seq or pipe rank (never the model rank: a model line's ranks compute the
+same activations, and their masks must agree everywhere).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
@@ -82,6 +92,11 @@ from mamba_asr_torch.parallel.encoder_parallel import (
     stage_layers,
 )
 from mamba_asr_torch.parallel.mesh import Mesh
+from mamba_asr_torch.parallel.tensor import (
+    MIN_SHARD_ELEMENTS,
+    TensorParallel,
+    check_tensor_parallel,
+)
 from mamba_asr_torch.training.normalizer import (
     NormalizerState,
     apply_normalizer,
@@ -172,7 +187,9 @@ class Trainer:
     multi-process run (see the module doc), or None for one process.
     microbatches: the pipeline's per-rank microbatch count
     (`parallel.pipeline_microbatches`), required when the mesh has a pipe
-    axis and read only then.
+    axis and read only then. min_shard_elements: the tensor-parallel
+    rule's size threshold (`parallel.min_shard_elements`), read only when
+    the mesh has a model axis.
     """
 
     def __init__(
@@ -186,11 +203,14 @@ class Trainer:
         device: Optional[Union[str, torch.device]] = None,
         mesh: Optional[Mesh] = None,
         microbatches: Optional[int] = None,
+        min_shard_elements: int = MIN_SHARD_ELEMENTS,
     ):
         self.device = resolve_device(device)
         self.mesh, self.cfg, self.microbatches = mesh, cfg, microbatches
         self.n_seq = 1 if mesh is None else mesh.seq.size
         self.n_pipe = 1 if mesh is None else mesh.pipe.size
+        self.n_model = 1 if mesh is None else mesh.model.size
+        check_tensor_parallel(self.n_model, self.n_seq, self.n_pipe)
         if self.n_seq > 1:
             check_sequence_parallel(cfg.encoder_module, train.dynchunk_size)
         if self.n_pipe > 1:
@@ -215,14 +235,22 @@ class Trainer:
         for i in range(cfg.num_encoder_layers):
             if i not in self.stage:  # another stage's: no storage on this rank
                 model.encoder.layers[i].to("meta")
+        self.tp = None
+        if self.n_model > 1:  # this rank's slices, cut before the move
+            self.tp = TensorParallel(model, cfg, mesh.model, min_shard_elements)
+            self.tp.shard(model)
         self.model = model._apply(lambda t: t if t.is_meta else t.to(self.device)).train()
         self.optimizer = make_optimizer(self.model, train, self._global_norm)
         # Each stack layer's name in the model, and for each optimizer
-        # parameter whether it is this stage's own (held by no other stage).
+        # parameter whether only part of the world holds it: this stage's
+        # own layers (pp) or this rank's slice (tp), summed over the data
+        # axis alone.
         names = {id(m): n for n, m in self.model.named_modules()}
         self.layer_names = [names[id(layer)] for layer in self.model.encoder.layers]
         own = {id(p) for i in self.stage for p in self.model.encoder.layers[i].parameters()}
-        self.in_stage = [self.n_pipe > 1 and id(p) in own for p in self.optimizer.params]
+        sliced = set() if self.tp is None else set(self.tp.shards)
+        self.partial = [(self.n_pipe > 1 and id(p) in own) or n in sliced
+                        for n, p in zip(self.optimizer.names, self.optimizer.params)]
         if normalizer is None:
             self.normalizer = init_normalizer(frontend.n_mels, self.device)
         else:
@@ -321,11 +349,35 @@ class Trainer:
                 feats, flens, b = self._augment(feats, flens, b)
         weight = b["weight"].float()
         self.model.train()
+        n_line = self.n_seq * self.n_pipe * self.n_model  # the ranks that hold these rows
+        self.model.zero_grad(set_to_none=True)
+        with self._materialized():
+            metrics, loss = self._forward(feats, flens, b, weight)
+            (loss / n_line if n_line > 1 else loss).backward()
+        if mesh is not None:
+            params, partial = self.optimizer.params, self.partial
+            collectives.reduce_grads_([p for p, part in zip(params, partial) if not part],
+                                      mesh.world)
+            if self.n_pipe * self.n_model > 1:  # over the ranks holding the stage or slice
+                collectives.reduce_grads_([p for p, part in zip(params, partial) if part],
+                                          mesh.data)
+            metrics = self._global_metrics(metrics)
+        grad_norm = self._global_norm([p.grad for p in self.optimizer.params]).float()
+        updated = self.optimizer.step()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return {**metrics, "grad_norm": grad_norm, "updated": torch.tensor(updated)}
+
+    def _materialized(self):
+        """The step's context: under tp the sharded parameters read raw are
+        whole within (parallel/tensor.py)."""
+        return contextlib.nullcontext() if self.tp is None else self.tp.materialized()
+
+    def _forward(self, feats, flens, b, weight):
+        """The model and the losses: ({loss, loss_ctc[, loss_att]}, loss)."""
+        mesh, tc = self.mesh, self.train
         use_decoder = self.model.has_decoder
-        tc = self.train
         tokens_bos = b["tokens_bos"] if use_decoder else None
-        n_line = self.n_seq * self.n_pipe  # the ranks that hold these rows
-        if n_line > 1:
+        if self.n_seq * self.n_pipe > 1:
             x, enc_lengths = self.model.encode_pre(feats, flens)
             with self.stack_rng.swapped():
                 if self.n_seq > 1:
@@ -356,21 +408,7 @@ class Trainer:
             metrics["loss_att"] = loss_att
         else:
             loss = loss_ctc
-        metrics = {"loss": loss, **metrics}
-        self.model.zero_grad(set_to_none=True)
-        (loss / n_line if n_line > 1 else loss).backward()
-        if mesh is not None:
-            params, in_stage = self.optimizer.params, self.in_stage
-            collectives.reduce_grads_([p for p, st in zip(params, in_stage) if not st],
-                                      mesh.world)
-            if self.n_pipe > 1:  # a stage's layers: over the ranks holding that stage
-                collectives.reduce_grads_([p for p, st in zip(params, in_stage) if st],
-                                          mesh.data)
-            metrics = self._global_metrics(metrics)
-        grad_norm = self._global_norm([p.grad for p in self.optimizer.params]).float()
-        updated = self.optimizer.step()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return {**metrics, "grad_norm": grad_norm, "updated": torch.tensor(updated)}
+        return {"loss": loss, **metrics}, loss
 
     def _global_stats(self, feats: torch.Tensor, fmask: torch.Tensor) -> NormalizerState:
         """The batch statistics of the data axis's ranks, merged in rank
@@ -387,31 +425,33 @@ class Trainer:
 
     def _global_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Each rank's losses summed over the world: the global batch's
-        (each rank of a seq or pipe line holds the whole loss, hence the
-        1 / n)."""
+        (each rank of a seq, pipe or model line holds the whole loss, hence
+        the 1 / n)."""
         vals = torch.stack([v.detach().float() for v in metrics.values()])
-        n_line = self.n_seq * self.n_pipe
+        n_line = self.n_seq * self.n_pipe * self.n_model
         if n_line > 1:
             vals = vals / n_line
         vals = collectives.reduce_(vals, self.mesh.world)
         return dict(zip(metrics, vals.unbind()))
 
-    # -- pipeline stages: the norm and the whole state --------------------------
+    # -- pipeline stages and parameter slices: the norm and the whole state ----------
 
     def _global_norm(self, grads: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
         """The float64 global norm of the optimizer parameters' gradients
         (None counts as zeros); under pp the stages' squares are summed over
-        the pipe axis, so every rank has the whole model's norm."""
-        if self.n_pipe == 1:
+        the pipe axis, under tp the slices' over the model axis, so every
+        rank has the whole model's norm."""
+        if self.n_pipe * self.n_model == 1:
             return global_norm([g for g in grads if g is not None])
-        in_stage = self.in_stage
-        held = [g for g, st in zip(grads, in_stage) if g is not None and not st]
-        mine = [g for g, st in zip(grads, in_stage) if g is not None and st]
+        partial = self.partial
+        held = [g for g, part in zip(grads, partial) if g is not None and not part]
+        mine = [g for g, part in zip(grads, partial) if g is not None and part]
         zero = torch.zeros((), dtype=torch.float64, device=self.device)
-        sq_stage = (global_norm(mine) ** 2 if mine else zero).reshape(1)
-        sq_stage = collectives.reduce_(sq_stage, self.mesh.pipe)[0]
+        sq_part = (global_norm(mine) ** 2 if mine else zero).reshape(1)
+        sq_part = collectives.reduce_(sq_part, self.mesh.pipe if self.n_pipe > 1
+                                      else self.mesh.model)[0]
         sq_held = global_norm(held) ** 2 if held else zero
-        return torch.sqrt(sq_held + sq_stage)
+        return torch.sqrt(sq_held + sq_part)
 
     def _gather_stages(self, mine: Sequence[Mapping[object, torch.Tensor]]
                        ) -> Dict[int, Dict[object, torch.Tensor]]:
@@ -440,9 +480,11 @@ class Trainer:
 
     def model_state(self) -> Dict[str, torch.Tensor]:
         """A copy of the whole model's state dict on the CPU, in a single
-        process's layout. Collective under pp: every rank of the world calls
-        it."""
+        process's layout. Collective under pp and tp: every rank of the world
+        calls it."""
         sd = self.model.state_dict()
+        if self.tp is not None:
+            return self.tp.gather_state(sd, self.device)
         if self.n_pipe > 1:
             layers = self.model.encoder.layers
             gathered = self._gather_stages([layers[i].state_dict() for i in self.stage])
@@ -452,19 +494,25 @@ class Trainer:
 
     def load_model_state(self, sd: Mapping[str, torch.Tensor]) -> None:
         """Load a single process's state dict (every key, as strict
-        loading demands); under pp this rank keeps its own stage's layers."""
+        loading demands); under pp this rank keeps its own stage's layers,
+        under tp its own slices."""
         mine = self.model.state_dict()
         if set(sd) != set(mine):
             raise KeyError(f"state dict keys differ: missing {sorted(set(mine) - set(sd))[:5]}, "
                            f"unexpected {sorted(set(sd) - set(mine))[:5]}")
+        if self.tp is not None:
+            sd = self.tp.local_state(sd)
         self.model.load_state_dict({k: v for k, v in sd.items() if not mine[k].is_meta},
                                    strict=False)
 
     def optimizer_state(self) -> dict:
         """The optimizer's state dict (keyed by parameter name) for the
-        whole model. Collective under pp: the stages' AdamW moments and
-        accumulated gradients are gathered over the pipe axis."""
+        whole model. Collective under pp and tp: the stages' (or slices')
+        AdamW moments and accumulated gradients are gathered over the pipe
+        (or model) axis."""
         sd = self.optimizer.state_dict()
+        if self.tp is not None:
+            return self._gather_slices(sd)
         if self.n_pipe == 1:
             return sd
         moments, acc, layers = sd["moments"], sd["acc"], self.model.encoder.layers
@@ -485,15 +533,41 @@ class Trainer:
                     moments.setdefault(name, {})[s[0]] = v
         return sd
 
+    def _gather_slices(self, sd: dict) -> dict:
+        """An optimizer state dict of this rank's slices made whole: every
+        sliced parameter's moments and accumulator gathered over the model
+        axis in one collective."""
+        entries = {(name, s): v for name, st in sd["moments"].items() for s, v in st.items()
+                   if torch.is_tensor(v)}
+        entries.update({(name, "acc"): v for name, v in sd["acc"].items()})
+        whole = self.tp.gather_state(entries, self.device)
+        moments = {name: dict(st) for name, st in sd["moments"].items()}
+        for (name, s), v in whole.items():
+            if s == "acc":
+                sd["acc"][name] = v
+            else:
+                moments[name][s] = v
+        return {**sd, "moments": moments}
+
     def load_optimizer_state(self, sd: dict) -> None:
         """Load an optimizer state dict of the whole model; under pp this
-        rank takes its own parameters' entries."""
+        rank takes its own parameters' entries, under tp its own slices."""
+        if self.tp is not None:
+            local = self.tp.local_state
+            moments = {}
+            for name, st in sd["moments"].items():
+                cut = local({(name, s): v for s, v in st.items()})
+                moments[name] = {s: cut[(name, s)] for s in st}
+            acc = local({(name, "acc"): v for name, v in sd["acc"].items()})
+            sd = {**sd, "moments": moments,
+                  "acc": {name: acc[(name, "acc")] for name in sd["acc"]}}
         self.optimizer.load_state_dict(sd)
 
     def eval_model(self) -> ASRModel:
-        """The whole model for evaluation: the trained one, or under pp a
-        copy on the device with every stage's layers (collective)."""
-        if self.n_pipe == 1:
+        """The whole model for evaluation: the trained one, or under pp or
+        tp a copy on the device with every stage's layers and every slice
+        (collective)."""
+        if self.n_pipe * self.n_model == 1:
             return self.model
         with torch.random.fork_rng(devices=[]):  # its torch init draws nothing of ours
             model = ASRModel(self.cfg)

@@ -11,6 +11,12 @@ never JAX.
         schedule, the ConMamba stack, the train step (with and without
         remat), a resume from a single process's state, the sp step with
         remat; writes out_dir/rank<r>.pt
+    python tests/_torch_dist_worker.py tp <case.pt> <out_dir>
+        tensor parallelism: over 2 ranks (model 2) the step on the inputs
+        of case.pt (a ConMamba and a Conformer) and a checkpoint round
+        trip; over 4 (data 2 x model 2)
+        the S2S step on each data rank's half of case.pt's batch; writes
+        out_dir/rank<r>.pt
     python tests/_torch_dist_worker.py cli <out.json> <argv as JSON>
         cli.run_training(argv) (with --distributed when MASR_* is set);
         writes the per-step losses, a fingerprint of the whole model's
@@ -190,6 +196,60 @@ def run_pp(case_path, out_dir):
     distributed.shutdown()
 
 
+def run_tp(case_path, out_dir):
+    from mamba_asr_torch.parallel import distributed
+    from mamba_asr_torch.parallel.mesh import make_mesh
+    from mamba_asr_torch.training.trainer import Trainer
+
+    rt = distributed.initialize(device="cpu")
+    grid = make_mesh(model=2)
+    case = torch.load(case_path, weights_only=False)
+    res = {"world": rt.world, "model_index": grid.model.index, "data_index": grid.data.index}
+
+    def trainer(setup, **kw):
+        return Trainer(setup["cfg"], setup["frontend"], setup["train"], setup["specaug"],
+                       state_dict=setup["state_dict"], device="cpu", mesh=grid,
+                       min_shard_elements=setup["min_shard_elements"], **kw)
+
+    def step(tr, batch):
+        m = tr.train_step(batch)
+        grads = tr.tp.gather_state(_grads(tr.model), tr.device)
+        return {"metrics": {k: float(v) for k, v in m.items()}, "grads": grads}
+
+    if rt.world == 2:
+        s = case["step"]
+        tr = trainer(s)
+        res["step"] = step(tr, s["batch"])
+        res["step"]["sharded"] = sorted(tr.tp.shards)
+        res["step"]["local"] = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+        res["conformer"] = step(trainer(case["conformer"]), case["conformer"]["batch"])
+        # Checkpoints: 2 micro-steps, the whole state; then the single
+        # process's state after 2 resumed here for the third.
+        c = case["ckpt"]
+        tr = trainer(c)
+        for b in c["batches"][:2]:
+            tr.train_step(b)
+        res["ckpt"] = {"model_state": tr.model_state(), "optimizer_state": tr.optimizer_state(),
+                       "normalizer": list(tr.normalizer),
+                       "local": {n: p.detach().clone() for n, p in tr.model.named_parameters()},
+                       "local_moments": {n: {k: v.clone() for k, v in st.items()}
+                                         for n, st in tr.optimizer.state_dict()["moments"].items()}}
+        tr = trainer(c, normalizer=c["resume"]["normalizer"])
+        tr.load_model_state(c["resume"]["model_state"])
+        tr.load_optimizer_state(c["resume"]["optimizer_state"])
+        m = tr.train_step(c["batches"][2])
+        res["resumed"] = {"metrics": {k: float(v) for k, v in m.items()},
+                          "model_state": tr.model_state()}
+    else:  # data 2 x model 2: the S2S step on this data rank's rows
+        g = case["grid"]
+        rows = len(g["batch"]["weight"]) // grid.data.size
+        half = {k: v[grid.data.index * rows:(grid.data.index + 1) * rows]
+                for k, v in g["batch"].items()}
+        res["grid"] = step(trainer(g), half)
+    torch.save(res, os.path.join(out_dir, f"rank{rt.rank}.pt"))
+    distributed.shutdown()
+
+
 def run_cli(out_json, argv):
     from mamba_asr_torch.cli import run_training, train_loader
     from mamba_asr_torch.parallel import distributed
@@ -217,5 +277,7 @@ if __name__ == "__main__":
         run_ops(sys.argv[2], sys.argv[3])
     elif sys.argv[1] == "pp":
         run_pp(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "tp":
+        run_tp(sys.argv[2], sys.argv[3])
     else:
         run_cli(sys.argv[2], json.loads(sys.argv[3]))

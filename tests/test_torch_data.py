@@ -384,9 +384,13 @@ def test_every_yaml_loads_like_jax(path):
 
 
 def test_parallel_stanza_is_refused():
-    with pytest.raises(NotImplementedError, match="parallel"):
-        loader.load_config(str(REPO / "hparams/CTC/conmamba_small.yaml"),
-                           {"parallel.tensor_parallel": 2})
+    """Tensor parallelism loads; beside sequence parallelism it is refused
+    (JAX runs the pair, the port not yet)."""
+    path = str(REPO / "hparams/CTC/conmamba_small.yaml")
+    par = loader.load_config(path, {"parallel.tensor_parallel": 2}).parallel
+    assert (par.tensor_parallel, par.min_shard_elements) == (2, 16384)
+    with pytest.raises(ValueError, match="cannot combine"):
+        loader.load_config(path, {"parallel.tensor_parallel": 2, "parallel.sequence_parallel": 2})
 
 
 def test_native_library_is_the_ports_own_build():

@@ -8,12 +8,13 @@ tests/test_torch_distributed.py).
   to the single loader's batch, and an indivisible process count raises
   (JAX's tests/test_multiprocess.py:130-188).
 - The parallel stanza loads with JAX's keys and defaults; tensor
-  parallelism, sp on a Conformer and sp with dynamic chunks raise, and
+  parallelism with sp or pp (which JAX runs, the port not yet), sp on a
+  Conformer and sp with dynamic chunks raise, and
   pipeline parallelism where JAX asserts against it: not ConMamba,
   without scan_layers, layers the stages do not divide, with sp, with
   dynamic chunks.
-- The grid: make_mesh's (data, seq, pipe) layout and refusal (more stages
-  than ranks), initialize's refusals (no group is joined), the sp ops on a
+- The grid: make_mesh's (data, model, seq, pipe) layout and refusal (more
+  stages or model ranks than ranks), initialize's refusals (no group is joined), the sp ops on a
   one-rank axis equal the plain ops.
 - A world of one gloo rank: one step through the port's collectives
   equals the plain step bit for bit.
@@ -171,8 +172,10 @@ def test_parallel_stanza_loads_like_jax():
 
 
 @pytest.mark.parametrize("yaml,over,err,match", [
-    ("CTC/conmamba_small.yaml", {"parallel.tensor_parallel": 2}, NotImplementedError,
-     "item 11"),
+    ("CTC/conmamba_small.yaml", {"parallel.tensor_parallel": 2,
+                                 "parallel.sequence_parallel": 2}, ValueError, "item 16"),
+    ("CTC/conmamba_small.yaml", {"parallel.tensor_parallel": 2, "parallel.pipeline_stages": 2,
+                                 "model.scan_layers": True}, ValueError, "cannot combine"),
     ("CTC/conmamba_small.yaml", {"parallel.pipeline_stages": 2}, ValueError, "scan_layers"),
     ("CTC/conformer_large.yaml", {"parallel.pipeline_stages": 2, "model.scan_layers": True},
      ValueError, "ConMamba"),
@@ -203,6 +206,12 @@ def test_single_process_mesh_and_refusals():
         mesh.make_mesh(seq=2)
     with pytest.raises(ValueError, match="does not fit"):  # more stages than ranks
         mesh.make_mesh(pipe=2)
+    with pytest.raises(ValueError, match="does not fit"):  # more model ranks than ranks
+        mesh.make_mesh(model=2)
+    assert (m.model.size, m.model.index, m.model.group) == (1, 0, None)
+    # (data, model, seq, pipe) = (2, 2, 1, 1), JAX's order: rank = data * 2 + model.
+    assert mesh._lines((2, 2, 1, 1), 1) == [[0, 1], [2, 3]]
+    assert mesh._lines((2, 2, 1, 1), 0) == [[0, 2], [1, 3]]
     # The data-major layout of a 2 x 3 grid.
     assert mesh._lines((2, 3), 1) == [[0, 1, 2], [3, 4, 5]]
     assert mesh._lines((2, 3), 0) == [[0, 3], [1, 4], [2, 5]]

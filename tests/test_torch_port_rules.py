@@ -122,8 +122,10 @@ def test_serve_refuses_what_is_not_ported():
     # bundle is refused by the loader.
     with pytest.raises(ValueError, match="not a torch.export bundle"):
         serve.main([yaml, "--bundle", "b"])
-    with pytest.raises(SystemExit, match="Queue 1 item 12"):
-        serve.main([yaml, "--data_parallel", "2", "--device", "cpu"])
+    # --data_parallel is ported (tests/test_torch_serving_replicas.py); a
+    # bundle still serves on one device, as JAX's bundle path does.
+    with pytest.raises(SystemExit, match="a bundle serves on one device"):
+        serve.main([yaml, "--bundle", "b", "--data_parallel", "2"])
 
 
 NO_TORCH_CLIENT = """

@@ -318,7 +318,7 @@ def test_attention_encoders_match_their_session(encoder):
             got[s] += toks
     for s, w in zip(sids, wavs):
         assert got[s] + server.finish(s) == session_ids(pm, w, CHUNK * HOP)
-    lens = server._state["enc"][0]["mha_left_len"]
+    lens = server._replicas[0].state["enc"][0]["mha_left_len"]
     assert lens.dtype == torch.int32 and lens.shape == (3,)
 
 
